@@ -1,0 +1,182 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) of the partitioner's
+three hot loops, and the module that builds and loads them.
+
+  pins_count  — per-edge partition pin counts (refinement, every repetition)
+  gains       — per-node connection weights to every partition (refinement)
+  pair_scores — per-node neighbour histogram eta + inbound intersection
+                inter (coarsening, every level)
+
+Each subpackage holds ``ops.py`` (tile bounds, the ``fits_kernel``
+predicate and the wrapper) and ``ref.py`` (the plain PyTorch version of the
+same function). The CUDA sources live in ``repro_torch/csrc/``.
+
+Dispatch contract
+-----------------
+
+* A kernel runs only under ``use_kernels=True`` and behind its
+  ``fits_kernel`` predicate, as in the JAX package: a level whose extents
+  exceed the level-0 tile bounds takes the plain segment path
+  (``coarsen.score_slots``, ``refine.conn_segments``,
+  ``refine.pins_matrix``), and ``PartitionResult.kernel_path`` counts the
+  branch taken exactly as the JAX package counts it.
+* Inside a wrapper the tensors' device decides, never
+  ``torch.cuda.is_available()``: tensors on the CPU run the plain version,
+  tensors on a CUDA device launch the kernel or raise. Nothing catches a
+  failed build or launch to fall back.
+* Every launch adds one to ``LAUNCHES[name]``; nothing else does.
+
+Build
+-----
+
+``library()`` compiles every ``csrc/*.cu`` with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3`` (one ``nvcc`` per source, all started
+together) and links them into one shared library with a plain C interface,
+loaded with ``ctypes``. The build goes to ``build/repro_torch/<hash>/`` at
+the root of the checkout, keyed by a hash of the sources and flags, at
+first use. Each C entry point launches on the stream it is given, allocates
+nothing and returns ``cudaGetLastError()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: (argument types) -> cudaError_t as int
+_SIGNATURES = {
+    # edge_off, edge_pins, edge_nsrc, parts, pins, pins_in,
+    # ecap, ncap, kcap, stream
+    "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # node_off, node_edges, edge_w, pins, conn, ncap, ecap, kcap, h, stream
+    "gains_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # nbr, trav_m, trav_w, trav_d, ucnt, lcnt, eta, inter,
+    # rows, u, l, stream
+    "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _build(out_dir: Path) -> Path:
+    """Compile every source to an object in parallel, then link."""
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out_dir.parent, prefix=".tmp-"))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{src.name}:\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        so = tmp / "librepro_kernels.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so), *map(str, sorted(tmp.glob("*.o")))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp, out_dir)  # atomic: a concurrent build loses the race
+    except OSError:
+        if not out_dir.exists():
+            raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out_dir / "librepro_kernels.so"
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in _sources() + sorted(CSRC.glob("*.cuh")):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        out_dir = BUILD_ROOT / h.hexdigest()[:16]
+        so = out_dir / "librepro_kernels.so"
+        if not so.exists():
+            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+            so = _build(out_dir)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(name: str, counter: str, *args) -> None:
+    """Call the C entry point ``name`` on the current CUDA stream, count the
+    launch under ``counter`` and raise on a nonzero ``cudaError_t``."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}: "
+                           f"{lib.repro_error_string(err).decode()}")
+    LAUNCHES[counter] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple | None = None, device: torch.device | None = None):
+    """Validate a tensor handed to a kernel: CUDA, dtype, shape, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed int32 indexing")

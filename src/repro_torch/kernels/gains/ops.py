@@ -1,0 +1,53 @@
+"""Wrapper of the gains kernel: ``conn_w[n, p] = sum_{e in I(n)} w(e) *
+[pins(p, e) > 0]``, the term of every node's move gains that refinement
+recomputes on each repetition, as a drop-in for the segment path of
+``core.refine.propose_moves``.
+
+The CUDA kernel (``csrc/gains.cu``) reads the node incidence CSR and the
+int32 pins rows directly; ``h_bound``/``fits_kernel`` keep the JAX
+package's incidence tile bound, so ``PartitionResult.kernel_path`` matches
+it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core.hypergraph import Caps, DeviceHypergraph
+from repro_torch.kernels.gains import ref
+from repro_torch.utils import segops
+
+
+def h_bound(caps: Caps) -> int:
+    """Incidence tile width: the level-0 max node degree rounded up to 8,
+    clamped by the pin capacity."""
+    return min(segops.round_up(caps.h0, 8), segops.round_up(caps.p, 8))
+
+
+def fits_kernel(d: DeviceHypergraph, caps: Caps) -> bool:
+    """Every live node's incidence degree fits ``h_bound``."""
+    deg = d.node_off[1:] - d.node_off[:-1]
+    ids = torch.arange(caps.n, device=d.device)
+    return bool(torch.where(ids < d.n_nodes, deg, 0).max() <= h_bound(caps))
+
+
+def conn_weights(d: DeviceHypergraph, pins: torch.Tensor, caps: Caps,
+                 kcap: int) -> torch.Tensor:
+    """conn_w ``[Ncap, kcap]`` f32 from ``pins`` ``[kcap, Ecap]`` (a view of
+    contiguous ``[Ecap, kcap]`` rows). CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    h = h_bound(caps)
+    if not pins.is_cuda:
+        return ref.conn_weights_ref(d, pins, caps, h)
+    dev = pins.device
+    rows = pins.T
+    kernels.check(rows, "pins rows", torch.int32, (caps.e, kcap), dev)
+    kernels.check(d.node_off, "node_off", torch.int32, (caps.n + 1,), dev)
+    kernels.check(d.node_edges, "node_edges", torch.int32, (caps.p,), dev)
+    kernels.check(d.edge_w, "edge_w", torch.float32, (caps.e,), dev)
+    conn = torch.empty((caps.n, kcap), dtype=torch.float32, device=dev)
+    kernels.check(conn, "conn", torch.float32)
+    kernels.launch("gains_launch", "gains", d.node_off.data_ptr(),
+                   d.node_edges.data_ptr(), d.edge_w.data_ptr(),
+                   rows.data_ptr(), conn.data_ptr(), caps.n, caps.e, kcap, h)
+    return conn

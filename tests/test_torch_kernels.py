@@ -1,0 +1,245 @@
+"""Port parity for the three hot-loop kernels' functions.
+
+On the CPU each port wrapper runs its plain PyTorch version; these tests
+hold it against the JAX package's Pallas kernel in interpret mode (shape
+sweeps, and the ops-level wrappers on real levels), check the
+``fits_kernel`` predicates at their boundaries, and check that CPU tensors
+never reach a CUDA launch. The CUDA kernels themselves run only on a card:
+``test_cuda_kernels_match_plain_versions`` is marked ``cuda`` and skips
+without one (``python3 chip_smoke.py`` holds them at full size)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import generate as jgen
+from repro.core import hypergraph as jhg
+from repro.kernels.gains import ops as jg_ops
+from repro.kernels.gains.kernel import gains_pallas
+from repro.kernels.pair_scores import ops as jps_ops
+from repro.kernels.pair_scores.kernel import pair_scores_pallas
+from repro.kernels.pins_count import ops as jpc_ops
+from repro.kernels.pins_count.kernel import pins_count_pallas
+from repro_torch import kernels as tkernels
+from repro_torch.core import generate as tgen
+from repro_torch.core import hypergraph as thg
+from repro_torch.core import refine as tre
+from repro_torch.kernels.gains import ops as tg_ops
+from repro_torch.kernels.gains import ref as tg_ref
+from repro_torch.kernels.pair_scores import ops as tps_ops
+from repro_torch.kernels.pair_scores import ref as tps_ref
+from repro_torch.kernels.pins_count import ops as tpc_ops
+from repro_torch.kernels.pins_count import ref as tpc_ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run several workers at once, and
+    torch's per-op thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x))
+
+
+_j_pairs = jax.jit(jhg.build_pairs, static_argnames="caps")
+_j_nbrs = jax.jit(jhg.build_neighbors, static_argnames="caps")
+_j_ps_fits = jax.jit(jps_ops.fits_kernel, static_argnames="caps")
+_j_ps = jax.jit(jps_ops.score_slots_kernel, static_argnames="caps")
+_j_pc = jax.jit(jpc_ops.pins_matrix_kernel, static_argnames=("caps", "kcap"))
+_j_conn = jax.jit(jg_ops.conn_weights, static_argnames=("caps", "kcap"))
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+@pytest.mark.parametrize("e,d,k", [(8, 128, 8), (16, 256, 16), (32, 128, 4),
+                                   (8, 384, 64)])
+def test_pins_count_sweep(e, d, k, rng):
+    parts = rng.integers(0, k + 1, size=(e, d)).astype(np.int32)
+    dst = rng.integers(0, 2, size=(e, d)).astype(np.int32)
+    p1, pi1 = pins_count_pallas(jnp.asarray(parts), jnp.asarray(dst), k,
+                                te=8, dc=128)
+    p2, pi2 = tpc_ref.pins_count_ref(_t(parts), _t(dst), k)
+    np.testing.assert_array_equal(p2.numpy(), _np(p1))
+    np.testing.assert_array_equal(pi2.numpy(), _np(pi1))
+
+
+@pytest.mark.parametrize("n,u,l", [(8, 128, 128), (16, 128, 256),
+                                   (8, 256, 384)])
+def test_pair_scores_sweep(n, u, l, rng):
+    nbr = rng.integers(0, 60, size=(n, u)).astype(np.int32)
+    nbr[:, u // 2:] = -1
+    m = rng.integers(0, 60, size=(n, l)).astype(np.int32)
+    m[:, int(l * 0.8):] = -2
+    w = rng.random((n, l)).astype(np.float32)
+    dd = rng.integers(0, 2, size=(n, l)).astype(np.int32)
+    e1, i1 = pair_scores_pallas(*map(jnp.asarray, (nbr, m, w, dd)), tn=8,
+                                lc=128)
+    e2, i2 = tps_ref.pair_scores_ref(*map(_t, (nbr, m, w, dd)))
+    np.testing.assert_allclose(e2.numpy(), _np(e1), atol=1e-5)
+    np.testing.assert_array_equal(i2.numpy(), _np(i1))
+
+
+@pytest.mark.parametrize("n,h,e,k", [(8, 8, 16, 8), (16, 16, 64, 16),
+                                     (8, 4, 32, 128)])
+def test_gains_sweep(n, h, e, k, rng):
+    inc = rng.integers(0, e, size=(n * h,)).astype(np.int32)
+    w = rng.random((n, h)).astype(np.float32)
+    pnz = (rng.random((e, k)) > 0.5).astype(np.float32)
+    c1 = gains_pallas(jnp.asarray(inc), jnp.asarray(w), jnp.asarray(pnz),
+                      h=h)
+    c2 = tg_ref.gains_ref(_t(inc.reshape(n, h)), _t(w),
+                          _t(pnz.astype(np.int32)))
+    np.testing.assert_allclose(c2.numpy(), _np(c1), atol=1e-5)
+
+
+def _levels():
+    """Level 0 of two graphs, both packages, plus a parts vector."""
+    out = []
+    for name, kw, k in (
+            ("snn_smallworld", dict(n_nodes=90, fanout=5, seed=11), 9),
+            ("snn_layered", dict(n_layers=4, width=48, fanout=6, window=12,
+                                 seed=2), 8)):
+        jh, th = getattr(jgen, name)(**kw), getattr(tgen, name)(**kw)
+        caps = jhg.Caps.for_host(jh)
+        parts = (np.arange(caps.n) * k // caps.n).astype(np.int32)
+        out.append((caps, jhg.device_from_host(jh, caps),
+                    thg.device_from_host(th, thg.Caps.for_host(th), "cpu"),
+                    parts, 1 << (k - 1).bit_length()))
+    return out
+
+
+def test_ops_plain_versions_match_pallas_on_real_levels():
+    for caps, jd, td, parts, kcap in _levels():
+        tc = thg.Caps(**dataclasses.asdict(caps))
+        jp = _j_pairs(jd, caps)
+        jn = _j_nbrs(jp, jd, caps)
+        tp = thg.build_pairs(td, tc)
+        tn = thg.build_neighbors(tp, td, tc)
+        assert bool(_j_ps_fits(jd, jn, jp, caps)) \
+            == tps_ops.fits_kernel(tn, tp, tc) is True
+        je, ji = _j_ps(jd, jn, jp, caps)
+        te, ti = tps_ops.score_slots_kernel(tn, tp, tc)
+        np.testing.assert_allclose(te.numpy(), _np(je), atol=1e-5)
+        np.testing.assert_array_equal(ti.numpy(), _np(ji))
+
+        assert bool(jpc_ops.fits_kernel(jd, caps)) \
+            == tpc_ops.fits_kernel(td, tc) is True
+        jpins, jpins_in = _j_pc(jd, jnp.asarray(parts), caps, kcap)
+        tpins, tpins_in = tpc_ops.pins_matrix_kernel(td, _t(parts), tc, kcap)
+        np.testing.assert_array_equal(tpins.numpy(), _np(jpins))
+        np.testing.assert_array_equal(tpins_in.numpy(), _np(jpins_in))
+        assert tpins.T.is_contiguous()
+
+        assert bool(jg_ops.fits_kernel(jd, caps)) \
+            == tg_ops.fits_kernel(td, tc) is True
+        jc = _j_conn(jd, jnp.asarray(parts), jpins, caps, kcap)
+        tcw = tg_ops.conn_weights(td, tpins, tc, kcap)
+        np.testing.assert_allclose(tcw.numpy(), _np(jc), atol=1e-5)
+        # the plain gains version adds in the segment path's order
+        assert torch.equal(tcw, tre.conn_segments(td, tpins, tc, kcap))
+
+
+def _one_edge(card: int, **caps_over):
+    kw = dict(n_nodes=200, n_edges=1, k=card, seed=1, n_src=2, weighted=True)
+    jh, th = jgen.random_kuniform(**kw), tgen.random_kuniform(**kw)
+    jc = dataclasses.replace(jhg.Caps.for_host(jh), **caps_over)
+    tc = thg.Caps(**dataclasses.asdict(jc))
+    return jc, jhg.device_from_host(jh, jc), tc, thg.device_from_host(
+        th, tc, "cpu")
+
+
+@pytest.mark.parametrize("card,fits", [(129, True), (130, False),
+                                       (140, False)])
+def test_pair_scores_fits_boundary(card, fits):
+    """u0 = l0 = 1 round up to 128-wide tiles: a 129-pin edge gives every
+    pin 128 neighbours and 128 traversal entries (fits), 130 gives 129."""
+    jc, jd, tc, td = _one_edge(card, u0=1, l0=1)
+    jp = _j_pairs(jd, jc)
+    tp = thg.build_pairs(td, tc)
+    jfit = bool(_j_ps_fits(jd, _j_nbrs(jp, jd, jc), jp, jc))
+    assert jfit is fits
+    assert tps_ops.fits_kernel(thg.build_neighbors(tp, td, tc), tp, tc) is fits
+
+
+@pytest.mark.parametrize("card,fits", [(8, True), (9, False)])
+def test_pins_count_fits_boundary(card, fits):
+    jc, jd, tc, td = _one_edge(card, d_max=8)   # dbar = 8
+    assert bool(jpc_ops.fits_kernel(jd, jc)) is fits
+    assert tpc_ops.fits_kernel(td, tc) is fits
+
+
+@pytest.mark.parametrize("degree,fits", [(8, True), (9, False)])
+def test_gains_fits_boundary(degree, fits):
+    """h0 = 1 rounds up to an 8-wide incidence tile."""
+    pins = np.concatenate([[0, e + 1] for e in range(degree)]).astype(np.int32)
+    off = np.arange(0, 2 * degree + 1, 2)
+    args = dict(n_nodes=degree + 1, edge_off=off, edge_pins=pins,
+                edge_nsrc=np.ones(degree, np.int32),
+                edge_w=np.ones(degree, np.float32))
+    jh, th = jhg.HostHypergraph(**args), thg.HostHypergraph(**args)
+    jc = dataclasses.replace(jhg.Caps.for_host(jh), h0=1)
+    tc = thg.Caps(**dataclasses.asdict(jc))
+    assert bool(jg_ops.fits_kernel(jhg.device_from_host(jh, jc), jc)) is fits
+    assert tg_ops.fits_kernel(thg.device_from_host(th, tc, "cpu"), tc) is fits
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_kernel_routed_partition_matches_jax(use_kernels):
+    """The graph of tests/test_kernels.py:56-63: the port's partition with
+    the kernels' plain versions against the JAX package's with the Pallas
+    kernels in interpret mode, and both against the kernels-off run."""
+    from test_torch_partitioner import assert_partition_matches_jax
+    assert_partition_matches_jax(
+        "snn_smallworld", dict(n_nodes=90, fanout=5, seed=11),
+        dict(omega=12, delta=40, theta=2), use_kernels)
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    caps, _, td, parts, kcap = _levels()[0]
+    tc = thg.Caps(**dataclasses.asdict(caps))
+    before = dict(tkernels.LAUNCHES)
+    pins, _ = tpc_ops.pins_matrix_kernel(td, _t(parts), tc, kcap)
+    tg_ops.conn_weights(td, pins, tc, kcap)
+    tp = thg.build_pairs(td, tc)
+    tps_ops.score_slots_kernel(thg.build_neighbors(tp, td, tc), tp, tc)
+    assert tkernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """Each CUDA kernel against its plain version on the card (needs nvcc
+    and a CUDA device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    caps, _, _, parts, kcap = _levels()[1]
+    th = tgen.snn_layered(n_layers=4, width=48, fanout=6, window=12, seed=2)
+    tc = thg.Caps(**dataclasses.asdict(caps))
+    dev = torch.device("cuda")
+    td = thg.device_from_host(th, tc, dev)
+    gparts = _t(parts).to(dev)
+    tp = thg.build_pairs(td, tc)
+    tiles = tps_ops.dense_tiles(thg.build_neighbors(tp, td, tc), tp, tc)
+    before = dict(tkernels.LAUNCHES)
+    ek, ik = tps_ops.pair_scores(*tiles)
+    ep, ip = tps_ref.pair_scores_ref(*tiles[:4])
+    assert torch.equal(ik, ip)
+    torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-5)
+    pins, pins_in = tpc_ops.pins_matrix_kernel(td, gparts, tc, kcap)
+    dbar = tpc_ops.tile_bounds(tc)[0]
+    rp, rpi = tpc_ref.pins_matrix_ref(td, gparts, tc, kcap, dbar)
+    assert torch.equal(pins, rp) and torch.equal(pins_in, rpi)
+    conn = tg_ops.conn_weights(td, pins, tc, kcap)
+    torch.testing.assert_close(
+        conn, tg_ref.conn_weights_ref(td, pins, tc, tg_ops.h_bound(tc)),
+        rtol=1e-5, atol=1e-5)
+    assert all(tkernels.LAUNCHES[k] == before[k] + 1 for k in before)

@@ -1,0 +1,153 @@
+"""The whole slice: the port's ``partition()`` on the CPU against the JAX
+package's, with the kernels off and on, plus the entry points' device
+rule, the CLI, and the port's independence from JAX. The kernel-routed
+graph of tests/test_kernels.py:56-63 is compared in test_torch_kernels.py,
+beside the kernels, as the JAX package places it."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import generate as jgen
+from repro.core.partitioner import partition as jpartition
+from repro_torch.core import generate as tgen
+from repro_torch.core.hypergraph import CapacityError
+from repro_torch.core.partitioner import partition as tpartition
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# the graphs of tests/test_partitioner.py:9-24
+GRAPHS = [
+    ("snn_layered", dict(n_layers=4, width=48, fanout=6, window=12, seed=2),
+     dict(omega=24, delta=96, theta=4)),
+    ("snn_smallworld", dict(n_nodes=80, fanout=5, seed=9),
+     dict(omega=10, delta=36, theta=2)),
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run several workers at once, and
+    torch's per-op thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def assert_partition_matches_jax(name, kw, args, use_kernels):
+    """Port ``partition(device="cpu")`` against the JAX package's on one
+    graph: parts, levels, kernel path, audit and log equal; a repeat run
+    gives the same parts."""
+    jr = jpartition(getattr(jgen, name)(**kw), use_kernels=use_kernels,
+                    collect_log=True, **args)
+    hg = getattr(tgen, name)(**kw)
+    tr = tpartition(hg, use_kernels=use_kernels, collect_log=True,
+                    device="cpu", **args)
+    np.testing.assert_array_equal(tr.parts, jr.parts)
+    assert tr.parts.dtype == jr.parts.dtype
+    assert (tr.n_levels, tr.n_parts) == (jr.n_levels, jr.n_parts)
+    assert tr.kernel_path == jr.kernel_path
+    assert tr.audit == jr.audit
+    assert tr.audit["size_ok"] and tr.audit["inbound_ok"]
+    assert tr.level_log == jr.level_log
+    assert set(tr.timings) == {"total", "coarsen", "refine"}
+    again = tpartition(hg, use_kernels=use_kernels, device="cpu", **args)
+    np.testing.assert_array_equal(again.parts, tr.parts)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("name,kw,args", GRAPHS)
+def test_partition_matches_jax(name, kw, args, use_kernels):
+    assert_partition_matches_jax(name, kw, args, use_kernels)
+
+
+def test_partition_needs_a_device_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    hg = tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpartition(hg, omega=10, delta=40, theta=1)
+
+
+@pytest.mark.parametrize("kw", [dict(plan=object()), dict(shard_graph=True),
+                                dict(bucket=True),
+                                dict(compensated_psum=True),
+                                dict(collect_stats=True)])
+def test_unported_arguments_raise(kw):
+    hg = tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpartition(hg, omega=10, delta=40, theta=1, device="cpu", **kw)
+
+
+def test_kcap_hint_and_capacity_checks():
+    hg = tgen.snn_smallworld(n_nodes=60, fanout=4, seed=2)
+    r = tpartition(hg, omega=10, delta=40, theta=1, kcap_hint=64,
+                   device="cpu")
+    assert r.audit["size_ok"] and r.audit["inbound_ok"]
+    with pytest.raises(ValueError, match="kcap_hint"):
+        tpartition(hg, omega=10, delta=40, theta=1, kcap_hint=1, device="cpu")
+    with pytest.raises(CapacityError):
+        tpartition(hg, omega=10, delta=40, theta=1, pair_cap=10, device="cpu")
+
+
+def test_cli_runs_on_cpu(tmp_path, capsys):
+    from repro_torch.launch.partition import main
+    out = tmp_path / "r.json"
+    main(["--graph", "smallworld", "--nodes", "60", "--omega", "10",
+          "--delta", "40", "--theta", "2", "--use-kernels", "--device", "cpu",
+          "--json", str(out)])
+    res = json.loads(out.read_text())
+    assert res["size_ok"] and res["inbound_ok"]
+    assert len(res["parts"]) == 60
+    assert res["kernel_path"]["pins"] == [2] * (res["n_levels"] + 1)
+    assert '"connectivity"' in capsys.readouterr().out
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.startswith("clean")
+
+
+def test_port_sources_never_mention_a_jax_import():
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|from\s+repro\.|"
+                     r"from\s+repro\s+import|import\s+repro(\.|\s|$))",
+                     re.MULTILINE)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    hits = [(f, m.group(0)) for f in files
+            for m in pat.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """No result and a nonzero exit where there is no CUDA device, and in a
+    directory that holds the script and nothing else."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [ROOT] if not torch.cuda.is_available() else []
+    for cwd in runs + [tmp_path]:
+        p = subprocess.run([sys.executable, str(cwd / "chip_smoke.py")],
+                           cwd=cwd, capture_output=True, text=True,
+                           timeout=300, env=dict(os.environ, PYTHONPATH=""))
+        assert p.returncode != 0
+        assert '"ok": true' not in p.stdout
