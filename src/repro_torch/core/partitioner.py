@@ -25,6 +25,7 @@ from repro_torch.core.hypergraph import (Caps, HostHypergraph,
                                          device_from_host, device_pair_count,
                                          host_pair_count)
 from repro_torch.core.refine import RefineParams, refine_level
+from repro_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -50,18 +51,6 @@ class PartitionResult:
 
 def _next_pow2(x: int) -> int:
     return 1 << max(0, math.ceil(math.log2(max(1, x))))
-
-
-def resolve_device(device) -> torch.device:
-    """The device a public entry point runs on: CUDA unless the caller
-    names another. With no device named and no CUDA device this raises;
-    it never moves to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _sync(device: torch.device) -> None:

@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``) of the partitioner's
-three hot loops, and the module that builds and loads them.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``): the partitioner's
+three hot loops and the serving path's prefill attention, and the module
+that builds and loads them.
 
   pins_count  — per-edge partition pin counts (refinement, every repetition)
   gains       — per-node connection weights to every partition (refinement)
   pair_scores — per-node neighbour histogram eta + inbound intersection
                 inter (coarsening, every level)
+  flash_attn  — online-softmax GQA attention (LM prefill, every layer)
 
 Each subpackage holds ``ops.py`` (tile bounds, the ``fits_kernel``
 predicate and the wrapper) and ``ref.py`` (the plain PyTorch version of the
@@ -13,12 +15,13 @@ same function). The CUDA sources live in ``repro_torch/csrc/``.
 Dispatch contract
 -----------------
 
-* A kernel runs only under ``use_kernels=True`` and behind its
+* A partitioner kernel runs only under ``use_kernels=True`` and behind its
   ``fits_kernel`` predicate, as in the JAX package: a level whose extents
   exceed the level-0 tile bounds takes the plain segment path
   (``coarsen.score_slots``, ``refine.conn_segments``,
   ``refine.pins_matrix``), and ``PartitionResult.kernel_path`` counts the
-  branch taken exactly as the JAX package counts it.
+  branch taken exactly as the JAX package counts it. flash_attn runs on
+  every prefill attention whose tensors lie on a CUDA device.
 * Inside a wrapper the tensors' device decides, never
   ``torch.cuda.is_available()``: tensors on the CPU run the plain version,
   tensors on a CUDA device launch the kernel or raise. Nothing catches a
@@ -54,10 +57,12 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0}
+LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0,
+            "flash_attn": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point: (argument types) -> cudaError_t as int
 _SIGNATURES = {
     # edge_off, edge_pins, edge_nsrc, parts, pins, pins_in,
@@ -68,6 +73,10 @@ _SIGNATURES = {
     # nbr, trav_m, trav_w, trav_d, ucnt, lcnt, eta, inter,
     # rows, u, l, stream
     "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, batch, seq, heads, kv_heads, head_dim, causal, scale,
+    # dtype (0 f32, 1 bf16), stream
+    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P],
 }
 
 _lock = threading.Lock()

@@ -65,9 +65,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.core import generate, partitioner
+    from repro_torch.utils.device import resolve_device
     from repro_torch.kernels.pins_count import ops as pc_ops
 
-    dev = partitioner.resolve_device(None)
+    dev = resolve_device(None)
     torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
     hg = generate.snn_layered(n_layers=args.layers, width=8192,

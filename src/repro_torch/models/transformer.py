@@ -1,0 +1,305 @@
+"""Decoder-only LM for layer patterns of ``attn`` + ``mlp``, port of the
+dense path of ``repro.models.transformer``.
+
+``lm_shapes`` and ``cache_shapes`` give the JAX package's spec trees. The
+``LM`` module holds one ``Block`` per layer in an ``nn.ModuleList`` (layer
+``l = superblock * len(pattern) + slot``, the JAX stack's order), where the
+JAX package scans over a stacked "layers" axis. Caches keep the JAX tree
+and its stacked ``[n_superblocks, ...]`` leaves, so they compare leaf by
+leaf with ``cache_shapes``; ``prefill`` and ``decode_step`` update them in
+place (the JAX engine donates them instead).
+
+Two modes: ``prefill`` (causal over the prompt, fills the cache; attention
+on the flash kernel) and ``decode`` (one token a row against the dense or
+paged cache, per-row positions). Training, other mixers, MoE,
+encoder-decoder and vision models raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import (Spec, SpecModule, apply_rope,
+                                       init_params_, layer_norm, rms_norm,
+                                       stack_specs)
+
+F32 = torch.float32
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md Queue A item {item}")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's decoder does not run yet."""
+    for spec in cfg.pattern:
+        if spec.mixer != "attn":
+            _unported(f"mixer {spec.mixer!r}", "14 (MLA / SSM and xLSTM)")
+        if spec.ffn != "mlp":
+            _unported(f"ffn {spec.ffn!r}", "14 (MoE)")
+    if cfg.first_k_dense:
+        _unported("first_k_dense layers", "14 (MoE)")
+    if cfg.encoder_layers:
+        _unported("encoder-decoder models", "14 (encoder-decoder and VLM)")
+    if cfg.vision_dim:
+        _unported("vision inputs", "14 (encoder-decoder and VLM)")
+
+
+# ---------------------------------------------------------------------------
+# shapes
+# ---------------------------------------------------------------------------
+def _norm_shapes(cfg: ArchConfig) -> dict:
+    if cfg.norm == "rms":
+        return {"g": Spec((cfg.d_model,), (None,), init="ones")}
+    return {"g": Spec((cfg.d_model,), (None,), init="ones"),
+            "b": Spec((cfg.d_model,), (None,), init="zeros")}
+
+
+def _layer_shapes(cfg: ArchConfig) -> dict:
+    return {"norm1": _norm_shapes(cfg), "mixer": L.attn_shapes(cfg),
+            "norm2": _norm_shapes(cfg), "ffn": L.mlp_shapes(cfg)}
+
+
+def lm_shapes(cfg: ArchConfig) -> dict:
+    check_supported(cfg)
+    s: dict[str, Any] = {"embed": L.embed_shapes(cfg),
+                         "final_norm": _norm_shapes(cfg)}
+    s["stack"] = {
+        f"slot{i}": stack_specs(_layer_shapes(cfg), cfg.n_superblocks)
+        for i, _ in enumerate(cfg.pattern)
+    }
+    return s
+
+
+def _mixer_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
+                      page_size: int = 0, n_pages: int = 0) -> dict:
+    if page_size:  # paged: [n_pages, page_size, ...] + per-slot tables
+        shape = (n_pages, page_size, cfg.n_kv, cfg.d_head)
+        axes = ("kv_pages", None, "kv_heads", None)
+    else:
+        shape = (batch, cache_len, cfg.n_kv, cfg.d_head)
+        axes = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": Spec(shape, axes, init="zeros"),
+            "v": Spec(shape, axes, init="zeros")}
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
+                 page_size: int = 0, n_pages: int = 0) -> dict:
+    """Cache spec tree. With ``page_size``/``n_pages`` the attention KV
+    switches to the paged ``[n_pages, page_size, ...]`` layout ("kv_pages"
+    leading axis)."""
+    check_supported(cfg)
+    return {"stack": {
+        f"slot{i}": stack_specs(_mixer_cache_spec(cfg, batch, cache_len,
+                                                  page_size, n_pages),
+                                cfg.n_superblocks)
+        for i, _ in enumerate(cfg.pattern)}}
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+class Block(SpecModule):
+    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+        super().__init__({}, device, dtype)
+        self.norm1 = SpecModule(_norm_shapes(cfg), device, dtype)
+        self.mixer = L.Attention(cfg, device, dtype)
+        self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
+        self.ffn = L.MLP(cfg, device, dtype)
+
+    def forward(self, x, cfg, mode, positions, cache, pos, pages=None):
+        return _apply_layer(self, x, cfg, mode, positions, cache, pos, pages)
+
+
+class LM(nn.Module):
+    """Decoder-only LM: embedding, ``n_layers`` blocks, final norm, head.
+    Parameters are made on ``device`` (uninitialised until ``init_`` or
+    ``load_state_dict``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = SpecModule(L.embed_shapes(cfg), device, dtype)
+        self.final_norm = SpecModule(_norm_shapes(cfg), device, dtype)
+        self.layers = nn.ModuleList(Block(cfg, device, dtype)
+                                    for _ in range(cfg.n_layers))
+
+    def init_(self, generator: torch.Generator) -> "LM":
+        """Random weights with the JAX ``materialize`` scales."""
+        init_params_(self, generator)
+        return self
+
+
+def _norm(p, x, cfg):
+    return rms_norm(x, p["g"]) if cfg.norm == "rms" else \
+        layer_norm(x, p["g"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def _attn_out(p, o):
+    B, S, H, DH = o.shape
+    return o.reshape(B, S, H * DH) @ p["wo"]
+
+
+def _pos_vec(pos, batch: int, device) -> torch.Tensor:
+    """Normalise a decode position (scalar or per-slot [B]) to [B] int64."""
+    return torch.as_tensor(pos, device=device).long().expand(batch)
+
+
+def _paged_update(cache, new, posv, table, psize: int):
+    """Per-row write into a paged cache, in place. cache [NP, psize, ...],
+    new [B, 1, ...], posv [B], table [B, P]. Unallocated table entries are
+    an out-of-range sentinel (>= NP) and their rows are skipped, where the
+    JAX scatter drops them; a logical page past the table clamps, as a JAX
+    gather does."""
+    B, P = table.shape
+    page = table[torch.arange(B, device=cache.device),
+                 (posv // psize).clamp(max=P - 1)].long()
+    rows = (page < cache.shape[0]).nonzero().squeeze(1)
+    cache[page[rows], (posv % psize)[rows]] = new[rows, 0]
+    return cache
+
+
+def _paged_gather(cache, table):
+    """Each slot's logical [P*psize, ...] view of its pages. Sentinel
+    entries clamp to an arbitrary physical page; callers mask by per-slot
+    length so the clamped rows never contribute."""
+    B, P = table.shape
+    g = cache[table.long().clamp(0, cache.shape[0] - 1)]
+    return g.reshape(B, P * cache.shape[1], *cache.shape[2:])
+
+
+def _decode_attn_update(q, k_new, v_new, kcache, vcache, pos):
+    """Write (k_new, v_new) at per-row ``pos`` of the dense cache, in place,
+    and attend."""
+    posv = _pos_vec(pos, q.shape[0], q.device)
+    rows = torch.arange(q.shape[0], device=q.device)
+    kcache[rows, posv] = k_new[:, 0]
+    vcache[rows, posv] = v_new[:, 0]
+    o = L.decode_attention(q, kcache, vcache, length=posv + 1)
+    return o, kcache, vcache
+
+
+def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
+    """One attention mixer. ``cache`` is this layer's ``{"k", "v"}``
+    (views into the stacked cache), updated in place."""
+    q, k, v = L.qkv_project(p, x, x, cfg)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if mode == "prefill":
+        o = L.flash_attention(q, k, v, causal=True)
+        S = x.shape[1]
+        for name, new in (("k", k), ("v", v)):
+            cache[name].zero_()
+            cache[name][:, :S] = new.to(cache[name].dtype)
+        return _attn_out(p, o), cache
+    if pages is not None:
+        table, psize = pages
+        posv = _pos_vec(pos, q.shape[0], q.device)
+        kc = _paged_update(cache["k"], k.to(cache["k"].dtype), posv, table,
+                           psize)
+        vc = _paged_update(cache["v"], v.to(cache["v"].dtype), posv, table,
+                           psize)
+        o = L.decode_attention(q, _paged_gather(kc, table),
+                               _paged_gather(vc, table), length=posv + 1)
+        return _attn_out(p, o), {"k": kc, "v": vc}
+    o, kc, vc = _decode_attn_update(q, k.to(cache["k"].dtype),
+                                    v.to(cache["v"].dtype), cache["k"],
+                                    cache["v"], pos)
+    return _attn_out(p, o), {"k": kc, "v": vc}
+
+
+def _apply_layer(p, x, cfg, mode, positions, cache, pos, pages=None):
+    h = _norm(p["norm1"], x, cfg)
+    mix, new_cache = _apply_attn(p["mixer"], h, cfg, mode, positions, cache,
+                                 pos, pages)
+    x = x + mix
+    h = _norm(p["norm2"], x, cfg)
+    return x + L.mlp_apply(p["ffn"], h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# full forward
+# ---------------------------------------------------------------------------
+def _positions(pos, S: int, device):
+    """Sequence positions for the current chunk: [S] when ``pos`` is None
+    or scalar, [B, S] when ``pos`` is a per-slot [B] vector (continuous
+    decode: each batch row sits at its own position)."""
+    ar = torch.arange(S, device=device)
+    if pos is None:
+        return ar
+    pos = torch.as_tensor(pos, device=device)
+    if pos.ndim == 0:
+        return pos + ar
+    return pos[:, None] + ar[None, :]
+
+
+def _layer_cache(cache, cfg: ArchConfig, layer: int) -> dict:
+    """Views of layer ``layer``'s leaves in the stacked cache tree."""
+    n_slot = len(cfg.pattern)
+    sb, slot = divmod(layer, n_slot)
+    return {k: t[sb] for k, t in cache["stack"][f"slot{slot}"].items()}
+
+
+@torch.no_grad()
+def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
+            cache=None, pos=None, page_table=None, page_size: int = 0):
+    """Returns (hidden [B,S,D], cache). ``pos`` may be a scalar
+    (synchronized decode) or a [B] vector of per-slot positions; with
+    ``page_table`` [B, P] (+ ``page_size``) the decode-mode KV updates go
+    through the paged block-table layout instead of the dense [B, S] one.
+    The cache is updated in place and returned."""
+    if mode not in ("prefill", "decode"):
+        _unported(f"mode {mode!r}", "14 (training forward and loss)")
+    B, S = tokens.shape
+    dev = tokens.device
+    pages = (page_table, page_size) if page_table is not None else None
+    positions = _positions(pos, S, dev)
+    x = L.embed_apply(model.embed, tokens, cfg,
+                      positions=positions if cfg.pos == "learned" else None)
+    for i, block in enumerate(model.layers):
+        x, _ = block(x, cfg, mode, positions, _layer_cache(cache, cfg, i),
+                     pos, pages)
+    return _norm(model.final_norm, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+def prefill(model: LM, tokens, cache, cfg: ArchConfig):
+    """Fills ``cache`` (dense, cache_len >= S) in place; returns
+    (last_logits [B, V], cache)."""
+    x, cache = forward(model, tokens, cfg, mode="prefill", cache=cache)
+    logits = L.unembed_apply(model.embed, x[:, -1:], cfg)
+    return logits[:, 0], cache
+
+
+def decode_step(model: LM, token, pos, cache, cfg: ArchConfig,
+                page_table=None, page_size: int = 0):
+    """token [B,1] int, pos scalar OR per-slot [B] vector (continuous
+    batching). With ``page_table`` [B, P] + ``page_size`` the KV caches are
+    paged (see ``cache_shapes(page_size=..., n_pages=...)``). Returns
+    (logits [B,V], cache), the cache updated in place."""
+    x, cache = forward(model, token, cfg, mode="decode", cache=cache,
+                       pos=pos, page_table=page_table, page_size=page_size)
+    logits = L.unembed_apply(model.embed, x, cfg)
+    return logits[:, 0], cache
+
+
+def materialize_lm(cfg: ArchConfig, seed: int, device,
+                   dtype=F32) -> LM:
+    """An LM with seeded random weights, made and drawn on ``device``."""
+    model = LM(cfg, device=device, dtype=dtype)
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return model.init_(gen)

@@ -242,4 +242,5 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(
         conn, tg_ref.conn_weights_ref(td, pins, tc, tg_ops.h_bound(tc)),
         rtol=1e-5, atol=1e-5)
-    assert all(tkernels.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(tkernels.LAUNCHES[k] == before[k] + 1
+               for k in ("pair_scores", "pins_count", "gains"))

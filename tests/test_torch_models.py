@@ -1,0 +1,260 @@
+"""Port parity for the dense LM: numeric primitives, attention projection,
+spec trees, and ``prefill``/``decode_step`` of the JAX ``transformer``
+against the port's on the same weights (carried across with
+``params_from_jax``), for the smoke configs of qwen2-1.5b (GQA, QKV bias)
+and phi4-mini-3.8b. Logits within 1e-4 (atol and rtol), caches within
+1e-5."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.models import common as JC
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro.serve import paging as jpaging
+from repro_torch.configs import get_config as tget
+from repro_torch.configs import list_configs
+from repro_torch.models import common as TC
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import cache_to_arrays, params_from_jax
+from repro_torch.serve import paging as tpaging
+
+ARCHS = ["qwen2-1.5b", "phi4-mini-3.8b"]
+B, S, CL, PS = 2, 13, 24, 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run several workers at once, and
+    torch's per-op thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _specs_equal(jtree, ttree):
+    jl = jax.tree_util.tree_flatten_with_path(jtree, is_leaf=JC.is_spec)[0]
+    want = {".".join(k.key for k in path): (s.shape, s.axes, s.init, s.scale)
+            for path, s in jl}
+    got = {path: (s.shape, s.axes, s.init, s.scale)
+           for path, s in TC.spec_leaves(ttree)}
+    assert got == want
+
+
+# ----------------------------------------------------------- primitives
+def test_configs_are_the_jax_registry():
+    from repro.configs import list_configs as jlist
+    assert list_configs() == jlist()
+    for name in list_configs():
+        assert repr(tget(name)) == repr(jget(name))
+        assert repr(tget(name).smoke()) == repr(jget(name).smoke())
+
+
+def test_rms_norm_and_layer_norm():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32) * 3
+    g = rng.normal(size=(64,)).astype(np.float32)
+    b = rng.normal(size=(64,)).astype(np.float32)
+    np.testing.assert_allclose(TC.rms_norm(_t(x), _t(g)).numpy(),
+                               _np(JC.rms_norm(x, g)), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(TC.layer_norm(_t(x), _t(g), _t(b)).numpy(),
+                               _np(JC.layer_norm(x, g, b)), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_swiglu():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 3, 16)).astype(np.float32)
+    wg, wu = (rng.normal(size=(16, 24)).astype(np.float32) for _ in "gu")
+    wd = rng.normal(size=(24, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        TC.swiglu(_t(x), _t(wg), _t(wu), _t(wd)).numpy(),
+        _np(JC.swiglu(x, wg, wu, wd)), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_apply_rope(per_row):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3, 6, 4, 16)).astype(np.float32)
+    if per_row:   # decode: per-slot [B] positions as [B, S]
+        pos = np.asarray([5, 17, 900])[:, None] + np.arange(6)[None]
+    else:
+        pos = np.arange(6) + 11
+    got = TC.apply_rope(_t(x), _t(pos), 1e6).numpy()
+    np.testing.assert_allclose(got, _np(JC.apply_rope(x, pos, 1e6)),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_qkv_project_with_bias():
+    cfg, jcfg = tget("qwen2-1.5b").smoke(), jget("qwen2-1.5b").smoke()
+    rng = np.random.default_rng(2)
+    p = {k: rng.normal(size=s.shape).astype(np.float32)
+         for k, s in JL.attn_shapes(jcfg).items()}
+    x = rng.normal(size=(2, 7, cfg.d_model)).astype(np.float32)
+    want = JL.qkv_project(p, x, x, jcfg)
+    got = TL.qkv_project({k: _t(v) for k, v in p.items()}, _t(x), _t(x),
+                         cfg)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_spec_trees_match(name):
+    cfg, jcfg = tget(name), jget(name)
+    _specs_equal(JT.lm_shapes(jcfg), TT.lm_shapes(cfg))
+    _specs_equal(JT.cache_shapes(jcfg, 3, 40),
+                 TT.cache_shapes(cfg, 3, 40))
+    _specs_equal(JT.cache_shapes(jcfg, 3, 40, page_size=16, n_pages=9),
+                 TT.cache_shapes(cfg, 3, 40, page_size=16, n_pages=9))
+    assert TC.param_count(TT.lm_shapes(cfg)) == \
+        JC.param_count(JT.lm_shapes(jcfg))
+
+
+def test_full_width_qwen2_parameter_count():
+    assert TC.param_count(TT.lm_shapes(tget("qwen2-1.5b"))) == 1_777_088_000
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "xlstm-350m",
+                                  "llama4-scout-17b-16e", "whisper-tiny",
+                                  "internvl2-2b", "jamba-v0.1-52b"])
+def test_unported_models_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TT.LM(tget(name).smoke(), device="cpu")
+
+
+def test_train_mode_raises():
+    cfg = tget("qwen2-1.5b").smoke()
+    model = TT.materialize_lm(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TT.forward(model, torch.zeros((1, 4), dtype=torch.long), cfg,
+                   mode="train")
+
+
+def test_init_scales_follow_materialize():
+    cfg = tget("qwen2-1.5b").smoke()
+    m = TT.materialize_lm(cfg, seed=0, device="cpu")
+    blk = m.layers[0]
+    assert abs(float(m.embed.tok.std()) - 1.0) < 0.05
+    assert abs(float(blk.mixer.wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert abs(float(blk.ffn.w_down.std()) * cfg.d_ff ** 0.5 - 1.0) < 0.05
+    assert (blk.mixer.bq == 0).all() and (blk.norm1.g == 1).all()
+    again = TT.materialize_lm(cfg, seed=0, device="cpu")
+    assert all(torch.equal(a, b) for a, b in
+               zip(m.state_dict().values(), again.state_dict().values()))
+
+
+# ------------------------------------------------------------- the model
+def _models(name):
+    """JAX params (bias leaves set nonzero) and the port LM on the same
+    weights."""
+    jcfg, cfg = jget(name).smoke(), tget(name).smoke()
+    jp = JC.materialize(JT.lm_shapes(jcfg), jax.random.PRNGKey(0))
+    if jcfg.qkv_bias:
+        rng = np.random.default_rng(7)
+        mix = jp["stack"]["slot0"]["mixer"]
+        for b in ("bq", "bk", "bv"):
+            mix[b] = jnp.asarray(
+                0.5 * rng.normal(size=mix[b].shape).astype(np.float32))
+    model = TT.LM(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jp)))
+    return jcfg, cfg, jp, model
+
+
+def _assert_logits(t, j):
+    np.testing.assert_allclose(t.numpy(), _np(j), atol=1e-4, rtol=1e-4)
+
+
+def _assert_cache(tcache, jcache):
+    got = cache_to_arrays(tcache)
+    want = jax.tree.map(_np, jcache)
+    jax.tree.map(lambda g, w: np.testing.assert_allclose(
+        g, w, atol=1e-5, rtol=1e-5), got, want)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_and_decode_match_jax(name, paged):
+    jcfg, cfg, jp, model = _models(name)
+    assert jcfg.qkv_bias == (name == "qwen2-1.5b")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(2, cfg.vocab, size=(B, S)).astype(np.int32)
+    jcache = jax.tree.map(jnp.zeros_like, JC.materialize(
+        JT.cache_shapes(jcfg, B, CL), jax.random.PRNGKey(0)))
+    jl, jcache = jax.jit(lambda p, t, c: JT.prefill(p, t, c, jcfg))(
+        jp, jnp.asarray(toks), jcache)
+    tcache = TC.zeros(TT.cache_shapes(cfg, B, CL), "cpu")
+    tl, tcache = TT.prefill(model, _t(toks).long(), tcache, cfg)
+    _assert_logits(tl, jl)
+    _assert_cache(tcache, jcache)
+
+    table = None
+    if paged:   # each row's prefill inserted into its own shuffled pages
+        pps = CL // PS
+        n_pages = B * pps + 1
+        pspecs_j = JT.cache_shapes(jcfg, B, CL, page_size=PS,
+                                   n_pages=n_pages)
+        pspecs_t = TT.cache_shapes(cfg, B, CL, page_size=PS,
+                                   n_pages=n_pages)
+        table = rng.permutation(n_pages)[: B * pps].reshape(B, pps)
+        table = table.astype(np.int32)
+        jins = jpaging.make_insert(pspecs_j, PS)
+        tins = tpaging.make_insert(pspecs_t, PS)
+        jpool = jax.tree.map(lambda s: jnp.zeros(s.shape), pspecs_j,
+                             is_leaf=JC.is_spec)
+        tpool = TC.zeros(pspecs_t, "cpu")
+        for r in range(B):
+            jrow = jax.tree.map(lambda x: x[:, r:r + 1], jcache)
+            trow = jax.tree_util.tree_map(lambda x: x[:, r:r + 1], tcache)
+            jpool = jins(jpool, jrow, jnp.int32(r), jnp.asarray(table[r]))
+            tins(tpool, trow, r, _t(table[r]))
+        _assert_cache(tpool, jpool)
+        jcache, tcache = jpool, tpool
+        jdec = jax.jit(lambda p, t, pos, c, tbl: JT.decode_step(
+            p, t, pos, c, jcfg, page_table=tbl, page_size=PS))
+    else:
+        jdec = jax.jit(lambda p, t, pos, c, tbl: JT.decode_step(
+            p, t, pos, c, jcfg))
+
+    pos = np.asarray([S, S - 4], np.int32)   # per-row positions
+    tok = np.argmax(_np(jl), -1).astype(np.int32)
+    for _ in range(4):
+        jl, jcache = jdec(jp, jnp.asarray(tok[:, None]), jnp.asarray(pos),
+                          jcache, None if table is None
+                          else jnp.asarray(table))
+        tl, tcache = TT.decode_step(
+            model, _t(tok[:, None]).long(), _t(pos).long(), tcache, cfg,
+            page_table=None if table is None else _t(table),
+            page_size=PS if paged else 0)
+        _assert_logits(tl, jl)
+        tok = np.argmax(_np(jl), -1).astype(np.int32)
+        pos = pos + 1
+    _assert_cache(tcache, jcache)
+
+
+def test_scalar_decode_position_matches_jax():
+    jcfg, cfg, jp, model = _models("qwen2-1.5b")
+    toks = np.random.default_rng(4).integers(2, cfg.vocab, size=(B, 6))
+    jcache = jax.tree.map(lambda s: jnp.zeros(s.shape),
+                          JT.cache_shapes(jcfg, B, 12), is_leaf=JC.is_spec)
+    jl, jcache = JT.prefill(jp, jnp.asarray(toks, jnp.int32), jcache, jcfg)
+    tcache = TC.zeros(TT.cache_shapes(cfg, B, 12), "cpu")
+    TT.prefill(model, _t(toks).long(), tcache, cfg)
+    tok = np.argmax(_np(jl), -1).astype(np.int32)
+    jl, _ = JT.decode_step(jp, jnp.asarray(tok[:, None]), jnp.int32(6),
+                           jcache, jcfg)
+    tl, _ = TT.decode_step(model, _t(tok[:, None]).long(), 6, tcache, cfg)
+    _assert_logits(tl, jl)
