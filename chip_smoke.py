@@ -12,11 +12,14 @@ hyperedges), Omega 256, Delta 1024, Theta 16. And LM serving:
 d_model 1536, vocab 151936, f32, seeded random weights), continuous
 policy, 4 slots, page size 16. Phases, each fatal on failure:
 
-  1. the card (``nvidia-smi``) and the kernel build from ``src/``;
+  1. the card (``nvidia-smi``) and the kernel build from ``src/``, with
+     each kernel's registers and spills as ptxas reports them;
   2. each CUDA kernel held against its plain PyTorch version at the
      main-path shapes of level 0, on a real parts vector (the coarsest
      clusters of a coarsening pass, as the first refinement receives
-     them), and the whole port on a small graph against its CPU run;
+     them); gains also on a level with edges wider than its pins-row
+     threshold and on one whose kcap is too wide for shared memory, all
+     bit-equal; and the whole port on a small graph against its CPU run;
   3. the full ``partition(use_kernels=True)``: audit, kernel path, launch
      counts (reset just before, read just after);
   4. a second identical run gives identical parts;
@@ -26,7 +29,8 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      at the serving path's longest prefill, S 2048, f32, causal);
   7. the flash_attn kernel against its plain version at the serving
      path's head shapes (q [1,S,12,128], k/v [1,S,2,128]): f32 causal at
-     S 2048 and 1000, bf16 causal at 2048, f32 non-causal at 1000;
+     S 2048, 1000 and 159 (the cell's shortest prompt), bf16 causal at
+     2048 and 159, f32 non-causal at 1000;
   8. serving at full width: 8 requests with seeded prompt lengths in
      128-2048, one arriving per engine step, greedy, 32 new tokens each;
      every request answered, slots refilled while others decode, two runs
@@ -46,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +58,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 REPLACES = {
     "pair_scores": "src/repro/kernels/pair_scores/kernel.py:57",
     "pins_count": "src/repro/kernels/pins_count/kernel.py:45",
@@ -87,10 +93,12 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          rate: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time on the card: the larger of bytes over the memory rate and
-    operations over the f32 rate, in ms, and which one binds."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    operations over ``rate`` (f32 by default), in ms, and which one
+    binds."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -100,6 +108,28 @@ def attn_inputs(torch, s_len, heads, kv_heads, dh, dtype):
     shapes = [(1, s_len, heads, dh)] + [(1, s_len, kv_heads, dh)] * 2
     return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
             for sh in shapes]
+
+
+def gains_level(torch, thg, n_nodes: int, kcap: int, wide_card: int,
+                seed: int):
+    """A level for the gains check: 1.5 edges a node of 2 to 17 pins, eight
+    of ``wide_card`` pins, fractional weights (so the order of the float
+    adds shows), and parts that include ids outside [0, kcap)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cards = np.concatenate([rng.integers(2, 18, size=3 * n_nodes // 2),
+                            np.full(8, wide_card)])
+    rng.shuffle(cards)
+    pins = np.concatenate([rng.choice(n_nodes, size=c, replace=False)
+                           for c in cards]).astype(np.int32)
+    hg = thg.HostHypergraph(
+        n_nodes=n_nodes,
+        edge_off=np.concatenate([[0], np.cumsum(cards)]).astype(np.int32),
+        edge_pins=pins, edge_nsrc=np.ones(len(cards), np.int32),
+        edge_w=(rng.random(len(cards)) * 8).astype(np.float32))
+    caps = thg.Caps.for_host(hg)
+    parts = rng.integers(-1, kcap + 8, size=caps.n).astype(np.int32)
+    return hg, caps, torch.from_numpy(parts).cuda()
 
 
 def serve_traffic(vocab: int, n: int, lo: int, hi: int, seed: int):
@@ -274,6 +304,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     from repro_torch import kernels
     from repro_torch.core import generate
+    from repro_torch.core import hypergraph as thg
+    from repro_torch.core.refine import pins_matrix
     from repro_torch.core.coarsen import CoarsenParams
     from repro_torch.core.hypergraph import (Caps, build_neighbors,
                                              build_pairs, device_from_host)
@@ -304,6 +336,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels.library()
     log(f"[1] kernel build+load: {time.perf_counter() - t0:.1f} s")
+    for name, spill, regs in re.findall(
+            r"Compiling entry function '\w*?\d([a-z_]+_kernel\w*)'.*?"
+            r"(\d+) bytes spill stores.*?Used (\d+) registers",
+            kernels.ptxas_log(), re.S):
+        log(f"[1] ptxas {name[:40]}: {regs} registers, {spill} bytes "
+            f"spilled")
 
     # ---- 2. kernels against their plain versions at main-path shapes ----
     t0 = time.perf_counter()
@@ -362,15 +400,39 @@ def main(argv=None) -> int:
     del pins_p, pins_in_p, pins_in_k
 
     need(g_ops.fits_kernel(d0, caps), "gains fits level 0")
-    h = g_ops.h_bound(caps)
-    conn_k = g_ops.conn_weights(d0, pins_k, caps, kcap)
-    conn_p = g_ref.conn_weights_ref(d0, pins_k, caps, h)
+    h, wide = g_ops.h_bound(caps), g_ops.wide_bound(kcap)
+    conn_k = g_ops.conn_weights(d0, parts0, pins_k, caps, kcap)
+    conn_p = g_ref.conn_weights_walk(d0, parts0, pins_k, caps, kcap, h, wide)
     torch.cuda.synchronize()
-    torch.testing.assert_close(conn_k, conn_p, rtol=1e-5, atol=1e-5)
+    # every version adds a node's incidences in j order: the same bits
+    need(torch.equal(conn_k, conn_p), "gains equal to its plain version")
+    need(torch.equal(conn_k, g_ref.conn_weights_ref(d0, pins_k, caps, h)),
+         "gains equal to the JAX ref.py's function")
     err_g = float((conn_k - conn_p).abs().max())
-    log(f"[2] gains [{caps.n}, {kcap}], H={h}: max abs err {err_g:.3g} "
-        f"(rtol=atol=1e-5: float sums may differ in order)")
+    n_wide = int(((d0.edge_off[1:] - d0.edge_off[:-1]) > wide).sum())
+    log(f"[2] gains [{caps.n}, {kcap}], H={h}: equal to its plain version "
+        f"and to the JAX ref's function (max abs err {err_g:.3g}); "
+        f"{n_wide} edges above the pins-row threshold {wide}")
     del conn_k, conn_p
+    # the pins-row branch (edges of 300 pins, threshold 256) and the
+    # global-memory rows of a kcap too wide for shared memory
+    for n_w, kcap_w, card_w in ((20000, kcap, 300), (2000, 32768, 40)):
+        hg_w, caps_w, parts_w = gains_level(torch, thg, n_w, kcap_w, card_w,
+                                            seed=kcap_w)
+        d_w = device_from_host(hg_w, caps_w, dev)
+        need(g_ops.fits_kernel(d_w, caps_w), "gains fits the check level")
+        pins_w = pins_matrix(d_w, parts_w, caps_w, kcap_w)[0]
+        got = g_ops.conn_weights(d_w, parts_w, pins_w, caps_w, kcap_w)
+        want = g_ref.conn_weights_walk(d_w, parts_w, pins_w, caps_w, kcap_w,
+                                       g_ops.h_bound(caps_w),
+                                       g_ops.wide_bound(kcap_w))
+        torch.cuda.synchronize()
+        need(torch.equal(got, want), f"gains equal to its plain version at "
+             f"kcap {kcap_w} with {card_w}-pin edges")
+        log(f"[2] gains [{caps_w.n}, {kcap_w}], eight {card_w}-pin edges, "
+            f"pins-row threshold {g_ops.wide_bound(kcap_w)}: equal to its "
+            f"plain version")
+        del hg_w, d_w, parts_w, pins_w, got, want
 
     # the float segment sums of the plain paths on the card against the same
     # code on the CPU, where it gives the JAX package's bits: about 16
@@ -485,14 +547,21 @@ def main(argv=None) -> int:
                           max_abs_err=err_pc))
     del keys, e_of, pin_p, rel, is_dst
 
-    # gains: pins read once, CSR read once, conn written once
-    g_bytes = 4.0 * (caps.e * kcap + caps.n + 1 + hg.n_pins + caps.e
-                     + caps.n * kcap)
-    g_ops_n = float(hg.n_pins) * kcap
-    ms = cuda_ms(torch, lambda: g_ops.conn_weights(d0, pins_k, caps, kcap),
-                 20)
-    plain = cuda_ms(torch, lambda: g_ref.conn_weights_ref(d0, pins_k, caps,
-                                                          h), 3, warmup=1)
+    # gains: node CSR, edge CSR, parts and edge_w read once, the pins rows
+    # of edges above the threshold once each, conn written once; an
+    # operation per pin visited (card per incidence of a walked edge, kcap
+    # per incidence of a wide one)
+    e_card = (d0.edge_off[1:] - d0.edge_off[:-1]).double()
+    walked = e_card <= wide
+    g_bytes = 4.0 * (caps.n + 1 + hg.n_pins + caps.e + 1 + hg.n_pins
+                     + caps.n + caps.e + caps.n * kcap
+                     + float((~walked).sum()) * kcap)
+    g_ops_n = float(torch.where(walked, e_card * e_card,
+                                e_card * kcap).sum())
+    ms = cuda_ms(torch, lambda: g_ops.conn_weights(d0, parts0, pins_k, caps,
+                                                   kcap), 50)
+    plain = cuda_ms(torch, lambda: g_ref.conn_weights_walk(
+        d0, parts0, pins_k, caps, kcap, h, wide), 3, warmup=1)
     # yardstick: sparse (weighted incidence) @ dense (pins > 0)
     inc, w = g_ref.incidence_dense(d0, caps, h)
     nz = w != 0
@@ -505,11 +574,14 @@ def main(argv=None) -> int:
     b, by = bound(g_bytes, g_ops_n)
     rows_used.append(dict(name="gains", ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by, library_ms=lib, max_abs_err=err_g))
-    del inc, w, nz, rows_i, a_sp, b_dense, pins_k, d0, r0, r1, r2
+    del inc, w, nz, rows_i, a_sp, b_dense, pins_k, d0, r0, r1, r2, e_card, \
+        walked
 
     # flash_attn at the serving path's longest prefill: q/k/v/o read or
     # written once; the two products over the causal triangle's S(S+1)/2
-    # (query, key) pairs, 2 operations a multiply-add, per head
+    # (query, key) pairs, 2 operations a multiply-add, per head, each run
+    # as three TF32 tensor-core products (the 3xTF32 split); the f32 FMA
+    # bound of the first version is logged beside it
     s_len, heads, kv_heads, dh = 2048, 12, 2, 128
     q, k, v = attn_inputs(torch, s_len, heads, kv_heads, dh, torch.float32)
     fa_bytes = 4.0 * (2 * s_len * heads * dh + 2 * s_len * kv_heads * dh)
@@ -520,7 +592,10 @@ def main(argv=None) -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), 20)
-    b, by = bound(fa_bytes, fa_ops_n)
+    b, by = bound(fa_bytes, 3 * fa_ops_n, TF32_OPS_PER_S)
+    log(f"[6] flash_attn bound: {b:.4f} ms by {by} (3xTF32 at "
+        f"{TF32_OPS_PER_S:.3g} op/s); as f32 FMAs "
+        f"{bound(fa_bytes, fa_ops_n)[0]:.4f} ms")
     fa_row = dict(name="flash_attn", ms=ms, plain_ms=plain, bound_ms=b,
                   bound_by=by, library_ms=lib)
     del q, k, v, qt, kt, vt
@@ -530,7 +605,9 @@ def main(argv=None) -> int:
     err_fa = 0.0
     for s_len, dtype, causal, tol in [(2048, torch.float32, True, 2e-5),
                                       (1000, torch.float32, True, 2e-5),
+                                      (159, torch.float32, True, 2e-5),
                                       (2048, torch.bfloat16, True, 2e-2),
+                                      (159, torch.bfloat16, True, 2e-2),
                                       (1000, torch.float32, False, 2e-5)]:
         q, k, v = attn_inputs(torch, s_len, heads, kv_heads, dh, dtype)
         got = fa_ops.flash_attention(q, k, v, causal=causal)

@@ -153,7 +153,7 @@ def propose_moves(d: DeviceHypergraph, parts: torch.Tensor,
     if params.use_kernels:
         from repro_torch.kernels.gains import ops as g_ops
         if g_ops.fits_kernel(d, caps):
-            conn_w = g_ops.conn_weights(d, pins, caps, kcap)
+            conn_w = g_ops.conn_weights(d, parts, pins, caps, kcap)
             kernel_taken = 1
         else:
             conn_w = conn_segments(d, pins, caps, kcap)

@@ -9,184 +9,296 @@
 //   g = H / KV,   j <= i when causal
 //
 // with the TPU kernel's arithmetic: f32 scores, masked scores at -1e30, the
-// running max / denominator / accumulator update of kernel.py:48-56, and
+// running max / correction / denominator update of kernel.py:50-58, and
 // o = acc / max(l, 1e-30) cast to q's type. Query head h reads KV head
 // h / g in place (no repeat, no transpose copies).
 //
 // What bounds it: operations. At the serving path's prefill (S 2048, H 12,
 // KV 2, Dh 128, causal) the two products need 2 * S^2 * Dh * H = 12.9
-// GFLOP against 29 MB of q/k/v/o; this first version runs them as f32 FMAs
-// out of shared memory (no tensor cores, so f32 results stay within the
-// reference's tolerance). wgmma and TMA are for a later version.
+// GFLOP over the causal triangle against 29 MB of q/k/v/o. Both products
+// run on the tensor cores (mma.sync m16n8k8, TF32 in, f32 accumulate) with
+// the 3xTF32 split: each f32 operand x is split into big = tf32(x) and
+// small = tf32(x - big), rounded to nearest with ties away as
+// cvt.rna.tf32.f32 does (here by adding half an ulp to the bits and
+// clearing the 13 low ones: two integer operations), and a product is
+// small*big + big*small + big*big. That keeps the f32 tolerance (2e-5
+// at the serving shapes, where one TF32 product is off by about 1.5e-3)
+// for three tensor-core products: 3 x 12.9 GFLOP, 0.078 ms at the TF32
+// rate. bf16 values are exact in TF32, so bf16 inputs skip the small parts
+// of q, k and v: one product for QK^T and two for PV, whose P is f32.
 //
-// Design: one block of 256 threads per (b * h, 64-query tile). The block
-// stages its Q tile once and loops over 64-key tiles, staging K and V in
-// shared memory (f32, rows padded to kill bank conflicts). Thread (ty, tx)
-// owns query rows 4ty..4ty+3: it computes the scores of those rows against
-// keys tx + 16j (j < 4), and the output columns tx * Dh/16 onwards. The 16
-// threads of one row group form half a warp, so row maxima and sums reduce
-// with shuffles and the probabilities pass to the PV product through
-// shared memory behind a __syncwarp. Running max, denominator and
-// accumulator stay in registers. Tiles wholly above the causal diagonal
-// are skipped (on the TPU they add exactly 0 with correction 1); partial
-// tiles (S not a multiple of 64) are masked, so any prompt length works.
+// Design: one block of 4 warps per (b * h, 64 query rows), each warp 16
+// rows; heavy causal tiles are launched first. The block stages its Q tile
+// once and loops over 32-key tiles of K and V, double-buffered with
+// cp.async (16-byte copies, rows past S zero-filled) so the next tile loads
+// while this one multiplies. Shared memory holds f32 tiles only; rows are
+// padded (Q and K by 4 words, V by 8) so the fragment loads hit 32
+// distinct banks. Fragments are split in registers as they are loaded. A
+// warp's score tile [16 x 32] comes out in the accumulator layout (rows g
+// and g + 8, keys 2t and 2t + 1 of each 8-key slice), where quad shuffles
+// take the row maxima and sums; the probabilities reach the A layout of
+// the PV product (keys t and t + 4) through eight shuffles a slice. Tiles
+// wholly above a warp's rows are skipped (on the TPU they add exactly 0
+// with correction 1); partial tiles are masked, so any prompt length
+// works. bf16 inputs are converted to f32 as they are staged, with plain
+// loads. ptxas -v (sm_90a): 167 registers a thread at Dh 128 in f32, 168
+// in bf16, no spills; 100 KB of shared memory a block, two blocks an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column threads
+constexpr int kWarps = 4;
+constexpr int kBQ = 16 * kWarps;  // query rows per block
+constexpr int kBK = 32;           // keys per tile
+constexpr int kThreads = 32 * kWarps;
 constexpr float kNeg = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// shared memory: Q [kBQ][QS], two K buffers [kBK][KS], two V [kBK][VS]
+template <int D>
+struct Smem {
+  static constexpr int QS = D + 4;
+  static constexpr int KS = D + 4;
+  static constexpr int VS = D + 8;
+  static constexpr int K_OFF = kBQ * QS;
+  static constexpr int V_OFF = K_OFF + 2 * kBK * KS;
+  static constexpr size_t kBytes = sizeof(float) * (V_OFF + 2 * kBK * VS);
+};
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile, k tile (rows padded by 1), v tile, probabilities (padded)
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+// x to TF32, round to nearest with ties away (cvt.rna.tf32.f32 on finite x)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// d += a * b on one m16n8k8 tile
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// rows [row0, row0 + kRows) of a source with `step` elements a position
+// into dst (row stride ST floats); rows at or past S become zeros
+template <int D, int ST, int kRows>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      int64_t step, int row0, int S) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
+    const int r = i / C, c = i - r * C, s = row0 + r;
+    const bool in = s < S;
+    cp_async16(dst + r * ST + 4 * c, src + (in ? s : 0) * step + 4 * c, in);
+  }
+}
+template <int D, int ST, int kRows>
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      int64_t step, int row0, int S) {
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D, d = i - r * D, s = row0 + r;
+    dst[r * ST + d] = s < S ? __bfloat162float(src[s * step + d]) : 0.0f;
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int S,
                       int H, int KV, int causal, float scale) {
-  constexpr int QS = D + 1;
-  constexpr int KS = D + 1;
-  constexpr int PS = kBK + 1;
-  constexpr int DPT = D / 16;  // output columns per thread
+  using L = Smem<D>;
+  // bf16 values are exact in TF32: their small parts are 0
+  constexpr bool kSmall = std::is_same<T, float>::value;
+  constexpr int NT = kBK / 8;  // 8-key slices of a tile
+  constexpr int DT = D / 8;    // 8-wide slices of the head dimension
   extern __shared__ float smem[];
-  float* qs = smem;             // [kBQ][QS]
-  float* ks = qs + kBQ * QS;    // [kBK][KS]
-  float* vs = ks + kBK * KS;    // [kBK][D]
-  float* ps = vs + kBK * D;     // [kBQ][PS]
+  float* qs = smem;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
-  const int q0 = blockIdx.x * kBQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int64_t q_step = static_cast<int64_t>(H) * D;   // one position
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t q_step = static_cast<int64_t>(H) * D;  // one position
   const int64_t kv_step = static_cast<int64_t>(KV) * D;
   const T* qb = q + static_cast<int64_t>(b) * S * q_step + h * D;
   const T* kb = k + static_cast<int64_t>(b) * S * kv_step + kvh * D;
   const T* vb = v + static_cast<int64_t>(b) * S * kv_step + kvh * D;
   T* ob = o + static_cast<int64_t>(b) * S * q_step + h * D;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    qs[r * QS + d] = s < S ? to_f32(qb[s * q_step + d]) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.0f;
-  }
-
   int n_kt = (S + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  stage<D, L::QS, kBQ>(qs, qb, q_step, q0, S);
+  stage<D, L::KS, kBK>(smem + L::K_OFF, kb, kv_step, 0, S);
+  stage<D, L::VS, kBK>(smem + L::V_OFF, vb, kv_step, 0, S);
+  cp_async_commit();
+
+  const int r_lo = q0 + 16 * warp + g;  // this thread's rows: r_lo, r_lo + 8
+  const float* qw = qs + 16 * warp * L::QS;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float acc[DT][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every thread is done with the previous K/V tile
-    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D, s = k0 + r;
-      const bool in = s < S;
-      ks[r * KS + d] = in ? to_f32(kb[s * kv_step + d]) : 0.0f;
-      vs[r * D + d] = in ? to_f32(vb[s * kv_step + d]) : 0.0f;
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) {
+      stage<D, L::KS, kBK>(smem + L::K_OFF + (buf ^ 1) * kBK * L::KS, kb,
+                           kv_step, (kt + 1) * kBK, S);
+      stage<D, L::VS, kBK>(smem + L::V_OFF + (buf ^ 1) * kBK * L::VS, vb,
+                           kv_step, (kt + 1) * kBK, S);
     }
+    cp_async_commit();
+    cp_async_wait_one();  // every group but the newest: tile kt is in
     __syncthreads();
+    const int k0 = kt * kBK;
+    if (!causal || k0 <= q0 + 16 * warp + 15) {
+      const float* ks = smem + L::K_OFF + buf * kBK * L::KS;
+      const float* vs = smem + L::V_OFF + buf * kBK * L::VS;
 
-    float sc[4][4];
+      // S = Q K^T, [16 x kBK] a warp
+      float sc[NT][4] = {};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < DT; ++kk) {
+        const float* qa = qw + kk * 8 + t;
+        uint32_t ab[4], as[4];
+        split(qa[g * L::QS], ab[0], as[0]);
+        split(qa[(g + 8) * L::QS], ab[1], as[1]);
+        split(qa[g * L::QS + 4], ab[2], as[2]);
+        split(qa[(g + 8) * L::QS + 4], ab[3], as[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* kp = ks + (nt * 8 + g) * L::KS + kk * 8 + t;
+          uint32_t bb0, bs0, bb1, bs1;
+          split(kp[0], bb0, bs0);
+          split(kp[4], bb1, bs1);
+          if (kSmall) {
+            mma(sc[nt], as, bb0, bb1);
+            mma(sc[nt], ab, bs0, bs1);
+          }
+          mma(sc[nt], ab, bb0, bb1);
+        }
+      }
 
+      // scale, mask, online softmax; rows r_lo (c 0, 1) and r_lo + 8 (c 2, 3)
+      float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + 4 * ty + i;
-      float mx = kNeg;
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        float s = sc[i][j] * scale;
-        if (c >= S || (causal && c > r)) s = kNeg;
-        sc[i][j] = s;
-        mx = fmaxf(mx, s);
+        for (int c = 0; c < 4; ++c) {
+          const int row = r_lo + 8 * (c >> 1);
+          const int col = k0 + nt * 8 + 2 * t + (c & 1);
+          float s = sc[nt][c] * scale;
+          if (col >= S || (causal && col > row)) s = kNeg;
+          sc[nt][c] = s;
+          mx[c >> 1] = fmaxf(mx[c >> 1], s);
+        }
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.0f;
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        ps[(4 * ty + i) * PS + tx + 16 * j] = p;
-        sum += p;
+        for (int c = 0; c < 4; ++c) {
+          const float p = expf(sc[nt][c] - m[c >> 1]);
+          sc[nt][c] = p;
+          sum[c >> 1] += p;
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
+        l[i] = l[i] * corr[i] + sum[i];
+      }
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
-    }
-    __syncwarp();  // the row group's probabilities are in shared memory
+      for (int dt = 0; dt < DT; ++dt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[dt][c] *= corr[c >> 1];
+      }
 
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[DPT];
+      // O += P V: P's A fragment (rows g, g + 8; keys t, t + 4 of a slice)
+      // comes from the lanes holding keys 2t', 2t' + 1 with t' = t / 2 and
+      // t' = 2 + t / 2
+      const int src0 = (lane & ~3) | (t >> 1);
+      const int src1 = src0 + 2;
+      const bool odd = t & 1;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * PS + c];
+      for (int kk = 0; kk < NT; ++kk) {
+        const float x0 = __shfl_sync(kFull, sc[kk][0], src0);
+        const float x1 = __shfl_sync(kFull, sc[kk][1], src0);
+        const float y0 = __shfl_sync(kFull, sc[kk][2], src0);
+        const float y1 = __shfl_sync(kFull, sc[kk][3], src0);
+        const float z0 = __shfl_sync(kFull, sc[kk][0], src1);
+        const float z1 = __shfl_sync(kFull, sc[kk][1], src1);
+        const float w0 = __shfl_sync(kFull, sc[kk][2], src1);
+        const float w1 = __shfl_sync(kFull, sc[kk][3], src1);
+        uint32_t pb[4], ps[4];
+        split(odd ? x1 : x0, pb[0], ps[0]);
+        split(odd ? y1 : y0, pb[1], ps[1]);
+        split(odd ? z1 : z0, pb[2], ps[2]);
+        split(odd ? w1 : w0, pb[3], ps[3]);
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) vv[e] = vs[c * D + tx * DPT + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(pv[i], vv[e], acc[i][e]);
+        for (int dt = 0; dt < DT; ++dt) {
+          const float* vp = vs + (kk * 8 + t) * L::VS + dt * 8 + g;
+          uint32_t bb0, bs0, bb1, bs1;
+          split(vp[0], bb0, bs0);
+          split(vp[4 * L::VS], bb1, bs1);
+          if (kSmall) mma(acc[dt], pb, bs0, bs1);
+          mma(acc[dt], ps, bb0, bb1);
+          mma(acc[dt], pb, bb0, bb1);
+        }
+      }
     }
+    __syncthreads();  // every warp is done with this buffer before its refill
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + 4 * ty + i;
-    if (s >= S) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    T* orow = ob + row * q_step + 2 * t;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e)
-      store(&ob[s * q_step + tx * DPT + e], acc[i][e] / den);
+    for (int dt = 0; dt < DT; ++dt) {
+      store(orow + dt * 8, acc[dt][2 * i] / den);
+      store(orow + dt * 8 + 1, acc[dt][2 * i + 1] / den);
+    }
   }
 }
 
@@ -194,13 +306,13 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KV, int causal, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Smem<D>::kBytes;
   auto kern = flash_attn_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, scale);
@@ -223,7 +335,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16. q/o [B, S, H, D], k/v [B, S, KV, D], all
-// contiguous; H a multiple of KV.
+// contiguous and 16-byte aligned; H a multiple of KV.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KV, int D,
                                  int causal, float scale, int dtype,

@@ -36,7 +36,8 @@ arch=compute_90a,code=sm_90a -O3`` (one ``nvcc`` per source, all started
 together) and links them into one shared library with a plain C interface,
 loaded with ``ctypes``. The build goes to ``build/repro_torch/<hash>/`` at
 the root of the checkout, keyed by a hash of the sources and flags, at
-first use. Each C entry point launches on the stream it is given, allocates
+first use, with ptxas's report of each kernel's registers and spills
+(``ptxas_log()``). Each C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``.
 """
 from __future__ import annotations
@@ -55,7 +56,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0,
             "flash_attn": 0}
@@ -68,8 +69,10 @@ _SIGNATURES = {
     # edge_off, edge_pins, edge_nsrc, parts, pins, pins_in,
     # ecap, ncap, kcap, stream
     "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # node_off, node_edges, edge_w, pins, conn, ncap, ecap, kcap, h, stream
-    "gains_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # node_off, node_edges, edge_off, edge_pins, parts, edge_w, pins, conn,
+    # ncap, ecap, kcap, h, wide, stream
+    "gains_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P],
     # nbr, trav_m, trav_w, trav_d, ucnt, lcnt, eta, inter,
     # rows, u, l, stream
     "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -114,11 +117,13 @@ def _build(out_dir: Path) -> Path:
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        errors = []
+        errors, logs = [], []
         for src, p in procs:
             out, _ = p.communicate()
+            logs.append(f"{src.name}:\n{out}")
             if p.returncode != 0:
-                errors.append(f"{src.name}:\n{out}")
+                errors.append(logs[-1])
+        (tmp / "ptxas.log").write_text("\n".join(logs))
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         so = tmp / "librepro_kernels.so"
@@ -136,17 +141,27 @@ def _build(out_dir: Path) -> Path:
     return out_dir / "librepro_kernels.so"
 
 
+def _out_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def ptxas_log() -> str:
+    """ptxas's report on every kernel of the built library."""
+    library()
+    return (_out_dir() / "ptxas.log").read_text()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in _sources() + sorted(CSRC.glob("*.cuh")):
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-        out_dir = BUILD_ROOT / h.hexdigest()[:16]
+        out_dir = _out_dir()
         so = out_dir / "librepro_kernels.so"
         if not so.exists():
             BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -166,8 +181,12 @@ def launch(name: str, counter: str, *args) -> None:
     """Call the C entry point ``name`` on the current CUDA stream, count the
     launch under ``counter`` and raise on a nonzero ``cudaError_t``."""
     lib = library()
+    fn = getattr(lib, name)
+    if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as int
+        raise TypeError(f"{name} takes {len(fn.argtypes) - 1} arguments "
+                        f"and the stream, got {len(args)}")
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*args, stream)
+    err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.repro_error_string(err).decode()}")

@@ -6,7 +6,8 @@ The CUDA kernel (``csrc/flash_attn.cu``) reads the ``[B,S,H,Dh]`` layout
 directly and maps query head h to KV head ``h // (H/KV)`` itself, so the
 JAX wrapper's ``repeat`` and transposes disappear. It takes what every
 prefill of the dense serving path gives it: ``Sq == Sk``, contiguous f32
-or bf16, ``Dh`` in ``HEAD_DIMS``; anything else on CUDA raises.
+or bf16 starting on a 16-byte boundary (its copies move 16 bytes), ``Dh``
+in ``HEAD_DIMS``; anything else on CUDA raises.
 """
 from __future__ import annotations
 
@@ -30,11 +31,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     b, s, h, d = q.shape
     kv = k.shape[2]
     if tuple(k.shape) != (b, s, kv, d) or h % kv or d not in HEAD_DIMS \
-            or q.dtype not in _DTYPES:
+            or q.dtype not in _DTYPES \
+            or any(x.data_ptr() % 16 for x in (q, k, v)):
         raise NotImplementedError(
             f"flash_attn kernel takes q [B,S,H,Dh], k/v [B,S,KV,Dh] with "
-            f"Sq == Sk, H % KV == 0, Dh in {HEAD_DIMS}, f32 or bf16; got q "
-            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
+            f"Sq == Sk, H % KV == 0, Dh in {HEAD_DIMS}, f32 or bf16, "
+            f"16-byte aligned; got q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)}")
     dev = q.device
     kernels.check(q, "q", q.dtype)
     kernels.check(k, "k", q.dtype, (b, s, kv, d), dev)

@@ -3,10 +3,11 @@
 recomputes on each repetition, as a drop-in for the segment path of
 ``core.refine.propose_moves``.
 
-The CUDA kernel (``csrc/gains.cu``) reads the node incidence CSR and the
-int32 pins rows directly; ``h_bound``/``fits_kernel`` keep the JAX
-package's incidence tile bound, so ``PartitionResult.kernel_path`` matches
-it.
+The CUDA kernel (``csrc/gains.cu``) walks each incident edge's pins in the
+edge CSR and looks up their parts; an edge with more than ``wide_bound``
+pins reads its int32 pins row instead. ``h_bound``/``fits_kernel`` keep the
+JAX package's incidence tile bound, so ``PartitionResult.kernel_path``
+matches it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ def h_bound(caps: Caps) -> int:
     return min(segops.round_up(caps.h0, 8), segops.round_up(caps.p, 8))
 
 
+def wide_bound(kcap: int) -> int:
+    """Edges with more pins than this read their kcap-wide pins row instead
+    of walking their pins. Chosen, not tuned: near kcap/4 pins the walk's
+    scattered part lookups stop being clearly cheaper than one coalesced
+    row; both branches give the same bits."""
+    return kcap // 4
+
+
 def fits_kernel(d: DeviceHypergraph, caps: Caps) -> bool:
     """Every live node's incidence degree fits ``h_bound``."""
     deg = d.node_off[1:] - d.node_off[:-1]
@@ -31,23 +40,29 @@ def fits_kernel(d: DeviceHypergraph, caps: Caps) -> bool:
     return bool(torch.where(ids < d.n_nodes, deg, 0).max() <= h_bound(caps))
 
 
-def conn_weights(d: DeviceHypergraph, pins: torch.Tensor, caps: Caps,
-                 kcap: int) -> torch.Tensor:
-    """conn_w ``[Ncap, kcap]`` f32 from ``pins`` ``[kcap, Ecap]`` (a view of
-    contiguous ``[Ecap, kcap]`` rows). CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
-    h = h_bound(caps)
+def conn_weights(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
+                 caps: Caps, kcap: int) -> torch.Tensor:
+    """conn_w ``[Ncap, kcap]`` f32 from ``parts`` and ``pins`` ``[kcap,
+    Ecap]`` (a view of contiguous ``[Ecap, kcap]`` rows, counted from the
+    same ``parts``). CUDA tensors launch the kernel; CPU tensors run the
+    plain version."""
+    h, wide = h_bound(caps), wide_bound(kcap)
     if not pins.is_cuda:
-        return ref.conn_weights_ref(d, pins, caps, h)
+        return ref.conn_weights_walk(d, parts, pins, caps, kcap, h, wide)
     dev = pins.device
     rows = pins.T
     kernels.check(rows, "pins rows", torch.int32, (caps.e, kcap), dev)
+    kernels.check(parts, "parts", torch.int32, (caps.n,), dev)
     kernels.check(d.node_off, "node_off", torch.int32, (caps.n + 1,), dev)
     kernels.check(d.node_edges, "node_edges", torch.int32, (caps.p,), dev)
+    kernels.check(d.edge_off, "edge_off", torch.int32, (caps.e + 1,), dev)
+    kernels.check(d.edge_pins, "edge_pins", torch.int32, (caps.p,), dev)
     kernels.check(d.edge_w, "edge_w", torch.float32, (caps.e,), dev)
     conn = torch.empty((caps.n, kcap), dtype=torch.float32, device=dev)
     kernels.check(conn, "conn", torch.float32)
     kernels.launch("gains_launch", "gains", d.node_off.data_ptr(),
-                   d.node_edges.data_ptr(), d.edge_w.data_ptr(),
-                   rows.data_ptr(), conn.data_ptr(), caps.n, caps.e, kcap, h)
+                   d.node_edges.data_ptr(), d.edge_off.data_ptr(),
+                   d.edge_pins.data_ptr(), parts.data_ptr(),
+                   d.edge_w.data_ptr(), rows.data_ptr(), conn.data_ptr(),
+                   caps.n, caps.e, kcap, h, wide)
     return conn

@@ -102,6 +102,59 @@ def test_scale_argument_matches_oracle():
     _close(got[:, :, 0], want, "f32")
 
 
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """f32 to TF32, round to nearest with ties away (``cvt.rna.tf32.f32``):
+    ``(bits + 0x1000) & ~0x1FFF`` on the int32 view."""
+    b = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(np.float32)
+
+
+def _mm_tf32(a: np.ndarray, b: np.ndarray, split: bool) -> np.ndarray:
+    """a @ b with TF32 operands and f32 sums, as the tensor cores take it:
+    one product, or the 3xTF32 split small*big + big*small + big*big."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def _attention_tf32(q, k, v, split: bool) -> np.ndarray:
+    """Causal GQA attention of q ``[S,H,Dh]``, k/v ``[S,KV,Dh]`` (f32) with
+    both products in TF32: the arithmetic of csrc/flash_attn.cu."""
+    s_len, h, d = q.shape
+    g = h // k.shape[1]
+    out = np.empty_like(q)
+    mask = np.tril(np.ones((s_len, s_len), bool))
+    for i in range(h):
+        sc = _mm_tf32(q[:, i], k[:, i // g].T, split) * np.float32(
+            1 / np.sqrt(d))
+        sc = np.where(mask, sc, np.float32(-1e30))
+        p = np.exp(sc - sc.max(axis=1, keepdims=True))
+        p = (p / p.sum(axis=1, keepdims=True)).astype(np.float32)
+        out[:, i] = _mm_tf32(p, v[:, i // g], split)
+    return out
+
+
+def test_3xtf32_split_keeps_f32_tolerance():
+    """The Hopper kernel's precision, emulated on the CPU at the serving
+    head shapes: the 3xTF32 split stays within the f32 tolerance of the
+    plain version, and one TF32 product does not (why the split is
+    needed)."""
+    rng = np.random.default_rng(0)
+    s, h, kv, dh = 256, 12, 2, 128
+    q = rng.normal(size=(s, h, dh)).astype(np.float32)
+    k = rng.normal(size=(s, kv, dh)).astype(np.float32)
+    v = rng.normal(size=(s, kv, dh)).astype(np.float32)
+    want = tref.flash_attention_ref(*(torch.from_numpy(x)[None]
+                                      for x in (q, k, v)))[0].numpy()
+    tol = DTYPES["f32"][2]
+    err_split = np.abs(_attention_tf32(q, k, v, True) - want).max()
+    err_one = np.abs(_attention_tf32(q, k, v, False) - want).max()
+    assert err_split <= tol, err_split
+    assert err_one > tol, err_one
+
+
 def test_cpu_tensors_run_the_plain_version():
     q = torch.randn(1, 40, 4, 16)
     k = torch.randn(1, 40, 2, 16)

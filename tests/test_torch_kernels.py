@@ -143,10 +143,63 @@ def test_ops_plain_versions_match_pallas_on_real_levels():
         assert bool(jg_ops.fits_kernel(jd, caps)) \
             == tg_ops.fits_kernel(td, tc) is True
         jc = _j_conn(jd, jnp.asarray(parts), jpins, caps, kcap)
-        tcw = tg_ops.conn_weights(td, tpins, tc, kcap)
+        tcw = tg_ops.conn_weights(td, _t(parts), tpins, tc, kcap)
         np.testing.assert_allclose(tcw.numpy(), _np(jc), atol=1e-5)
         # the plain gains version adds in the segment path's order
         assert torch.equal(tcw, tre.conn_segments(td, tpins, tc, kcap))
+
+
+def _wide_edge_level():
+    """A weighted level (fractional weights, so the order of the float adds
+    shows) whose edges have 2 to 8 pins but one of 30, above the pins-row
+    threshold of kcap 64; parts ids reach past kcap."""
+    rng = np.random.default_rng(7)
+    n, kcap = 120, 64
+    cards = np.concatenate([rng.integers(2, 9, size=150), [30]])
+    rng.shuffle(cards)
+    args = dict(
+        n_nodes=n,
+        edge_off=np.concatenate([[0], np.cumsum(cards)]).astype(np.int32),
+        edge_pins=np.concatenate([rng.choice(n, size=c, replace=False)
+                                  for c in cards]).astype(np.int32),
+        edge_nsrc=np.ones(len(cards), np.int32),
+        edge_w=(rng.random(len(cards)) * 8).astype(np.float32))
+    jh, th = jhg.HostHypergraph(**args), thg.HostHypergraph(**args)
+    caps = jhg.Caps.for_host(jh)
+    parts = rng.integers(0, kcap + 8, size=caps.n).astype(np.int32)
+    assert (parts >= kcap).any()
+    return (caps, jhg.device_from_host(jh, caps),
+            thg.device_from_host(th, thg.Caps.for_host(th), "cpu"), parts,
+            kcap)
+
+
+@pytest.mark.parametrize("level", ["smallworld", "layered", "wide_edge"])
+def test_gains_walk_matches_segments_ref_and_jax(level):
+    """The edge-walk plain version (the kernel's data path) gives the bits
+    of the segment path and of the JAX ref.py's function, and of the JAX
+    package's conn_weights (Pallas, interpret mode), whose tolerance is
+    1e-5; on the wide-edge level with parts ids past kcap too."""
+    caps, jd, td, parts, kcap = (
+        _wide_edge_level() if level == "wide_edge"
+        else _levels()[["smallworld", "layered"].index(level)])
+    tc = thg.Caps(**dataclasses.asdict(caps))
+    h, wide = tg_ops.h_bound(tc), tg_ops.wide_bound(kcap)
+    assert bool(jg_ops.fits_kernel(jd, caps)) and tg_ops.fits_kernel(td, tc)
+    if level == "wide_edge":
+        assert int(((td.edge_off[1:] - td.edge_off[:-1]) > wide).sum()) == 1
+    jpins, _ = _j_pc(jd, jnp.asarray(parts), caps, kcap)
+    tpins, _ = tre.pins_matrix(td, _t(parts), tc, kcap)
+    np.testing.assert_array_equal(tpins.numpy(), _np(jpins))
+    walk = tg_ref.conn_weights_walk(td, _t(parts), tpins, tc, kcap, h, wide)
+    assert torch.equal(walk, tre.conn_segments(td, tpins, tc, kcap))
+    assert torch.equal(walk, tg_ref.conn_weights_ref(td, tpins, tc, h))
+    # both branches alone: every edge walked, every edge read as a row
+    for w in (-1, kcap):
+        assert torch.equal(walk, tg_ref.conn_weights_walk(
+            td, _t(parts), tpins, tc, kcap, h, w))
+    jc = _np(_j_conn(jd, jnp.asarray(parts), jpins, caps, kcap))
+    np.testing.assert_allclose(walk.numpy(), jc, atol=1e-5)
+    np.testing.assert_array_equal(walk.numpy(), jc)   # and the same bits
 
 
 def _one_edge(card: int, **caps_over):
@@ -209,7 +262,7 @@ def test_cpu_tensors_run_the_plain_versions():
     tc = thg.Caps(**dataclasses.asdict(caps))
     before = dict(tkernels.LAUNCHES)
     pins, _ = tpc_ops.pins_matrix_kernel(td, _t(parts), tc, kcap)
-    tg_ops.conn_weights(td, pins, tc, kcap)
+    tg_ops.conn_weights(td, _t(parts), pins, tc, kcap)
     tp = thg.build_pairs(td, tc)
     tps_ops.score_slots_kernel(thg.build_neighbors(tp, td, tc), tp, tc)
     assert tkernels.LAUNCHES == before
@@ -238,9 +291,9 @@ def test_cuda_kernels_match_plain_versions():
     dbar = tpc_ops.tile_bounds(tc)[0]
     rp, rpi = tpc_ref.pins_matrix_ref(td, gparts, tc, kcap, dbar)
     assert torch.equal(pins, rp) and torch.equal(pins_in, rpi)
-    conn = tg_ops.conn_weights(td, pins, tc, kcap)
-    torch.testing.assert_close(
-        conn, tg_ref.conn_weights_ref(td, pins, tc, tg_ops.h_bound(tc)),
-        rtol=1e-5, atol=1e-5)
+    conn = tg_ops.conn_weights(td, gparts, pins, tc, kcap)
+    assert torch.equal(conn, tg_ref.conn_weights_walk(
+        td, gparts, pins, tc, kcap, tg_ops.h_bound(tc),
+        tg_ops.wide_bound(kcap)))
     assert all(tkernels.LAUNCHES[k] == before[k] + 1
                for k in ("pair_scores", "pins_count", "gains"))
