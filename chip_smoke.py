@@ -17,16 +17,20 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
   2. each CUDA kernel held against its plain PyTorch version at the
      main-path shapes of level 0, on a real parts vector (the coarsest
      clusters of a coarsening pass, as the first refinement receives
-     them); gains also on a level with edges wider than its pins-row
-     threshold and on one whose kcap is too wide for shared memory, all
-     bit-equal; and the whole port on a small graph against its CPU run;
+     them); pair_scores also against the segment path ``score_slots``, and
+     on a level whose nodes have more neighbours than a warp's bins;
+     gains also on a level with edges wider than its pins-row threshold
+     and on one whose kcap is too wide for shared memory, all bit-equal;
+     and the whole port on a small graph against its CPU run;
   3. the full ``partition(use_kernels=True)``: audit, kernel path, launch
-     counts (reset just before, read just after);
+     counts (reset just before, read just after), peak device memory;
   4. a second identical run gives identical parts;
   5. one ``use_kernels=False`` run passes the audit;
   6. each kernel's time (CUDA events) beside its plain version's, its
      bound and a one-call PyTorch yardstick where one exists (flash_attn
-     at the serving path's longest prefill, S 2048, f32, causal);
+     at the serving path's longest prefill, S 2048, f32, causal); for
+     pair_scores, the kernel with its bins fixed, and beside it the whole
+     ``score_slots_kernel``, ``fits_kernel`` and the segment path;
   7. the flash_attn kernel against its plain version at the serving
      path's head shapes (q [1,S,12,128], k/v [1,S,2,128]): f32 causal at
      S 2048, 1000 and 159 (the cell's shortest prompt), bf16 causal at
@@ -112,9 +116,9 @@ def attn_inputs(torch, s_len, heads, kv_heads, dh, dtype):
 
 def gains_level(torch, thg, n_nodes: int, kcap: int, wide_card: int,
                 seed: int):
-    """A level for the gains check: 1.5 edges a node of 2 to 17 pins, eight
-    of ``wide_card`` pins, fractional weights (so the order of the float
-    adds shows), and parts that include ids outside [0, kcap)."""
+    """A check level: 1.5 edges a node of 2 to 17 pins, eight of
+    ``wide_card`` pins, fractional weights (so the order of the float adds
+    shows), and parts that include ids outside [0, kcap)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     cards = np.concatenate([rng.integers(2, 18, size=3 * n_nodes // 2),
@@ -130,6 +134,29 @@ def gains_level(torch, thg, n_nodes: int, kcap: int, wide_card: int,
     caps = thg.Caps.for_host(hg)
     parts = rng.integers(-1, kcap + 8, size=caps.n).astype(np.int32)
     return hg, caps, torch.from_numpy(parts).cuda()
+
+
+def pair_scores_check(torch, ps_ops, ps_ref, score_slots, d, nbrs, pairs,
+                      caps, what: str) -> float:
+    """The pair_scores kernel against its plain walk and the segment path
+    ``score_slots`` on one level: eta bit for bit, inter exact. Returns the
+    max abs eta difference from the walk."""
+    need(ps_ops.fits_kernel(nbrs, pairs, caps), f"pair_scores fits {what}")
+    bins = ps_ops.bin_budget(nbrs)
+    eta_k, inter_k = ps_ops.score_slots_kernel(d, nbrs, pairs, caps)
+    eta_w, inter_w = ps_ref.score_slots_walk(d, nbrs, caps, bins)
+    eta_s, inter_s = score_slots(nbrs, pairs, caps)
+    torch.cuda.synchronize()
+    need(torch.equal(eta_k, eta_w) and torch.equal(inter_k, inter_w),
+         f"pair_scores equal to its plain walk on {what}")
+    need(torch.equal(eta_k, eta_s) and torch.equal(inter_k, inter_s),
+         f"pair_scores equal to the segment path score_slots on {what}")
+    ucnt = nbrs.off[1:] - nbrs.off[:-1]
+    log(f"[2] pair_scores on {what}: {int(pairs.n_pairs)} pair lanes into "
+        f"{int(nbrs.n_entries)} of {caps.nbrs} slots, max {int(ucnt.max())} "
+        f"a node, {bins} bins a warp; eta and inter equal to the plain walk "
+        f"and to score_slots")
+    return float((eta_k - eta_w).abs().max())
 
 
 def serve_traffic(vocab: int, n: int, lo: int, hi: int, seed: int):
@@ -306,7 +333,7 @@ def main(argv=None) -> int:
     from repro_torch.core import generate
     from repro_torch.core import hypergraph as thg
     from repro_torch.core.refine import pins_matrix
-    from repro_torch.core.coarsen import CoarsenParams
+    from repro_torch.core.coarsen import CoarsenParams, score_slots
     from repro_torch.core.hypergraph import (Caps, build_neighbors,
                                              build_pairs, device_from_host)
     from repro_torch.core.partitioner import (_next_pow2, make_coarsen_fns,
@@ -369,21 +396,21 @@ def main(argv=None) -> int:
 
     pairs = build_pairs(d0, caps)
     nbrs = build_neighbors(pairs, d0, caps)
-    need(ps_ops.fits_kernel(nbrs, pairs, caps), "pair_scores fits level 0")
-    tiles = ps_ops.dense_tiles(nbrs, pairs, caps)
-    nbr, tm, tw, td, ucnt, lcnt = tiles
-    del pairs
-    U, L = nbr.shape[1], tm.shape[1]
-    eta_k, inter_k = ps_ops.pair_scores(*tiles)
-    eta_p, inter_p = ps_ref.pair_scores_ref(nbr, tm, tw, td)
-    torch.cuda.synchronize()
-    need(torch.equal(inter_k, inter_p), "pair_scores inter exact")
-    torch.testing.assert_close(eta_k, eta_p, rtol=1e-5, atol=1e-5)
-    err_ps = float((eta_k - eta_p).abs().max())
-    log(f"[2] pair_scores [{nbr.shape[0]}, U={U}, L={L}]: inter exact, "
-        f"eta max abs err {err_ps:.3g} (rtol=atol=1e-5: float sums may "
-        f"differ in order)")
-    del eta_k, inter_k, eta_p, inter_p
+    err_ps = pair_scores_check(torch, ps_ops, ps_ref, score_slots, d0, nbrs,
+                               pairs, caps, "level 0")
+    # nodes with more neighbour slots than a warp's bins: eight edges of
+    # 2100 pins give each of their pins over 2099 neighbours
+    hg_b, caps_b, _ = gains_level(torch, thg, 20000, kcap, 2100, seed=3)
+    d_b = device_from_host(hg_b, caps_b, dev)
+    pairs_b = build_pairs(d_b, caps_b)
+    nbrs_b = build_neighbors(pairs_b, d_b, caps_b)
+    ucnt_b = nbrs_b.off[1:] - nbrs_b.off[:-1]
+    need(int(ucnt_b.max()) > ps_ops.bin_budget(nbrs_b),
+         "the check level has nodes in batches of bins")
+    err_ps = max(err_ps, pair_scores_check(
+        torch, ps_ops, ps_ref, score_slots, d_b, nbrs_b, pairs_b, caps_b,
+        "a level of 2100-pin edges"))
+    del hg_b, d_b, pairs_b, nbrs_b, ucnt_b
 
     need(pc_ops.fits_kernel(d0, caps), "pins_count fits level 0")
     dbar = pc_ops.tile_bounds(caps)[0]
@@ -465,11 +492,17 @@ def main(argv=None) -> int:
 
     # ---- 3. full partition(use_kernels=True) --------------------------------
     torch.use_deterministic_algorithms(True)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     r1 = partition(hg, omega=omega, delta=delta, theta=theta,
                    use_kernels=True)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[3] peak device memory of the solve: {peak / 2**30:.3f} GiB, "
+        f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+        f"held before it, on {card}")
     aud = r1.audit
     log(f"[3] partition(use_kernels=True): n_parts {r1.n_parts}, n_levels "
         f"{r1.n_levels}, connectivity {r1.connectivity}, cut_net "
@@ -506,20 +539,36 @@ def main(argv=None) -> int:
 
     # ---- 6. times at the main-path shapes -----------------------------------
     rows_used = []
-    # pair_scores: live inputs read once, both output tiles written once
-    uc = ucnt.long().clamp(max=U)
-    lc = lcnt.long().clamp(max=L)
-    ps_bytes = float(4 * uc.sum() + 12 * lc.sum() + 8 * nbr.shape[0]
-                     + 8 * nbr.numel())
-    ps_ops_n = float((uc * lc).sum())
-    ms = cuda_ms(torch, lambda: ps_ops.pair_scores(*tiles), 20)
-    plain = cuda_ms(torch, lambda: ps_ref.pair_scores_ref(nbr, tm, tw, td), 2,
-                    warmup=1)
+    # pair_scores: the node CSR and node_nin, the edge CSR, edge_nsrc and
+    # edge_w, the neighbour offsets and live ids read once, eta and inter
+    # written over NBcap; an operation per search step, ceil(log2(bins + 1))
+    # steps a pair lane for each batch of its node's slots
+    bins = ps_ops.bin_budget(nbrs)
+    ucnt = (nbrs.off[1:] - nbrs.off[:-1]).double()
+    lcnt = segops.segment_count(pairs.valid, pairs.n.clamp(0, caps.n - 1),
+                                caps.n).double()
+    ps_bytes = 4.0 * (2 * caps.n + 1 + hg.n_pins + caps.e + 1 + hg.n_pins
+                      + 2 * caps.e + caps.n + 1 + float(nbrs.n_entries)
+                      + 2 * caps.nbrs)
+    ps_ops_n = float((lcnt * torch.ceil(torch.log2(ucnt.clamp(max=bins) + 1))
+                      * torch.ceil(ucnt / bins)).sum())
+    ms = cuda_ms(torch, lambda: ps_ops.pair_scores(d0, nbrs, caps, bins), 20)
+    plain = cuda_ms(torch, lambda: ps_ref.score_slots_walk(d0, nbrs, caps,
+                                                           bins), 3, warmup=1)
+    whole = cuda_ms(torch, lambda: ps_ops.score_slots_kernel(d0, nbrs, pairs,
+                                                             caps), 20)
+    seg = cuda_ms(torch, lambda: score_slots(nbrs, pairs, caps), 5)
+    fits = cuda_ms(torch, lambda: ps_ops.fits_kernel(nbrs, pairs, caps), 20)
     b, by = bound(ps_bytes, ps_ops_n)
+    log(f"[6] pair_scores bound: {ps_bytes / 1e9:.4f} GB once over "
+        f"{HBM_BYTES_PER_S:.3g} B/s against {ps_ops_n:.4g} search steps at "
+        f"{F32_OPS_PER_S:.3g} op/s; the whole score_slots_kernel (with its "
+        f"host read of the bins) {whole:.4f} ms, fits_kernel {fits:.4f} ms, "
+        f"the segment path score_slots {seg:.4f} ms, on {card}")
     rows_used.append(dict(name="pair_scores", ms=ms, plain_ms=plain,
                           bound_ms=b, bound_by=by, library_ms=None,
                           max_abs_err=err_ps))
-    del tiles, nbr, tm, tw, td
+    del pairs, nbrs, ucnt, lcnt
 
     # pins_count: CSR + parts read once, two [Ecap, kcap] outputs written
     pc_bytes = 4.0 * (caps.e + 1 + hg.n_pins + caps.e + caps.n

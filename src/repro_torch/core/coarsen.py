@@ -7,9 +7,10 @@ w(e)/|e|`` (Eq. 5) and, in the same pass, the inbound-set intersection
 ``|in(n)| + |in(m)| - inter(n, m) <= Delta``. The histogram is the
 materialised neighbourhood segment (slots sorted by id); the segment path
 binary-searches each pair lane's slot and segment-sums, and under
-``use_kernels`` the pair_scores CUDA kernel computes the same sums from
-dense per-node tiles. Then symmetric pairing noise, Pi candidate rounds,
-exact matching per round, and best-effort pairing of isolated nodes.
+``use_kernels`` the pair_scores CUDA kernel computes the same sums, bit for
+bit, by walking each node's incident edges into its slots. Then symmetric
+pairing noise, Pi candidate rounds, exact matching per round, and
+best-effort pairing of isolated nodes.
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ def propose(d: DeviceHypergraph, nbrs: Neighborhoods, pairs: PairExpansion,
         # tile bounds are level-0 derived: a level that outgrows them takes
         # the segment path, and the flag records which one ran
         if ps_ops.fits_kernel(nbrs, pairs, caps):
-            eta, inter = ps_ops.score_slots_kernel(nbrs, pairs, caps)
+            eta, inter = ps_ops.score_slots_kernel(d, nbrs, pairs, caps)
             kernel_taken = 1
         else:
             eta, inter = score_slots(nbrs, pairs, caps)

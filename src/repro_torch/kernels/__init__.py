@@ -5,7 +5,7 @@ that builds and loads them.
   pins_count  — per-edge partition pin counts (refinement, every repetition)
   gains       — per-node connection weights to every partition (refinement)
   pair_scores — per-node neighbour histogram eta + inbound intersection
-                inter (coarsening, every level)
+                inter in slot space (coarsening, every level that fits)
   flash_attn  — online-softmax GQA attention (LM prefill, every layer)
 
 Each subpackage holds ``ops.py`` (tile bounds, the ``fits_kernel``
@@ -73,9 +73,10 @@ _SIGNATURES = {
     # ncap, ecap, kcap, h, wide, stream
     "gains_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
-    # nbr, trav_m, trav_w, trav_d, ucnt, lcnt, eta, inter,
-    # rows, u, l, stream
-    "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # node_off, node_edges, node_nin, edge_off, edge_pins, edge_nsrc,
+    # edge_w, nbr_off, nbr_ids, eta, inter, ncap, ecap, nbcap, bins, stream
+    "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _P],
     # q, k, v, o, batch, seq, heads, kv_heads, head_dim, causal, scale,
     # dtype (0 f32, 1 bf16), stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import coarsen as jco
 from repro.core import generate as jgen
 from repro.core import hypergraph as jhg
 from repro.kernels.gains import ops as jg_ops
@@ -24,6 +25,7 @@ from repro.kernels.pair_scores.kernel import pair_scores_pallas
 from repro.kernels.pins_count import ops as jpc_ops
 from repro.kernels.pins_count.kernel import pins_count_pallas
 from repro_torch import kernels as tkernels
+from repro_torch.core import coarsen as tco
 from repro_torch.core import generate as tgen
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import refine as tre
@@ -33,6 +35,7 @@ from repro_torch.kernels.pair_scores import ops as tps_ops
 from repro_torch.kernels.pair_scores import ref as tps_ref
 from repro_torch.kernels.pins_count import ops as tpc_ops
 from repro_torch.kernels.pins_count import ref as tpc_ref
+from repro_torch.utils import segops as tsegops
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,6 +56,7 @@ _j_pairs = jax.jit(jhg.build_pairs, static_argnames="caps")
 _j_nbrs = jax.jit(jhg.build_neighbors, static_argnames="caps")
 _j_ps_fits = jax.jit(jps_ops.fits_kernel, static_argnames="caps")
 _j_ps = jax.jit(jps_ops.score_slots_kernel, static_argnames="caps")
+_j_scores = jax.jit(jco.score_slots, static_argnames="caps")
 _j_pc = jax.jit(jpc_ops.pins_matrix_kernel, static_argnames=("caps", "kcap"))
 _j_conn = jax.jit(jg_ops.conn_weights, static_argnames=("caps", "kcap"))
 
@@ -128,7 +132,7 @@ def test_ops_plain_versions_match_pallas_on_real_levels():
         assert bool(_j_ps_fits(jd, jn, jp, caps)) \
             == tps_ops.fits_kernel(tn, tp, tc) is True
         je, ji = _j_ps(jd, jn, jp, caps)
-        te, ti = tps_ops.score_slots_kernel(tn, tp, tc)
+        te, ti = tps_ops.score_slots_kernel(td, tn, tp, tc)
         np.testing.assert_allclose(te.numpy(), _np(je), atol=1e-5)
         np.testing.assert_array_equal(ti.numpy(), _np(ji))
 
@@ -202,6 +206,114 @@ def test_gains_walk_matches_segments_ref_and_jax(level):
     np.testing.assert_array_equal(walk.numpy(), jc)   # and the same bits
 
 
+def _random_level(seed: int, n: int, n_edges: int, src_twice: int = 0):
+    """A level of ``n_edges`` edges of 3 to 8 distinct pins with 1 to 3
+    sources and fractional weights (so the order of the float adds shows):
+    most nodes are a source of some edges and a destination of others, with
+    edge ids interleaved. In the first ``src_twice`` edges the last pin (a
+    destination) repeats the first (a source)."""
+    rng = np.random.default_rng(seed)
+    cards = rng.integers(3, 9, size=n_edges)
+    pins = [rng.choice(n, size=c, replace=False) for c in cards]
+    nsrc = np.minimum(rng.integers(1, 4, size=n_edges), cards - 1)
+    for p in pins[:src_twice]:
+        p[-1] = p[0]
+    args = dict(
+        n_nodes=n,
+        edge_off=np.concatenate([[0], np.cumsum(cards)]).astype(np.int32),
+        edge_pins=np.concatenate(pins).astype(np.int32),
+        edge_nsrc=nsrc.astype(np.int32),
+        edge_w=(rng.random(n_edges) * 8).astype(np.float32))
+    jh, th = jhg.HostHypergraph(**args), thg.HostHypergraph(**args)
+    caps = jhg.Caps.for_host(jh)
+    return (caps, jhg.device_from_host(jh, caps),
+            thg.device_from_host(th, thg.Caps.for_host(th), "cpu"))
+
+
+def _ps_level(level):
+    if level in ("smallworld", "layered"):
+        return _levels()[["smallworld", "layered"].index(level)][:3]
+    if level == "interleaved":
+        return _random_level(5, n=30, n_edges=200)
+    return _random_level(6, n=40, n_edges=120, src_twice=20)
+
+
+def _incidence_runs(td):
+    """Per node: its inbound and outbound edge ids, as listed."""
+    off, edges = td.node_off.tolist(), td.node_edges.tolist()
+    nin = td.node_nin.tolist()
+    return [(edges[off[n]:off[n] + nin[n]], edges[off[n] + nin[n]:off[n + 1]])
+            for n in range(int(td.n_nodes))]
+
+
+@pytest.mark.parametrize("level", ["smallworld", "layered", "interleaved",
+                                   "src_and_dst"])
+def test_pair_scores_walk_matches_segments_and_jax(level):
+    """The edge-walk plain version (the kernel's data path) gives the bits
+    of the port's and the JAX package's segment path ``score_slots``, also
+    with bins small enough that nodes take their slots in batches, and the
+    JAX package's score_slots_kernel (Pallas, interpret mode) within its
+    chunk order's 1e-5, inter exact."""
+    caps, jd, td = _ps_level(level)
+    tc = thg.Caps(**dataclasses.asdict(caps))
+    jp = _j_pairs(jd, caps)
+    jn = _j_nbrs(jp, jd, caps)
+    tp = thg.build_pairs(td, tc)
+    tn = thg.build_neighbors(tp, td, tc)
+    assert bool(_j_ps_fits(jd, jn, jp, caps)) \
+        and tps_ops.fits_kernel(tn, tp, tc)
+    bins = tps_ops.bin_budget(tn)
+    assert bins >= int((tn.off[1:] - tn.off[:-1]).max())
+    walk_e, walk_i = tps_ref.score_slots_walk(td, tn, tc, bins)
+    seg_e, seg_i = tco.score_slots(tn, tp, tc)
+    assert torch.equal(walk_e, seg_e) and torch.equal(walk_i, seg_i)
+    assert int(walk_i.sum()) > 0
+    je, ji = _j_scores(jd, jn, jp, caps)
+    np.testing.assert_array_equal(walk_e.numpy(), _np(je))
+    np.testing.assert_array_equal(walk_i.numpy(), _np(ji))
+    ke, ki = _j_ps(jd, jn, jp, caps)
+    np.testing.assert_allclose(walk_e.numpy(), _np(ke), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(walk_i.numpy(), _np(ki))
+    for small in (1, 7):   # every node in batches: the same bits
+        be, bi = tps_ref.score_slots_walk(td, tn, tc, small)
+        assert torch.equal(be, walk_e) and torch.equal(bi, walk_i)
+    if level == "src_and_dst":
+        # HostHypergraph admits an edge holding one node as a source and as
+        # a destination: the node lists it in both incidence runs
+        assert any(set(a) & set(b) for a, b in _incidence_runs(td))
+
+
+def test_pair_scores_walk_merges_incidence_runs():
+    """On a level whose nodes list inbound edges with larger ids before
+    outbound ones, adding each node's lanes in its listed incidence order
+    misses the segment path's bits; the walk merges the runs and does not."""
+    caps, _, td = _ps_level("interleaved")
+    tc = thg.Caps(**dataclasses.asdict(caps))
+    assert any(a and b and max(a) > min(b) for a, b in _incidence_runs(td))
+    tp = thg.build_pairs(td, tc)
+    tn = thg.build_neighbors(tp, td, tc)
+    seg_e, _ = tco.score_slots(tn, tp, tc)
+    # each lane's rank: the listed position of its edge in its node's
+    # incidence; lanes re-ordered by (node, rank), stably
+    t = torch.arange(tc.p)
+    n_of = tsegops.rows_from_offsets(td.node_off, tc.p, tc.n).long()
+    live = t < td.n_pins
+    pos = torch.full((tc.n * tc.e,), tc.p, dtype=torch.long)
+    pos.scatter_reduce_(0, (n_of * tc.e + td.node_edges.long())[live],
+                        (t - td.node_off[n_of.clamp(max=tc.n - 1)])[live],
+                        reduce="amin")
+    ok = tp.valid
+    n, e = tp.n.long()[ok], tp.edge.long()[ok]
+    order = torch.sort(n * tc.p + pos[n * tc.e + e], stable=True).indices
+    lo = tn.off[n]
+    slot = tsegops.searchsorted_segmented(tn.ids, lo, tn.off[n + 1],
+                                             tp.m[ok], 32)
+    listed = tsegops.segment_sum(tp.w_norm[ok][order], slot[order], tc.nbrs)
+    assert not torch.equal(listed, seg_e)
+    walk_e, _ = tps_ref.score_slots_walk(td, tn, tc, tps_ops.bin_budget(tn))
+    assert torch.equal(walk_e, seg_e)
+
+
 def _one_edge(card: int, **caps_over):
     kw = dict(n_nodes=200, n_edges=1, k=card, seed=1, n_src=2, weighted=True)
     jh, th = jgen.random_kuniform(**kw), tgen.random_kuniform(**kw)
@@ -264,7 +376,7 @@ def test_cpu_tensors_run_the_plain_versions():
     pins, _ = tpc_ops.pins_matrix_kernel(td, _t(parts), tc, kcap)
     tg_ops.conn_weights(td, _t(parts), pins, tc, kcap)
     tp = thg.build_pairs(td, tc)
-    tps_ops.score_slots_kernel(thg.build_neighbors(tp, td, tc), tp, tc)
+    tps_ops.score_slots_kernel(td, thg.build_neighbors(tp, td, tc), tp, tc)
     assert tkernels.LAUNCHES == before
 
 
@@ -281,12 +393,15 @@ def test_cuda_kernels_match_plain_versions():
     td = thg.device_from_host(th, tc, dev)
     gparts = _t(parts).to(dev)
     tp = thg.build_pairs(td, tc)
-    tiles = tps_ops.dense_tiles(thg.build_neighbors(tp, td, tc), tp, tc)
+    tn = thg.build_neighbors(tp, td, tc)
     before = dict(tkernels.LAUNCHES)
-    ek, ik = tps_ops.pair_scores(*tiles)
-    ep, ip = tps_ref.pair_scores_ref(*tiles[:4])
-    assert torch.equal(ik, ip)
-    torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-5)
+    ek, ik = tps_ops.score_slots_kernel(td, tn, tp, tc)
+    ep, ip = tps_ref.score_slots_walk(td, tn, tc, tps_ops.bin_budget(tn))
+    assert torch.equal(ek, ep) and torch.equal(ik, ip)
+    es, is_ = tco.score_slots(tn, tp, tc)
+    assert torch.equal(ek, es) and torch.equal(ik, is_)
+    eb, ib = tps_ops.pair_scores(td, tn, tc, 7)   # nodes in batches of bins
+    assert torch.equal(eb, es) and torch.equal(ib, is_)
     pins, pins_in = tpc_ops.pins_matrix_kernel(td, gparts, tc, kcap)
     dbar = tpc_ops.tile_bounds(tc)[0]
     rp, rpi = tpc_ref.pins_matrix_ref(td, gparts, tc, kcap, dbar)
@@ -295,5 +410,6 @@ def test_cuda_kernels_match_plain_versions():
     assert torch.equal(conn, tg_ref.conn_weights_walk(
         td, gparts, pins, tc, kcap, tg_ops.h_bound(tc),
         tg_ops.wide_bound(kcap)))
+    assert tkernels.LAUNCHES["pair_scores"] == before["pair_scores"] + 2
     assert all(tkernels.LAUNCHES[k] == before[k] + 1
-               for k in ("pair_scores", "pins_count", "gains"))
+               for k in ("pins_count", "gains"))
