@@ -25,7 +25,8 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
   3. the full ``partition(use_kernels=True)``: audit, kernel path, launch
      counts (reset just before, read just after), peak device memory;
   4. a second identical run gives identical parts;
-  5. one ``use_kernels=False`` run passes the audit;
+  5. one ``use_kernels=False`` run passes the audit, on the same graph
+     cut to 4 layers (32,768 neurons) to leave time for phases 9 to 11;
   6. each kernel's time (CUDA events) beside its plain version's, its
      bound and a one-call PyTorch yardstick where one exists (flash_attn
      at the serving path's longest prefill, S 2048, f32, causal); for
@@ -41,9 +42,27 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      give identical tokens, each run launches flash_attn 28 times per
      request (counts reset just before, read just after); time to first
      token, prefill and decode tokens/s and peak memory; and the smoke
-     config's tokens identical on the card and on the CPU.
+     config's tokens identical on the card and on the CPU;
+  9. the bucketed solve ``partition(bucket=True)`` (pow2 capacities
+     between levels): parts, levels, connectivity and kernel path equal
+     to phase 3's, a second run identical; its timings, launches, peak
+     memory and each level's capacities beside phase 3's;
+ 10. streaming: ``perturb_delta`` of 1229 edges (about 1%), then a warm
+     ``repartition`` from phase 3's parts through a ``WarmCache``: mode
+     warm, no coarsening, the audit, launches gains 16, pins_count 16,
+     pair_scores 0; then a second delta through the same cache, which
+     keeps its caps exactly when the graph still fits them; the host's
+     ``apply_delta`` timed apart from the solve;
+ 11. k-way at k=2: pins_count and gains at kcap 2 (every edge on gains'
+     pins-row branch) against their plain versions on level 0 with the
+     k-way initial parts, and timed; ``partition_kway`` (audit, balance,
+     gains on level 0 and pins everywhere), then a warm
+     ``repartition_kway`` with phase 10's delta.
 
-Phases 3 to 5 run under ``torch.use_deterministic_algorithms(True)``.
+Phase 2 also runs its small graph through ``partition(bucket=True)``,
+``repartition`` and ``partition_kway``, on the card and on the CPU, with
+the same parts. Phases 3 to 5 and 9 to 11 run under
+``torch.use_deterministic_algorithms(True)``.
 Float matmuls run in full f32 (TF32 off). The second-to-last line is the
 kernels JSON, the last the device JSON. Exits nonzero with no result when
 no CUDA device is present or the package sources are not beside this
@@ -52,6 +71,7 @@ script.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import re
@@ -70,6 +90,9 @@ REPLACES = {
     "flash_attn": "src/repro/kernels/flash_attn/kernel.py:64",
 }
 SERVE_ARCH = "qwen2-1.5b"
+# the kernels-off run (phase 5) at a cut depth: it only shows the plain path
+# passes the audit, and the script's time goes to the new paths
+OFF_LAYERS = 4
 
 
 def log(*a):
@@ -310,12 +333,303 @@ def serve_phase(torch, kernels, card: str) -> int:
     return launches
 
 
+def small_entry_points(small, rc, partition) -> None:
+    """Phase 2's small graph through the other entry points, on the card
+    and on the CPU: the same parts, mode and kernel path."""
+    from repro_torch.core import generate
+    from repro_torch.core.kway import partition_kway
+    from repro_torch.core.partitioner import repartition
+
+    runs = {
+        "partition(bucket=True)": lambda dev, g: partition(
+            g, omega=12, delta=40, theta=2, use_kernels=True, bucket=True,
+            device=dev),
+        "repartition": lambda dev, g: repartition(
+            g, rc.parts, 12, 40, theta=2, use_kernels=True,
+            deltas=generate.perturb_delta(g, n_edges=6, seed=0),
+            drift_threshold=0.9, device=dev),
+        "partition_kway": lambda dev, g: partition_kway(
+            g, k=2, eps=0.03, theta=2, use_kernels=True, device=dev),
+    }
+    res = {}
+    for name, run in runs.items():
+        a, b = (run(dev, copy.deepcopy(small)) for dev in ("cpu", "cuda"))
+        need((a.parts == b.parts).all() and a.mode == b.mode
+             and a.kernel_path == b.kernel_path and a.audit == b.audit,
+             f"small graph, {name}: CUDA == CPU")
+        log(f"[2] small graph, {name}: CUDA == CPU parts, mode {b.mode}, "
+            f"n_levels {b.n_levels}, connectivity {b.connectivity}, "
+            f"kernel_path {b.kernel_path}")
+        res[name] = b
+    need((res["partition(bucket=True)"].parts == rc.parts).all(),
+         "small graph: bucketed parts == unbucketed parts")
+    need(res["repartition"].mode == "warm",
+         "small graph: repartition stays warm")
+
+
+def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
+    """Phase 9: ``partition(bucket=True)`` at full size against phase 3's
+    unbucketed run, twice, with the capacities of every level."""
+    from repro_torch.core import partitioner
+
+    level_caps = [cold["caps"]]
+    shrink = partitioner.shrink_device
+
+    def recording_shrink(d, caps):
+        d2, caps2 = shrink(d, caps)
+        level_caps.append(caps2)
+        return d2, caps2
+
+    partitioner.shrink_device = recording_shrink
+    try:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        rb = partitioner.partition(hg, omega=omega, delta=delta, theta=theta,
+                                   use_kernels=True, bucket=True)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        caps_used = list(level_caps)
+        rb2 = partitioner.partition(hg, omega=omega, delta=delta,
+                                    theta=theta, use_kernels=True,
+                                    bucket=True)
+    finally:
+        partitioner.shrink_device = shrink
+    log(f"[9] partition(bucket=True): n_parts {rb.n_parts}, n_levels "
+        f"{rb.n_levels}, connectivity {rb.connectivity} (unbucketed: "
+        f"{cold['n_levels']} levels, connectivity {cold['connectivity']})")
+    log(f"[9] timings (s): " + json.dumps(rb.timings) + "; unbucketed "
+        + json.dumps(cold["timings"]) + f"; second bucketed run total "
+        f"{rb2.timings['total']:.3f}")
+    log(f"[9] launches: " + json.dumps(launches) + "; unbucketed "
+        + json.dumps(cold["launches"]))
+    log(f"[9] peak device memory of the solve: {peak / 2**30:.3f} GiB "
+        f"({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held); "
+        f"unbucketed {cold['peak'] / 2**30:.3f} GiB, on {card}")
+    log(f"[9] caps per level (n, p, pairs), level 0 first: " + json.dumps(
+        [(c.n, c.p, c.pairs) for c in caps_used]) + f"; e {cold['caps'].e}")
+    log(f"[9] kernel_path: " + json.dumps(rb.kernel_path))
+    need(rb.audit["size_ok"] and rb.audit["inbound_ok"], "bucketed audit")
+    need(rb.n_levels == cold["n_levels"]
+         and rb.connectivity == cold["connectivity"]
+         and rb.kernel_path == cold["kernel_path"],
+         "bucketed levels, connectivity and kernel_path equal the "
+         "unbucketed run's")
+    need((rb.parts == cold["parts"]).all(),
+         "bucketed parts equal the unbucketed parts")
+    need((rb2.parts == rb.parts).all(), "second bucketed run identical")
+    for name in ("pair_scores", "pins_count", "gains"):
+        need(launches[name] > 0, f"{name} launched on the bucketed path")
+    log("[9] bucketed parts equal the unbucketed parts; a second bucketed "
+        "run gives identical parts")
+
+
+def stream_phase(torch, kernels, hg, cold, card, omega, delta, theta):
+    """Phase 10: a warm ``repartition`` after a delta of about 1% of the
+    edges, then a second delta through the same cache. Returns the first
+    delta (built against ``hg``, which stays as it was)."""
+    from repro_torch.core import generate, partitioner
+    from repro_torch.core.hypergraph import CapacityError, check_fits_caps
+    from repro_torch.core.partitioner import WarmCache, repartition
+
+    hg10 = copy.deepcopy(hg)
+    n_edges = math.ceil(hg.n_edges / 100)   # 1229 at full size
+    dl = generate.perturb_delta(hg10, n_edges=n_edges, seed=0)
+    applied = []
+    apply_delta = partitioner.apply_delta
+
+    def timed_apply(g, delta_):
+        t0 = time.perf_counter()
+        touched = apply_delta(g, delta_)
+        applied.append((time.perf_counter() - t0, touched))
+        return touched
+
+    cache = WarmCache()
+    runs = []
+    partitioner.apply_delta = timed_apply
+    try:
+        for seed in (0, 1):
+            delta_ = dl if seed == 0 else generate.perturb_delta(
+                hg10, n_edges=n_edges, seed=seed)
+            caps_before, d_before = cache.caps, cache.d
+            prev = runs[-1][0].parts if runs else cold["parts"]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            r = repartition(hg10, prev, omega, delta, deltas=delta_,
+                            cache=cache, theta=theta, use_kernels=True)
+            torch.cuda.synchronize()
+            runs.append((r, time.perf_counter() - t0,
+                         dict(kernels.LAUNCHES), caps_before, d_before,
+                         hg10.drift))
+    finally:
+        partitioner.apply_delta = apply_delta
+    for i, (r, wall, launches, _, _, drift) in enumerate(runs):
+        secs, touched = applied[i]
+        log(f"[10] delta {i}: {n_edges} edges out and in, {touched} pins "
+            f"touched, apply_delta {secs:.3f} s on the host; drift since "
+            f"the cold solve {drift:.4f}")
+        log(f"[10] repartition {i}: mode {r.mode}, n_levels {r.n_levels}, "
+            f"connectivity {r.connectivity} (cold {cold['connectivity']}), "
+            f"audit size_ok {r.audit['size_ok']} inbound_ok "
+            f"{r.audit['inbound_ok']}, max_size {r.audit['max_size']}, "
+            f"max_inbound {r.audit['max_inbound']}")
+        log(f"[10] repartition {i}: warm solve timings (s) "
+            + json.dumps(r.timings) + f", the call {wall:.3f} s with "
+            f"apply_delta and the upload; cold solve (phase 3) total "
+            f"{cold['timings']['total']:.3f} s, on {card}")
+        log(f"[10] repartition {i}: launches " + json.dumps(launches)
+            + f", kernel_path {json.dumps(r.kernel_path)}")
+        need(r.mode == "warm" and r.n_levels == 0,
+             f"repartition {i} warm with no coarsening ({r.mode})")
+        need(r.audit["size_ok"] and r.audit["inbound_ok"],
+             f"repartition {i} audit")
+        need(launches["gains"] == theta and launches["pins_count"] == theta
+             and launches["pair_scores"] == 0,
+             f"repartition {i} launches gains {theta}, pins_count {theta}, "
+             f"pair_scores 0: {launches}")
+    # the second delta: the cache keeps its caps if and only if the
+    # post-delta graph still fits them, and refreshes its storage
+    _, _, _, caps_before, d_before, _ = runs[1]
+    try:
+        check_fits_caps(hg10, caps_before)
+        fits = True
+    except CapacityError:
+        fits = False
+    reused = cache.caps is caps_before
+    need(reused == fits and cache.d is not None and cache.d is not d_before,
+         f"the cache after the second delta: caps kept {reused}, graph "
+         f"fits them {fits}, storage refreshed")
+    log(f"[10] second delta through the same cache: caps "
+        f"{'reused' if reused else 'invalidated'} (the post-delta graph "
+        f"{'fits' if fits else 'outgrew'} them), device storage rebuilt "
+        f"from the host graph")
+    return dl
+
+
+def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
+    """Phase 11: B2 and B3 at kcap 2 against their plain versions, then
+    ``partition_kway(k=2)`` at full size and a warm ``repartition_kway``
+    with phase 10's delta."""
+    from repro_torch.core import kway
+    from repro_torch.core.coarsen import CoarsenParams
+    from repro_torch.core.hypergraph import device_from_host, host_from_device
+    from repro_torch.core.partitioner import (WarmCache, make_coarsen_fns,
+                                              run_coarsen_loop)
+    from repro_torch.kernels.gains import ops as g_ops
+    from repro_torch.kernels.gains import ref as g_ref
+    from repro_torch.kernels.pins_count import ops as pc_ops
+    from repro_torch.kernels.pins_count import ref as pc_ref
+
+    k, eps, kcap = 2, 0.03, 2
+    caps = cold["caps"]
+    omega = max(int((1 + eps) * hg.n_nodes / k), math.ceil(hg.n_nodes / k))
+    # the k-way initial parts projected to level 0: the k-way coarsening
+    # (bucketed, which gives the same levels) and the greedy placement
+    t0 = time.perf_counter()
+    d0 = device_from_host(hg, caps, dev)
+    co, ct = make_coarsen_fns(CoarsenParams(omega=omega,
+                                            delta=kway.BIG_DELTA))
+    dk, _, _, gammas, _ = run_coarsen_loop(d0, caps, min(4096, max(4 * k, 64)),
+                                           64, co, ct, None, shrink=True)
+    coarse = host_from_device(dk)
+    init = kway.greedy_initial_kway(
+        coarse, dk.node_size[: coarse.n_nodes].cpu().numpy(), k, omega)
+    ids = torch.arange(caps.n, device=dev)
+    for g in gammas:
+        ids = g.long()[ids]
+    parts0 = torch.from_numpy(init.astype("int32")).to(dev)[ids]
+    del dk, gammas, ids
+    log(f"[11] k-way initial parts: {coarse.n_nodes} coarsest nodes, "
+        f"placed in {k} parts, projected to level 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    dbar = pc_ops.tile_bounds(caps)[0]
+    pins, pins_in = pc_ops.pins_matrix_kernel(d0, parts0, caps, kcap)
+    want, want_in = pc_ref.pins_matrix_ref(d0, parts0, caps, kcap, dbar)
+    torch.cuda.synchronize()
+    need(torch.equal(pins, want) and torch.equal(pins_in, want_in),
+         "pins_count at kcap 2 equal to its plain version")
+    h, wide = g_ops.h_bound(caps), g_ops.wide_bound(kcap)
+    conn = g_ops.conn_weights(d0, parts0, pins, caps, kcap)
+    want_c = g_ref.conn_weights_walk(d0, parts0, pins, caps, kcap, h, wide)
+    torch.cuda.synchronize()
+    need(torch.equal(conn, want_c), "gains at kcap 2 equal to its plain "
+         "version")
+    need(torch.equal(conn, g_ref.conn_weights_ref(d0, pins, caps, h)),
+         "gains at kcap 2 equal to the JAX ref.py's function")
+    n_rows = int(((d0.edge_off[1:] - d0.edge_off[:-1]) > wide).sum())
+    ms_pc = cuda_ms(torch, lambda: pc_ops.pins_matrix_kernel(
+        d0, parts0, caps, kcap), 50)
+    plain_pc = cuda_ms(torch, lambda: pc_ref.pins_matrix_ref(
+        d0, parts0, caps, kcap, dbar), 10)
+    ms_g = cuda_ms(torch, lambda: g_ops.conn_weights(d0, parts0, pins, caps,
+                                                     kcap), 50)
+    plain_g = cuda_ms(torch, lambda: g_ref.conn_weights_walk(
+        d0, parts0, pins, caps, kcap, h, wide), 3, warmup=1)
+    log(f"[11] pins_count [{caps.e}, {kcap}] and gains [{caps.n}, {kcap}] "
+        f"equal to their plain versions; {n_rows} edges above the pins-row "
+        f"threshold {wide}, so every live edge reads its pins row")
+    # bounds as in phase 6: CSRs, parts and weights read once, the outputs
+    # written once, every live edge's pins row read once by gains
+    b_pc = bound(4.0 * (caps.e + 1 + hg.n_pins + caps.e + caps.n
+                        + 2 * caps.e * kcap), float(hg.n_pins))
+    b_g = bound(4.0 * (caps.n + 1 + hg.n_pins + caps.e + 1 + hg.n_pins
+                       + caps.n + caps.e + caps.n * kcap + n_rows * kcap),
+                float(hg.n_pins) * kcap)
+    log(f"[11] at kcap {kcap}: pins_count {ms_pc:.4f} ms (plain "
+        f"{plain_pc:.4f}, bound {b_pc[0]:.4f} by {b_pc[1]}), gains "
+        f"{ms_g:.4f} ms (plain {plain_g:.4f}, bound {b_g[0]:.4f} by "
+        f"{b_g[1]}), on {card}")
+    del d0, parts0, pins, pins_in, want, want_in, conn, want_c
+
+    kernels.reset_launches()
+    rk = kway.partition_kway(hg, k=k, eps=eps, theta=theta,
+                             use_kernels=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    aud = rk.audit
+    log(f"[11] partition_kway(k=2): n_parts {rk.n_parts}, n_levels "
+        f"{rk.n_levels}, connectivity {rk.connectivity}, cut_net "
+        f"{rk.cut_net}, max_size {aud['max_size']} of Omega {omega}, "
+        f"balance_eps {aud['balance_eps']:.5f}")
+    log(f"[11] timings (s): " + json.dumps(rk.timings) + f", on {card}")
+    log(f"[11] launches: " + json.dumps(launches) + "; kernel_path "
+        + json.dumps(rk.kernel_path))
+    need(aud["size_ok"] and aud["balance_eps"] <= eps,
+         f"k-way audit: size_ok {aud['size_ok']}, balance_eps "
+         f"{aud['balance_eps']}")
+    kp = rk.kernel_path
+    need(kp["refine"][0] == theta and all(v == theta for v in kp["pins"]),
+         f"k-way: gains on level 0 and pins on every level: {kp}")
+    need(launches["gains"] > 0 and launches["pins_count"] > 0,
+         "k-way launches gains and pins_count")
+
+    kernels.reset_launches()
+    rw = kway.repartition_kway(hg, rk.parts, k=k, eps=eps, deltas=dl,
+                               cache=WarmCache(), theta=theta,
+                               use_kernels=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"[11] repartition_kway: mode {rw.mode}, n_levels {rw.n_levels}, "
+        f"n_parts {rw.n_parts}, connectivity {rw.connectivity}, balance_eps "
+        f"{rw.audit['balance_eps']:.5f}, timings " + json.dumps(rw.timings)
+        + "; launches " + json.dumps(launches))
+    need(rw.mode == "warm" and rw.n_levels == 0 and rw.n_parts == k
+         and rw.audit["size_ok"], f"warm k-way ({rw.mode})")
+    need(launches["gains"] == theta and launches["pins_count"] == theta
+         and launches["pair_scores"] == 0,
+         f"warm k-way launches gains {theta}, pins_count {theta}: "
+         f"{launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=16,
                     help="SNN depth (the only dimension ever cut)")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -489,6 +803,7 @@ def main(argv=None) -> int:
     need((rg.parts == rc.parts).all(), "small graph: CUDA parts == CPU")
     log(f"[2] small graph: CUDA == CPU parts, connectivity "
         f"{rg.connectivity}, kernel_path {rg.kernel_path}")
+    small_entry_points(small, rc, partition)
 
     # ---- 3. full partition(use_kernels=True) --------------------------------
     torch.use_deterministic_algorithms(True)
@@ -520,6 +835,10 @@ def main(argv=None) -> int:
     need(kp["refine"][0] == theta, f"gains kernel on level 0: {kp}")
     for name in ("pair_scores", "pins_count", "gains"):
         need(launches[name] > 0, f"{name} launched on the main path")
+    cold = dict(parts=r1.parts, n_levels=r1.n_levels,
+                connectivity=r1.connectivity, kernel_path=r1.kernel_path,
+                timings=r1.timings, launches=dict(launches), peak=peak,
+                caps=caps)
 
     # ---- 4. determinism -------------------------------------------------------
     r2 = partition(hg, omega=omega, delta=delta, theta=theta,
@@ -527,15 +846,20 @@ def main(argv=None) -> int:
     need((r1.parts == r2.parts).all(), "second run gives identical parts")
     log(f"[4] second run: identical parts (total {r2.timings['total']:.2f} s)")
 
-    # ---- 5. kernels off ---------------------------------------------------
-    r0 = partition(hg, omega=omega, delta=delta, theta=theta,
+    # ---- 5. kernels off, at a cut depth -----------------------------------
+    hg5 = generate.snn_layered(n_layers=min(args.layers, OFF_LAYERS),
+                               width=8192, fanout=16, window=64, seed=0)
+    r0 = partition(hg5, omega=omega, delta=delta, theta=theta,
                    use_kernels=False)
     need(r0.audit["size_ok"] and r0.audit["inbound_ok"],
          f"kernels-off audit {r0.audit}")
-    log(f"[5] use_kernels=False: connectivity {r0.connectivity} (kernels "
-        f"on: {r1.connectivity}), n_parts {r0.n_parts}, timings "
-        + json.dumps(r0.timings))
+    log(f"[5] use_kernels=False on {hg5.n_nodes} nodes "
+        f"({min(args.layers, OFF_LAYERS)} layers): connectivity "
+        f"{r0.connectivity}, n_parts {r0.n_parts}, n_levels {r0.n_levels}, "
+        f"timings " + json.dumps(r0.timings))
+    del hg5
     torch.use_deterministic_algorithms(False)
+    log(f"[5] {time.perf_counter() - t_start:.1f} s from the start")
 
     # ---- 6. times at the main-path shapes -----------------------------------
     rows_used = []
@@ -676,6 +1000,18 @@ def main(argv=None) -> int:
     fa_launches = serve_phase(torch, kernels, card)
     rows_used.append(fa_row)
     launches["flash_attn"] = fa_launches
+
+    log(f"[8] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 9-11. bucketed solve, streaming, k-way ---------------------------
+    torch.use_deterministic_algorithms(True)
+    bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta)
+    log(f"[9] {time.perf_counter() - t_start:.1f} s from the start")
+    dl = stream_phase(torch, kernels, hg, cold, card, omega, delta, theta)
+    log(f"[10] {time.perf_counter() - t_start:.1f} s from the start")
+    kway_phase(torch, kernels, hg, dl, cold, card, theta, dev)
+    log(f"[11] {time.perf_counter() - t_start:.1f} s from the start")
+    torch.use_deterministic_algorithms(False)
 
     out = []
     for r in rows_used:

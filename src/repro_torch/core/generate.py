@@ -7,12 +7,14 @@ seed.
 * ``snn_smallworld`` — ring locality with random rewiring.
 * ``ispd_like``      — netlist-like: small cardinality, driver + sinks.
 * ``random_kuniform``— uniform random k-edges.
+* ``perturb_delta``  — a seeded ``GraphDelta`` that swaps edges for fresh
+  ones of the same sizes (the streaming path's load shift).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.hypergraph import HostHypergraph
+from repro_torch.core.hypergraph import GraphDelta, HostHypergraph
 
 
 def _finalize(n_nodes, pin_lists, nsrc, weights) -> HostHypergraph:
@@ -105,3 +107,23 @@ def random_kuniform(n_nodes: int, n_edges: int, k: int, seed: int = 0,
         nsrc.append(n_src)
         weights.append(float(rng.integers(1, 10)) if weighted else 1.0)
     return _finalize(n_nodes, pin_lists, nsrc, weights)
+
+
+def perturb_delta(hg: HostHypergraph, n_edges: int = 8,
+                  seed: int = 0) -> GraphDelta:
+    """Delete ``n_edges`` random edges and insert as many fresh ones with
+    their weights and cardinalities (at least 2), of sampled pins, the
+    first the source. Deterministic in ``seed``."""
+    rng = np.random.default_rng(seed)
+    n_edges = int(min(n_edges, hg.n_edges))
+    if n_edges <= 0:
+        return GraphDelta()
+    dels = rng.choice(hg.n_edges, size=n_edges, replace=False)
+    card = np.maximum(np.diff(hg.edge_off), 2).astype(np.int64)
+    adds = []
+    for e in dels:
+        k = int(min(card[int(e)], hg.n_nodes))
+        pins = rng.choice(hg.n_nodes, size=k, replace=False).astype(np.int32)
+        adds.append((pins, 1 if k > 1 else 0, float(hg.edge_w[int(e)])))
+    return GraphDelta(del_edges=tuple(int(e) for e in dels),
+                      add_edges=tuple(adds))

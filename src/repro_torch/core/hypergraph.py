@@ -9,6 +9,7 @@ first, capacity-padded int32/float32 arrays with live-prefix counts, and
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -49,13 +50,19 @@ def check_expansion_caps(caps: "Caps", n_pairs_live, n_nbr_entries=None):
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class HostHypergraph:
-    """Ragged numpy hypergraph; ground-truth structure for IO / oracles."""
+    """Ragged numpy hypergraph; ground-truth structure for IO / oracles.
+
+    ``drift_pins`` counts the pins that ``apply_delta`` batches touched
+    since the last full (cold) solve: the numerator of ``drift``, which
+    ``core.partitioner.repartition`` compares against its fallback
+    threshold. A cold solve calls ``reset_drift()``."""
 
     n_nodes: int
     edge_off: np.ndarray    # [E+1] int64
     edge_pins: np.ndarray   # [P]   int32 — sources first within each edge
     edge_nsrc: np.ndarray   # [E]   int32
     edge_w: np.ndarray      # [E]   float32
+    drift_pins: int = 0     # pins touched by deltas since last full solve
 
     def __post_init__(self):
         self.edge_off = np.asarray(self.edge_off, np.int64)
@@ -71,6 +78,15 @@ class HostHypergraph:
     def n_pins(self) -> int:
         return int(self.edge_off[-1])
 
+    @property
+    def drift(self) -> float:
+        """Fraction of the current pins touched by deltas since the last
+        full solve, at most 1.0."""
+        return min(1.0, self.drift_pins / max(self.n_pins, 1))
+
+    def reset_drift(self) -> None:
+        self.drift_pins = 0
+
     def edge(self, e: int) -> np.ndarray:
         return self.edge_pins[self.edge_off[e]: self.edge_off[e + 1]]
 
@@ -79,6 +95,15 @@ class HostHypergraph:
 
     def dst(self, e: int) -> np.ndarray:
         return self.edge_pins[self.edge_off[e] + self.edge_nsrc[e]: self.edge_off[e + 1]]
+
+    def validate(self) -> None:
+        assert self.edge_off[0] == 0 and np.all(np.diff(self.edge_off) >= 0)
+        assert self.edge_pins.min(initial=0) >= 0
+        assert self.edge_pins.max(initial=-1) < self.n_nodes
+        for e in range(self.n_edges):
+            pins = self.edge(e)
+            assert len(np.unique(pins)) == len(pins), f"duplicate pin in edge {e}"
+            assert 0 <= self.edge_nsrc[e] <= len(pins)
 
     def incidence(self):
         """Returns (node_off[N+1], node_edges[P], node_is_in[P], node_nin[N])
@@ -113,6 +138,140 @@ def host_pair_count(hg: HostHypergraph) -> int:
     ``Caps.pairs`` before any device work."""
     card = np.diff(hg.edge_off).astype(np.int64)
     return int((card * np.maximum(card - 1, 0)).sum())
+
+
+# --------------------------------------------------------------------------
+# Incremental updates (streaming repartitioning)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GraphDelta:
+    """One batched structural update against a ``HostHypergraph``.
+
+    Every node / edge id refers to the graph before the batch. New node
+    ids (``old_n .. old_n + add_nodes - 1``) may appear in ``add_pins`` /
+    ``add_edges`` of the same batch. Edge ids shift down after deletions
+    (``add_edges`` append), so a later delta uses post-batch ids. Deleting
+    a node is a tombstone: its pins leave every edge, its id stays, so a
+    previous partition vector stays aligned.
+
+    Fields: ``add_nodes`` (count of fresh isolated nodes), ``del_nodes``
+    (node ids to tombstone), ``del_edges`` (edge ids), ``add_edges``
+    (``(pins, nsrc, w)``, pins sources first), ``add_pins`` (``(edge,
+    node)``, appended as dst pins), ``del_pins`` (``(edge, node)``; nsrc
+    drops if the pin was a source).
+    """
+
+    add_nodes: int = 0
+    del_nodes: tuple = ()
+    del_edges: tuple = ()
+    add_edges: tuple = ()   # of (pins: array-like, nsrc: int, w: float)
+    add_pins: tuple = ()    # of (edge, node)
+    del_pins: tuple = ()    # of (edge, node)
+
+
+def apply_delta(hg: HostHypergraph, delta: GraphDelta) -> int:
+    """Apply one delta batch to ``hg`` in place; returns the pins touched
+    (also added to ``hg.drift_pins``).
+
+    Order: pin deletions, node tombstones, pin insertions, edge deletions,
+    edge insertions, node-space growth. Touched pins: every edited pin,
+    every pin of a deleted or inserted edge, every pin a tombstone drops.
+    Raises ``ValueError`` on an id that does not resolve against the
+    pre-batch graph, before ``hg`` changes."""
+    new_n = hg.n_nodes + int(delta.add_nodes)
+    pins = [list(map(int, hg.edge(e))) for e in range(hg.n_edges)]
+    nsrc = [int(v) for v in hg.edge_nsrc]
+    wts = [float(v) for v in hg.edge_w]
+    E = len(pins)
+    touched = 0
+
+    for e, v in delta.del_pins:
+        e, v = int(e), int(v)
+        if not 0 <= e < E:
+            raise ValueError(f"del_pins: edge {e} out of range")
+        try:
+            i = pins[e].index(v)
+        except ValueError:
+            raise ValueError(f"del_pins: node {v} is not a pin of edge {e}")
+        del pins[e][i]
+        if i < nsrc[e]:
+            nsrc[e] -= 1
+        touched += 1
+
+    dead_nodes = {int(v) for v in delta.del_nodes}
+    if dead_nodes:
+        for v in dead_nodes:
+            if not 0 <= v < hg.n_nodes:
+                raise ValueError(f"del_nodes: node {v} out of range")
+        for e in range(E):
+            lst = pins[e]
+            hit = [i for i, v in enumerate(lst) if v in dead_nodes]
+            if hit:
+                nsrc[e] -= sum(1 for i in hit if i < nsrc[e])
+                pins[e] = [v for i, v in enumerate(lst) if v not in dead_nodes]
+                touched += len(hit)
+
+    for e, v in delta.add_pins:
+        e, v = int(e), int(v)
+        if not 0 <= e < E:
+            raise ValueError(f"add_pins: edge {e} out of range")
+        if not 0 <= v < new_n:
+            raise ValueError(f"add_pins: node {v} out of range")
+        if v in pins[e]:
+            raise ValueError(f"add_pins: node {v} already a pin of edge {e}")
+        pins[e].append(v)
+        touched += 1
+
+    dead_edges = {int(e) for e in delta.del_edges}
+    for e in dead_edges:
+        if not 0 <= e < E:
+            raise ValueError(f"del_edges: edge {e} out of range")
+        touched += len(pins[e])
+    keep = [e for e in range(E) if e not in dead_edges]
+    pins = [pins[e] for e in keep]
+    nsrc = [nsrc[e] for e in keep]
+    wts = [wts[e] for e in keep]
+
+    for epins, ensrc, ew in delta.add_edges:
+        epins = [int(v) for v in np.asarray(epins).ravel()]
+        if len(set(epins)) != len(epins):
+            raise ValueError("add_edges: duplicate pin within an edge")
+        for v in epins:
+            if not 0 <= v < new_n:
+                raise ValueError(f"add_edges: node {v} out of range")
+        if not 0 <= int(ensrc) <= len(epins):
+            raise ValueError("add_edges: nsrc out of range")
+        pins.append(epins)
+        nsrc.append(int(ensrc))
+        wts.append(float(ew))
+        touched += len(epins)
+
+    lens = np.array([len(p) for p in pins], np.int64)
+    hg.n_nodes = new_n
+    hg.edge_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    hg.edge_pins = (np.concatenate([np.asarray(p, np.int32) for p in pins])
+                    if pins and sum(lens) else np.zeros(0, np.int32))
+    hg.edge_nsrc = np.asarray(nsrc, np.int32)
+    hg.edge_w = np.asarray(wts, np.float32)
+    hg.drift_pins += touched
+    return touched
+
+
+def check_fits_caps(hg: HostHypergraph, caps: "Caps") -> None:
+    """Raises ``CapacityError`` when a delta-updated ``hg`` no longer fits
+    an earlier ``Caps``: live nodes, edges and pins against their
+    capacities, then the pair-expansion audit. The kernel tile bounds
+    (``d_max``/``h0``) are not checked: each kernel's ``fits_kernel``
+    guards them at run time and sends a level that outgrew them down the
+    segment path."""
+    if hg.n_nodes > caps.n or hg.n_edges > caps.e or hg.n_pins > caps.p:
+        raise CapacityError(
+            f"delta-updated graph outgrew its capacities: "
+            f"nodes {hg.n_nodes}/{caps.n}, edges {hg.n_edges}/{caps.e}, "
+            f"pins {hg.n_pins}/{caps.p}. Rebuild device storage at fresh "
+            f"Caps (Caps.for_host) — the warm solver does this "
+            f"automatically.")
+    check_expansion_caps(caps, host_pair_count(hg))
 
 
 # --------------------------------------------------------------------------
@@ -359,3 +518,42 @@ def device_pair_count(edge_off: torch.Tensor) -> torch.Tensor:
     (int32; exact under the level-0 ``host_pair_count`` audit)."""
     card = edge_off[1:] - edge_off[:-1]
     return (card * (card - 1).clamp(min=0)).sum().to(torch.int32)
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(x, 1))))
+
+
+def shrink_device(d: DeviceHypergraph, caps: Caps) -> tuple[DeviceHypergraph, Caps]:
+    """Re-bucket the capacities to the next power of two above the live
+    sizes between coarsening levels, so coarse levels run on arrays that
+    shrink with them. Edge capacity never shrinks (edge ids persist across
+    levels); ``d_max``/``h0``/``l0``/``u0`` stay the level-0 values. The
+    live nodes, pins and pair count come back in one host read."""
+    n_live, p_live, pair_live = (int(v) for v in torch.stack(
+        [d.n_nodes, d.n_pins, device_pair_count(d.edge_off)]).cpu())
+    new_n = _pow2_at_least(n_live)
+    new_p = _pow2_at_least(p_live)
+    if new_n >= caps.n and new_p >= caps.p:
+        return d, caps
+    new_n = min(new_n, caps.n)
+    new_p = min(new_p, caps.p)
+    new_pairs = min(caps.pairs, _pow2_at_least(pair_live))
+    new_nbrs = min(caps.nbrs, new_pairs)
+    caps2 = Caps(n=new_n, e=caps.e, p=new_p, pairs=max(new_pairs, 1),
+                 nbrs=max(new_nbrs, 1), d_max=caps.d_max, h0=caps.h0,
+                 l0=caps.l0, u0=caps.u0)
+    # copies, not views: a view would keep the larger level's storage alive
+    d2 = DeviceHypergraph(
+        edge_off=d.edge_off,
+        edge_pins=d.edge_pins[:new_p].clone(),
+        edge_nsrc=d.edge_nsrc,
+        edge_w=d.edge_w,
+        node_off=d.node_off[: new_n + 1].clone(),
+        node_edges=d.node_edges[:new_p].clone(),
+        node_is_in=d.node_is_in[:new_p].clone(),
+        node_nin=d.node_nin[:new_n].clone(),
+        node_size=d.node_size[:new_n].clone(),
+        n_nodes=d.n_nodes, n_edges=d.n_edges, n_pins=d.n_pins,
+    )
+    return d2, caps2

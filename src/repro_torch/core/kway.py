@@ -1,0 +1,194 @@
+"""k-way balanced partitioning mode (paper Sec. VII-E), port of
+``repro.core.kway`` for one device.
+
+As in the paper: Omega = (1+eps) * |N| / k, Delta = +inf, coarsening halts
+early (at most 4096 coarse nodes) and an initial k-way partition is
+computed on the coarse graph. The paper hands that step to Mt-KaHyPar;
+like the JAX package, this places the coarsest nodes greedily on the host
+(affinity, then least load). Uncoarsening and refinement then run as in
+the constrained mode with K = k.
+"""
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import metrics
+from repro_torch.core.coarsen import CoarsenParams
+from repro_torch.core.hypergraph import (Caps, HostHypergraph,
+                                         check_expansion_caps,
+                                         device_from_host, device_pair_count,
+                                         host_from_device, host_pair_count)
+from repro_torch.core.partitioner import (PartitionResult, WarmCache,
+                                          _extend_parts, _next_pow2, _sync,
+                                          apply_deltas, check_ported,
+                                          make_coarsen_fns, make_refine_fn,
+                                          refine_from, run_coarsen_loop,
+                                          run_refine_loop, warm_storage)
+from repro_torch.core.refine import RefineParams
+from repro_torch.utils.device import resolve_device
+
+BIG_DELTA = 2 ** 29
+
+
+def greedy_initial_kway(hg: HostHypergraph, node_size: np.ndarray, k: int,
+                        omega: int) -> np.ndarray:
+    """Greedy affinity placement on the (small) coarsest graph: nodes in
+    size-descending order pick the partition with the highest total weight
+    of edges already touching it, within the size budget; ties go to the
+    least loaded, then the lowest id."""
+    N = hg.n_nodes
+    parts = np.full(N, -1, np.int64)
+    load = np.zeros(k, np.int64)
+    affinity = np.zeros((N, k), np.float64)
+    node_off, node_edges, _, _ = hg.incidence()
+    order = np.lexsort((np.arange(N), -node_size[:N]))
+    edge_pin_cache = [hg.edge(e) for e in range(hg.n_edges)]
+    for n in order:
+        fits = load + node_size[n] <= omega
+        if not fits.any():
+            fits = load == load.min()  # relief valve: least-loaded
+        cand = np.where(fits)[0]
+        best = cand[np.lexsort((cand, load[cand], -affinity[n, cand]))[0]]
+        parts[n] = best
+        load[best] += node_size[n]
+        for e in node_edges[node_off[n]: node_off[n + 1]]:
+            w = hg.edge_w[e]
+            for m in edge_pin_cache[e]:
+                if parts[m] < 0:
+                    affinity[m, best] += w
+    return parts
+
+
+def _omega(hg: HostHypergraph, k: int, eps: float) -> int:
+    return max(int((1 + eps) * hg.n_nodes / k), math.ceil(hg.n_nodes / k))
+
+
+def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
+                   n_cands: int = 4, theta: int = 16,
+                   coarse_target: int | None = None,
+                   use_kernels: bool = False, check_delta: bool = True,
+                   collect_log: bool = False,
+                   max_levels: int = 64,
+                   plan=None, race: bool = True,
+                   race_seed: int = 0,
+                   dist_coarsen: bool = True,
+                   compensated_psum: bool = False,
+                   shard_graph: bool = False,
+                   collect_stats: bool = False,
+                   device=None) -> PartitionResult:
+    """k-way balanced partitioning on one device (CUDA unless ``device``
+    names another), minimising connectivity; the audit adds
+    ``balance_eps``. The signature is the JAX package's: ``race``,
+    ``race_seed`` and ``dist_coarsen`` act only with ``plan``; ``plan``,
+    ``shard_graph``, ``compensated_psum`` and ``collect_stats`` raise
+    ``NotImplementedError``."""
+    check_ported(plan, shard_graph, compensated_psum, collect_stats)
+    dev = resolve_device(device)
+    omega = _omega(hg, k, eps)
+    t0 = time.perf_counter()
+    caps = Caps.for_host(hg)
+    # exact int64 level-0 audit (see partitioner.partition)
+    check_expansion_caps(caps, host_pair_count(hg))
+    d = device_from_host(hg, caps, dev)
+    cparams = CoarsenParams(omega=omega, delta=BIG_DELTA, n_cands=n_cands,
+                            use_kernels=use_kernels)
+    if coarse_target is None:
+        coarse_target = min(4096, max(4 * k, 64))
+    log: list | None = [] if collect_log else None
+    _coarsen, _contract = make_coarsen_fns(cparams)
+
+    t_c = time.perf_counter()
+    d, caps, levels, gammas, coarsen_hits = run_coarsen_loop(
+        d, caps, coarse_target, max_levels, _coarsen, _contract, log)
+    check_expansion_caps(caps, device_pair_count(d.edge_off))
+    _sync(dev)
+    t_coarsen = time.perf_counter() - t_c
+
+    # initial k-way on the coarsest graph (host; it is small)
+    coarse_host = host_from_device(d)
+    coarse_sizes = d.node_size[: coarse_host.n_nodes].cpu().numpy()
+    init = greedy_initial_kway(coarse_host, coarse_sizes, k, omega)
+    kcap = _next_pow2(k)
+    parts = torch.zeros((caps.n,), dtype=torch.int32, device=dev)
+    parts[: coarse_host.n_nodes] = torch.from_numpy(
+        init.astype(np.int32)).to(dev)
+
+    # check_delta is the JAX signature's: Delta is +inf either way
+    rparams = RefineParams(omega=omega, delta=BIG_DELTA, theta=theta,
+                           use_kernels=use_kernels)
+    rlog: list | None = [] if collect_log else None
+    _refine = make_refine_fn(k, kcap, rparams, rlog)
+    t_r = time.perf_counter()
+    # the JAX package's k-way logs no refine entries of its own
+    parts, refine_hits, pins_hits = run_refine_loop(
+        d, parts, caps, levels, gammas, _refine, None)
+    _sync(dev)
+    t_refine = time.perf_counter() - t_r
+
+    parts_np = parts[: hg.n_nodes].cpu().numpy().astype(np.int64)
+    aud = metrics.audit(hg, parts_np, omega=omega, delta=BIG_DELTA)
+    aud["balance_eps"] = metrics.balance_epsilon(parts_np, k)
+    return PartitionResult(
+        parts=parts_np, n_parts=int(parts_np.max()) + 1,
+        n_levels=len(gammas),
+        connectivity=aud["connectivity"], cut_net=aud["cut_net"], audit=aud,
+        timings=dict(total=time.perf_counter() - t0, coarsen=t_coarsen,
+                     refine=t_refine),
+        level_log=(log or []) + (rlog or []),
+        kernel_path=dict(coarsen=coarsen_hits, refine=refine_hits,
+                         pins=pins_hits))
+
+
+def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
+                     eps: float = 0.03, *, deltas=None,
+                     drift_threshold: float = 0.25,
+                     cache: WarmCache | None = None,
+                     n_cands: int = 4, theta: int = 16,
+                     coarse_target: int | None = None,
+                     use_kernels: bool = False,
+                     collect_log: bool = False, max_levels: int = 64,
+                     plan=None, race: bool = True, race_seed: int = 0,
+                     dist_coarsen: bool = True,
+                     compensated_psum: bool = False,
+                     shard_graph: bool = False,
+                     collect_stats: bool = False,
+                     device=None) -> PartitionResult:
+    """k-way sibling of ``partitioner.repartition``: apply ``deltas`` to
+    ``hg`` in place, then re-refine from ``prev_parts`` under the k-way
+    constraints (Omega from the post-delta node count, Delta = +inf),
+    falling back to a cold ``partition_kway`` when the drift exceeds the
+    threshold or the warm result breaks the size bound. ``n_parts=k`` is
+    pinned so empty trailing partitions keep their ids."""
+    check_ported(plan, shard_graph, compensated_psum, collect_stats)
+    dev = resolve_device(device)
+    apply_deltas(hg, deltas, cache)
+    omega = _omega(hg, k, eps)
+    parts0 = _extend_parts(prev_parts, hg.n_nodes, k)
+
+    def _cold(mode: str) -> PartitionResult:
+        res = partition_kway(
+            hg, k, eps, n_cands=n_cands, theta=theta,
+            coarse_target=coarse_target, use_kernels=use_kernels,
+            collect_log=collect_log, max_levels=max_levels, device=dev)
+        res.mode = mode
+        hg.reset_drift()
+        if cache is not None:
+            cache.invalidate()
+        return res
+
+    if hg.drift > drift_threshold:
+        return _cold("fallback-drift")
+
+    wc = warm_storage(hg, cache, dev)
+    res = refine_from(
+        hg, parts0, omega, BIG_DELTA, n_parts=k, theta=theta,
+        use_kernels=use_kernels, collect_log=collect_log,
+        device_graph=wc.d, caps=wc.caps, mode="warm")
+    res.audit["balance_eps"] = metrics.balance_epsilon(res.parts, k)
+    if not res.audit["size_ok"]:
+        return _cold("fallback-audit")
+    return res

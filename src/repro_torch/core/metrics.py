@@ -68,3 +68,9 @@ def audit(hg: HostHypergraph, parts: np.ndarray, omega: int, delta: int,
         connectivity=connectivity(hg, parts),
         cut_net=cut_net(hg, parts),
     )
+
+
+def balance_epsilon(parts: np.ndarray, k: int) -> float:
+    """Imbalance eps such that the largest part holds (1+eps) * N/k."""
+    sizes = np.bincount(parts, minlength=k)
+    return float(sizes.max() / (len(parts) / k) - 1.0)

@@ -2,10 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.partition --graph snn \
       --nodes 400 --omega 32 --delta 128 --theta 8 [--use-kernels] \
-      [--device cpu] [--json out.json]
+      [--device cpu] [--json out.json] [--repartition-from prev.json \
+      --perturb-edges N --perturb-seed S --drift-threshold T]
 
-The single-device flags of ``repro.launch.partition``; the mesh, warm-start
-and perturbation flags wait for their slices of the port (ROADMAP.md).
+The single-device flags of ``repro.launch.partition``. ``--repartition-from
+prev.json`` warm-starts from an earlier run's ``--json`` dump (refinement
+only; ``core.partitioner.repartition`` falls back to a cold V-cycle on
+drift or a failed audit), ``--perturb-edges N`` applies a seeded
+``GraphDelta`` first. The mesh flags wait for the distributed path
+(ROADMAP.md Queue A item 13).
 """
 from __future__ import annotations
 
@@ -31,10 +36,28 @@ def main(argv=None):
                     help="torch device (default: cuda; no CUDA device and no "
                          "--device is an error)")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--repartition-from", default=None, metavar="PREV.json",
+                    help="warm-start from a previous --json dump: skip "
+                         "coarsening and re-refine from its parts vector "
+                         "(core.partitioner.repartition; drift/audit "
+                         "fallbacks to a cold V-cycle are automatic). The "
+                         "dump must come from the same --graph/--nodes/"
+                         "--seed so the parts align")
+    ap.add_argument("--perturb-edges", type=int, default=0, metavar="N",
+                    help="apply a synthetic GraphDelta before solving: "
+                         "delete N random h-edges and insert N fresh "
+                         "similar-shaped ones (generate.perturb_delta; "
+                         "deterministic in --perturb-seed)")
+    ap.add_argument("--perturb-seed", type=int, default=0)
+    ap.add_argument("--drift-threshold", type=float, default=0.25,
+                    help="fraction of pins touched by deltas above which a "
+                         "warm --repartition-from solve falls back to the "
+                         "cold V-cycle")
     args = ap.parse_args(argv)
 
     from repro_torch.core import generate
-    from repro_torch.core.partitioner import partition
+    from repro_torch.core.hypergraph import apply_delta
+    from repro_torch.core.partitioner import partition, repartition
 
     if args.graph == "snn":
         hg = generate.snn_layered(n_layers=5, width=max(args.nodes // 5, 4),
@@ -46,8 +69,33 @@ def main(argv=None):
         hg = generate.ispd_like(n_nodes=args.nodes, seed=args.seed)
     print("hypergraph:", hg.stats())
 
-    res = partition(hg, omega=args.omega, delta=args.delta, theta=args.theta,
-                    use_kernels=args.use_kernels, device=args.device)
+    deltas = []
+    if args.perturb_edges > 0:
+        deltas.append(generate.perturb_delta(hg, n_edges=args.perturb_edges,
+                                             seed=args.perturb_seed))
+    common = dict(theta=args.theta, use_kernels=args.use_kernels,
+                  device=args.device)
+    if args.repartition_from:
+        with open(args.repartition_from) as f:
+            prev = json.load(f)
+        if prev.get("parts") is None:
+            raise SystemExit(f"{args.repartition_from} carries no parts "
+                             "vector (written by an older run?)")
+        if len(prev["parts"]) != hg.n_nodes:
+            raise SystemExit(
+                f"previous parts vector has {len(prev['parts'])} entries "
+                f"for {hg.n_nodes} nodes — same --graph/--nodes/--seed?")
+        res = repartition(hg, prev["parts"], args.omega, args.delta,
+                          deltas=deltas,
+                          drift_threshold=args.drift_threshold, **common)
+        print(f"repartition mode={res.mode} "
+              f"(warm refine {res.timings['refine']:.3f}s, "
+              f"total {res.timings['total']:.3f}s vs previous total "
+              f"{prev.get('timings', {}).get('total', float('nan')):.3f}s)")
+    else:
+        for dl in deltas:
+            apply_delta(hg, dl)
+        res = partition(hg, omega=args.omega, delta=args.delta, **common)
     out = dict(
         connectivity=res.connectivity, cut_net=res.cut_net,
         n_parts=res.n_parts, n_levels=res.n_levels,

@@ -125,3 +125,56 @@ def test_audit_dicts_equal(name, kw):
         assert tmet.audit(th, parts, omega=12, delta=30) == want
         assert tmet.connectivity(th, parts) == jmet.connectivity(jh, parts)
         assert tmet.cut_net(th, parts) == jmet.cut_net(jh, parts)
+
+
+@pytest.mark.parametrize("name,kw", GRAPHS)
+def test_shrink_device_equals_jax(name, kw):
+    """``shrink_device`` on a contracted level (the port's, which equals
+    the JAX package's) against the JAX function on the same arrays:
+    capacities and every field equal; the shrunk arrays are copies; a
+    level already at its pow2 sizes comes back as it was
+    (tests/test_capacity.py:112-131)."""
+    from repro_torch.core.coarsen import CoarsenParams, coarsen_step
+    from repro_torch.core.contract import contract
+
+    _, th = _pair(name, kw)
+    tcaps = thg.Caps.for_host(th)
+    td = thg.device_from_host(th, tcaps, "cpu")
+    match, n_pairs, _ = coarsen_step(td, tcaps,
+                                     CoarsenParams(omega=8, delta=32))
+    assert int(n_pairs) > 0
+    td2, _ = contract(td, match, tcaps)
+    fields = thg.to_arrays(td2)
+    jd2 = jhg.DeviceHypergraph(**{k: jax.numpy.asarray(v)
+                                  for k, v in fields.items()})
+    jcaps = jhg.Caps(**dataclasses.asdict(tcaps))
+    jshr, jcaps2 = jhg.shrink_device(jd2, jcaps)
+    tshr, tcaps2 = thg.shrink_device(td2, tcaps)
+    assert dataclasses.asdict(tcaps2) == dataclasses.asdict(jcaps2)
+    _assert_fields_equal(tshr, _jax_fields(jshr))
+    assert tcaps2.e == tcaps.e
+    if tcaps2 == tcaps:   # the live sizes round up past the capacities
+        assert tshr is td2
+    else:
+        assert tcaps2.n < tcaps.n or tcaps2.p < tcaps.p
+        for f in ("edge_pins", "node_off", "node_edges", "node_size"):
+            t = getattr(tshr, f)
+            assert t.untyped_storage().nbytes() == \
+                t.numel() * t.element_size()
+    again, caps3 = thg.shrink_device(tshr, tcaps2)
+    assert again is tshr and caps3 is tcaps2
+    back = thg.host_from_device(tshr)
+    for f in ("n_nodes", "edge_off", "edge_pins", "edge_nsrc", "edge_w"):
+        np.testing.assert_array_equal(getattr(back, f),
+                                      getattr(thg.host_from_device(td2), f))
+
+
+def test_bucketed_partition_with_kernels_matches_jax():
+    """The kernels-on bucketed run at full depth against the JAX
+    package's, where the shrunk capacities clamp each kernel's tile
+    bounds level by level (the graph and checks of
+    test_torch_partitioner.py's bucketed test)."""
+    from test_torch_partitioner import assert_bucketed_matches_jax
+
+    tr = assert_bucketed_matches_jax(True)
+    assert tr.n_levels > 2 and tr.kernel_path["coarsen"][0] == 1

@@ -68,6 +68,57 @@ def test_partition_matches_jax(name, kw, args, use_kernels):
     assert_partition_matches_jax(name, kw, args, use_kernels)
 
 
+# the graph of tests/test_capacity.py:19, on which the JAX package holds
+# its bucketed run to the unbucketed one. JAX compiles every level anew
+# under bucket=True, so this run stops after two levels (two capacity
+# signatures, 36 and 32 nodes); the kernels-on run at full depth is in
+# test_torch_hypergraph.py, beside shrink_device.
+BUCKET_GRAPH = ("snn_layered", dict(n_layers=3, width=12, fanout=4, window=6,
+                                    seed=1), dict(omega=8, delta=32, theta=2))
+
+
+def assert_bucketed_matches_jax(use_kernels: bool, **extra):
+    """``partition(bucket=True)`` against the JAX package's bucketed run:
+    parts, levels, kernel path, audit and log (which names each level's
+    node capacity) equal, and the parts equal the unbucketed run's."""
+    name, kw, args = BUCKET_GRAPH
+    jr = jpartition(getattr(jgen, name)(**kw), use_kernels=use_kernels,
+                    bucket=True, collect_log=True, **args, **extra)
+    hg = getattr(tgen, name)(**kw)
+    tr = tpartition(hg, use_kernels=use_kernels, bucket=True,
+                    collect_log=True, device="cpu", **args, **extra)
+    np.testing.assert_array_equal(tr.parts, jr.parts)
+    assert (tr.n_levels, tr.n_parts) == (jr.n_levels, jr.n_parts)
+    assert tr.kernel_path == jr.kernel_path
+    assert tr.audit == jr.audit
+    assert tr.level_log == jr.level_log
+    flat = tpartition(hg, use_kernels=use_kernels, device="cpu", **args,
+                      **extra)
+    np.testing.assert_array_equal(flat.parts, tr.parts)
+    caps_n = [e["caps_n"] for e in tr.level_log if e.get("kind") == "coarsen"]
+    assert caps_n[-1] < caps_n[0] == hg.n_nodes   # the capacities shrank
+    return tr
+
+
+def test_bucketed_partition_matches_jax():
+    tr = assert_bucketed_matches_jax(False, max_levels=2)
+    assert tr.n_levels == 2
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("name,kw,args", GRAPHS)
+def test_bucketed_partition_equals_unbucketed(name, kw, args, use_kernels):
+    """On the graphs of tests/test_partitioner.py:9-24 the port's bucketed
+    run gives its unbucketed run's parts, levels and kernel path."""
+    hg = getattr(tgen, name)(**kw)
+    a = tpartition(hg, use_kernels=use_kernels, device="cpu", **args)
+    b = tpartition(hg, use_kernels=use_kernels, bucket=True, device="cpu",
+                   **args)
+    np.testing.assert_array_equal(a.parts, b.parts)
+    assert (a.n_levels, a.kernel_path, a.audit) == \
+        (b.n_levels, b.kernel_path, b.audit)
+
+
 def test_partition_needs_a_device_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
@@ -77,7 +128,6 @@ def test_partition_needs_a_device_without_cuda():
 
 
 @pytest.mark.parametrize("kw", [dict(plan=object()), dict(shard_graph=True),
-                                dict(bucket=True),
                                 dict(compensated_psum=True),
                                 dict(collect_stats=True)])
 def test_unported_arguments_raise(kw):
@@ -108,6 +158,35 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert len(res["parts"]) == 60
     assert res["kernel_path"]["pins"] == [2] * (res["n_levels"] + 1)
     assert '"connectivity"' in capsys.readouterr().out
+
+
+def test_cli_repartition_round_trip(tmp_path, capsys):
+    """``--json``, then ``--repartition-from`` the dump with
+    ``--perturb-edges``: a warm solve with no coarsening, as the JAX
+    launcher's; past ``--drift-threshold 0`` the cold fallback."""
+    from repro_torch.launch.partition import main
+    base = ["--graph", "smallworld", "--nodes", "120", "--omega", "16",
+            "--delta", "64", "--theta", "2", "--use-kernels", "--device",
+            "cpu"]
+    first, warm, cold = (tmp_path / f"{n}.json" for n in ("a", "b", "c"))
+    main(base + ["--json", str(first)])
+    prev = json.loads(first.read_text())
+    assert prev["mode"] == "cold" and len(prev["parts"]) == 120
+    main(base + ["--repartition-from", str(first), "--perturb-edges", "3",
+                 "--perturb-seed", "5", "--json", str(warm)])
+    res = json.loads(warm.read_text())
+    assert "repartition mode=warm" in capsys.readouterr().out
+    assert res["mode"] == "warm" and res["n_levels"] == 0
+    assert res["size_ok"] and res["inbound_ok"]
+    assert res["kernel_path"] == dict(coarsen=[], refine=[2], pins=[2])
+    assert res["timings"]["coarsen"] == 0.0 and len(res["parts"]) == 120
+    main(base + ["--repartition-from", str(first), "--perturb-edges", "3",
+                 "--drift-threshold", "0", "--json", str(cold)])
+    res = json.loads(cold.read_text())
+    assert res["mode"] == "fallback-drift" and res["n_levels"] > 0
+    (tmp_path / "short.json").write_text(json.dumps(dict(parts=[0] * 5)))
+    with pytest.raises(SystemExit, match="5 entries"):
+        main(base + ["--repartition-from", str(tmp_path / "short.json")])
 
 
 def test_port_imports_neither_jax_nor_repro():
