@@ -23,7 +23,10 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      and on one whose kcap is too wide for shared memory, all bit-equal;
      and the whole port on a small graph against its CPU run;
   3. the full ``partition(use_kernels=True)``: audit, kernel path, launch
-     counts (reset just before, read just after), peak device memory;
+     counts (reset just before, read just after), peak device memory, and
+     the telemetry: ``level_stats`` (one a level, level 0 the input graph,
+     its kernel fields equal to ``kernel_path``) and ``timings`` equal to
+     the span tree's durations;
   4. a second identical run gives identical parts;
   5. one ``use_kernels=False`` run passes the audit, on the same graph
      cut to 4 layers (32,768 neurons) to leave time for phases 9 to 11;
@@ -45,8 +48,10 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      config's tokens identical on the card and on the CPU;
   9. the bucketed solve ``partition(bucket=True)`` (pow2 capacities
      between levels): parts, levels, connectivity and kernel path equal
-     to phase 3's, a second run identical; its timings, launches, peak
-     memory and each level's capacities beside phase 3's;
+     to phase 3's; its timings, launches, peak memory and each level's
+     capacities beside phase 3's; a second run with ``collect_stats=True``
+     gives identical parts, and its level-0 connectivity, cut and largest
+     block equal the audit's (with the wall time the stats added);
  10. streaming: ``perturb_delta`` of 1229 edges (about 1%), then a warm
      ``repartition`` from phase 3's parts through a ``WarmCache``: mode
      warm, no coarsening, the audit, launches gains 16, pins_count 16,
@@ -57,12 +62,27 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      pins-row branch) against their plain versions on level 0 with the
      k-way initial parts, and timed; ``partition_kway`` (audit, balance,
      gains on level 0 and pins everywhere), then a warm
-     ``repartition_kway`` with phase 10's delta.
+     ``repartition_kway`` with phase 10's delta;
+ 12. the partition service (``PartitionService``, theta 8, 4 batch slots,
+     bucket ladder from 64 nodes, routed above 2048): a flood of 12
+     netlist-like bucket requests over three ladder rungs (224-256,
+     896-1024 and 1792-2048 nodes, Omega 16/32/64, Delta 4 Omega), two
+     routed graphs (``snn_smallworld(8192)``, ``ispd_like(16384)``, Omega
+     256) and two keyed requests resubmitted warm after a 1% edge delta,
+     with one injected solve fault: every rid delivered and audited, the
+     routes as submitted, one requeue, no kernel launch (both lanes run
+     with the kernels off, as in the JAX package); the 8 smallest again
+     give identical parts, the 2 smallest give the same parts through
+     ``partition_batch_device`` on the card and the CPU; wall time,
+     requests/s, solve and queue times per route, and the device's idle
+     share of one bucket solve under the profiler; the metrics dump
+     carries the ``service.solve`` span.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 11 run under
-``torch.use_deterministic_algorithms(True)``.
+the same parts. Phases 3 to 5 and 9 to 12 run under
+``torch.use_deterministic_algorithms(True)``. Phases 3, 9 and 11 also check
+each solve's ``level_stats`` and span-tree ``timings``.
 Float matmuls run in full f32 (TF32 off). The second-to-last line is the
 kernels JSON, the last the device JSON. Exits nonzero with no result when
 no CUDA device is present or the package sources are not beside this
@@ -71,12 +91,14 @@ script.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -93,6 +115,11 @@ SERVE_ARCH = "qwen2-1.5b"
 # the kernels-off run (phase 5) at a cut depth: it only shows the plain path
 # passes the audit, and the script's time goes to the new paths
 OFF_LAYERS = 4
+# phase 12's bucket lane: node ranges of three ladder rungs, requests a rung
+# (four, not eight: eight a rung took the phase to 177 s, six to 160 s and
+# five to 168 s, over its budget of about 150 s)
+SERVICE_RUNGS = ((224, 256), (896, 1024), (1792, 2048))
+SERVICE_PER_RUNG = 4
 
 
 def log(*a):
@@ -103,6 +130,40 @@ def need(cond, what: str) -> None:
     """Fail the run (nonzero exit) when a check does not hold."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def check_telemetry(res, root, hg, what: str) -> None:
+    """One solve's ``level_stats`` and ``timings`` on the card: a record a
+    level, level 0 the input graph, the kernel fields equal to
+    ``kernel_path`` level by level, and ``timings`` the durations of the
+    span tree ``root``. The phase spans tile the root (its own time under
+    2% of the total), and the audit span stays under 5% of the refine
+    span: refinement's device work drains before its span closes, so none
+    of it lands in the audit."""
+    ls = res.level_stats
+    need(len(ls) == res.n_levels + 1, f"{what}: {len(ls)} level_stats for "
+         f"{res.n_levels} levels")
+    need((ls[0].nodes, ls[0].edges, ls[0].pins)
+         == (hg.n_nodes, hg.n_edges, hg.n_pins),
+         f"{what}: level_stats[0] is the input graph")
+    need([s.kernel_coarsen for s in ls[:-1]] == res.kernel_path["coarsen"]
+         and [s.kernel_refine for s in ls] == res.kernel_path["refine"],
+         f"{what}: level_stats kernel fields equal kernel_path")
+    need(res.timings == dict(total=root.duration,
+                             coarsen=root.find("coarsen").duration,
+                             refine=root.find("refine").duration),
+         f"{what}: timings equal the span durations")
+    audit, refine = root.find("audit").duration, root.find("refine").duration
+    need(root.self_time < 0.02 * root.duration,
+         f"{what}: the phase spans tile the root ({root.self_time:.3f} s "
+         f"outside them of {root.duration:.3f} s)")
+    need(audit < 0.05 * refine, f"{what}: the audit span ({audit:.3f} s) "
+         f"is under 5% of the refine span ({refine:.3f} s)")
+    log(f"{what} level_stats: {len(ls)} levels, level 0 pair occupancy "
+        f"{ls[0].pair_occupancy:.4f}, neighbour occupancy "
+        f"{ls[0].nbr_occupancy:.4f}; timings equal the span tree's; "
+        f"{root.self_time:.4f} s of {root.duration:.3f} s outside the phase "
+        f"spans; audit {audit:.4f} s against refine {refine:.3f} s")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -369,8 +430,11 @@ def small_entry_points(small, rc, partition) -> None:
 
 def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
     """Phase 9: ``partition(bucket=True)`` at full size against phase 3's
-    unbucketed run, twice, with the capacities of every level."""
+    unbucketed run, twice (the second with ``collect_stats``), with the
+    capacities of every level."""
     from repro_torch.core import partitioner
+    from repro_torch.obs import trace as otrace
+    from repro_torch.obs import vcycle as ovcycle
 
     level_caps = [cold["caps"]]
     shrink = partitioner.shrink_device
@@ -379,6 +443,17 @@ def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
         d2, caps2 = shrink(d, caps)
         level_caps.append(caps2)
         return d2, caps2
+
+    # the quality passes of collect_stats, each between two synchronises
+    quality, quality_s = ovcycle.quality_scalars, []
+
+    def timed_quality(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = quality(*a, **kw)
+        torch.cuda.synchronize()
+        quality_s.append(time.perf_counter() - t0)
+        return out
 
     partitioner.shrink_device = recording_shrink
     try:
@@ -391,17 +466,27 @@ def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         caps_used = list(level_caps)
+        root = otrace.last_root("partition")
+        ovcycle.quality_scalars = timed_quality
         rb2 = partitioner.partition(hg, omega=omega, delta=delta,
                                     theta=theta, use_kernels=True,
-                                    bucket=True)
+                                    bucket=True, collect_stats=True)
+        root2 = otrace.last_root("partition")
     finally:
         partitioner.shrink_device = shrink
+        ovcycle.quality_scalars = quality
     log(f"[9] partition(bucket=True): n_parts {rb.n_parts}, n_levels "
         f"{rb.n_levels}, connectivity {rb.connectivity} (unbucketed: "
         f"{cold['n_levels']} levels, connectivity {cold['connectivity']})")
     log(f"[9] timings (s): " + json.dumps(rb.timings) + "; unbucketed "
-        + json.dumps(cold["timings"]) + f"; second bucketed run total "
-        f"{rb2.timings['total']:.3f}")
+        + json.dumps(cold["timings"]))
+    log(f"[9] second bucketed run, collect_stats=True: timings (s) "
+        + json.dumps(rb2.timings) + f"; the stats added "
+        f"{rb2.timings['total'] - rb.timings['total']:.3f} s to the total "
+        f"and {rb2.timings['refine'] - rb.timings['refine']:.3f} s to "
+        f"refinement; its {len(quality_s)} quality passes took "
+        f"{sum(quality_s):.3f} s between synchronises (largest "
+        f"{max(quality_s):.4f} s), on {card}")
     log(f"[9] launches: " + json.dumps(launches) + "; unbucketed "
         + json.dumps(cold["launches"]))
     log(f"[9] peak device memory of the solve: {peak / 2**30:.3f} GiB "
@@ -418,11 +503,26 @@ def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
          "unbucketed run's")
     need((rb.parts == cold["parts"]).all(),
          "bucketed parts equal the unbucketed parts")
-    need((rb2.parts == rb.parts).all(), "second bucketed run identical")
+    need((rb2.parts == rb.parts).all(),
+         "second bucketed run, with collect_stats, identical")
     for name in ("pair_scores", "pins_count", "gains"):
         need(launches[name] > 0, f"{name} launched on the bucketed path")
+    check_telemetry(rb, root, hg, "[9]")
+    check_telemetry(rb2, root2, hg, "[9] (collect_stats)")
+    ls = rb2.level_stats
+    need(all(s.connectivity is not None for s in ls)
+         and all(s.connectivity is None for s in rb.level_stats),
+         "quality level_stats only under collect_stats")
+    need((ls[0].connectivity, ls[0].cut_net, ls[0].max_size)
+         == (rb2.connectivity, rb2.cut_net, rb2.audit["max_size"]),
+         f"level-0 quality {ls[0]} equals the audit {rb2.audit}")
+    log(f"[9] collect_stats: level 0 connectivity {ls[0].connectivity}, "
+        f"cut {ls[0].cut_net}, max size {ls[0].max_size} (slack "
+        f"{ls[0].size_slack}), max inbound {ls[0].max_inbound} (slack "
+        f"{ls[0].inbound_slack}), equal to the audit; coarsest level "
+        f"connectivity {ls[-1].connectivity}")
     log("[9] bucketed parts equal the unbucketed parts; a second bucketed "
-        "run gives identical parts")
+        "run, with collect_stats, gives identical parts")
 
 
 def stream_phase(torch, kernels, hg, cold, card, omega, delta, theta):
@@ -520,6 +620,7 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
     from repro_torch.kernels.gains import ref as g_ref
     from repro_torch.kernels.pins_count import ops as pc_ops
     from repro_torch.kernels.pins_count import ref as pc_ref
+    from repro_torch.obs import trace as otrace
 
     k, eps, kcap = 2, 0.03, 2
     caps = cold["caps"]
@@ -530,8 +631,8 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
     d0 = device_from_host(hg, caps, dev)
     co, ct = make_coarsen_fns(CoarsenParams(omega=omega,
                                             delta=kway.BIG_DELTA))
-    dk, _, _, gammas, _ = run_coarsen_loop(d0, caps, min(4096, max(4 * k, 64)),
-                                           64, co, ct, None, shrink=True)
+    dk, _, _, gammas, _, _ = run_coarsen_loop(
+        d0, caps, min(4096, max(4 * k, 64)), 64, co, ct, None, shrink=True)
     coarse = host_from_device(dk)
     init = kway.greedy_initial_kway(
         coarse, dk.node_size[: coarse.n_nodes].cpu().numpy(), k, omega)
@@ -588,6 +689,7 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
                              use_kernels=True)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    check_telemetry(rk, otrace.last_root("partition_kway"), hg, "[11]")
     aud = rk.audit
     log(f"[11] partition_kway(k=2): n_parts {rk.n_parts}, n_levels "
         f"{rk.n_levels}, connectivity {rk.connectivity}, cut_net "
@@ -621,6 +723,200 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
          and launches["pair_scores"] == 0,
          f"warm k-way launches gains {theta}, pins_count {theta}: "
          f"{launches}")
+
+
+def service_phase(torch, kernels, card, dev) -> None:
+    """Phase 12: a flood of bucket, routed and keyed requests through
+    ``PartitionService`` on ``dev``, with one injected solve fault; a second
+    run of the smallest requests, ``partition_batch_device`` on the card
+    against the CPU, one bucket solve under the profiler, and the metrics
+    dump."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core import generate
+    from repro_torch.core.partitioner import partition_batch_device
+    from repro_torch.obs import trace as otrace
+    from repro_torch.serve import PartitionService, stack_device_batch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    bucket_reqs = []          # (hg, omega, delta), edges = nodes, 4 pins
+    for lo, hi in SERVICE_RUNGS:
+        for n in rng.integers(lo, hi + 1, size=SERVICE_PER_RUNG):
+            omega = (16, 32, 64)[len(bucket_reqs) % 3]
+            bucket_reqs.append((generate.random_kuniform(
+                int(n), int(n), 4, seed=len(bucket_reqs)), omega, 4 * omega))
+    routed_reqs = [(generate.snn_smallworld(8192, fanout=16), 256, 1024),
+                   (generate.ispd_like(16384), 256, 1024)]
+    keyed_reqs = [(generate.random_kuniform(1000, 1000, 4, seed=100), 32,
+                   128),
+                  (generate.snn_smallworld(8192, fanout=16, seed=1), 256,
+                   1024)]
+    log(f"[12] flood: {len(bucket_reqs)} bucket requests of "
+        + json.dumps(sorted(hg.n_nodes for hg, _, _ in bucket_reqs))
+        + f" nodes, routed {[hg.n_nodes for hg, _, _ in routed_reqs]}, "
+        f"keyed {[hg.n_nodes for hg, _, _ in keyed_reqs]} (made in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    fault = dict(n=0)
+
+    def hook(route, reqs):
+        if route == "vcycle" and not fault["n"]:
+            fault["n"] += 1
+            raise RuntimeError("injected solve fault")
+
+    reg = obs.metrics.REGISTRY
+    reg.reset()
+    otrace.reset()
+    svc = PartitionService(theta=8, batch_slots=4, bucket_base=64,
+                           route_threshold=2048, fault_hook=hook,
+                           registry=reg, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = dict(bucket=[], vcycle=[], warm=[])
+    for hg, om, dl in bucket_reqs:
+        rids["bucket"].append(svc.submit(hg, om, dl))
+    for hg, om, dl in routed_reqs:
+        rids["vcycle"].append(svc.submit(hg, om, dl))
+    for j, (hg, om, dl) in enumerate(keyed_reqs):
+        rids["bucket" if j == 0 else "vcycle"].append(
+            svc.submit(hg, om, dl, key=j))
+    res = svc.drain()
+    for j, (hg, _, _) in enumerate(keyed_reqs):
+        rids["warm"].append(svc.resubmit(j, deltas=generate.perturb_delta(
+            hg, n_edges=math.ceil(hg.n_edges / 100), seed=j)))
+    res.update(svc.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    svc.close()
+    n_req = sum(map(len, rids.values()))
+    need(sorted(res) == sorted(r for v in rids.values() for r in v),
+         f"service: every rid delivered ({len(res)} of {n_req})")
+    need(all(r.audit["size_ok"] and r.audit["inbound_ok"]
+             for r in res.values()), "service: every audit passes")
+    for route, want in rids.items():
+        need(sorted(r.rid for r in res.values() if r.route == route)
+             == sorted(want), f"service: the {route} route as submitted")
+    modes = {m: int(reg.value("repartition.solves", mode=m))
+             for m in ("warm", "fallback-drift", "fallback-audit")}
+    need(sum(modes.values()) == len(keyed_reqs),
+         f"service: warm solves by mode {modes}")
+    need(fault["n"] == 1 and reg.total("service.requeues") == 1
+         and sum(r.restarts for r in res.values()) == 1,
+         "service: one injected fault, one requeue, no rid lost")
+    need(all(v == 0 for v in launches.values()),
+         f"service: no kernel launch (kernels off): {launches}")
+    stats = svc.stats
+    jit = {s["labels"]["bucket"] + ":" + s["labels"]["result"]: s["value"]
+           for s in reg.snapshot()["counters"]["service.jit_cache"]}
+    log(f"[12] {n_req} requests in {wall:.3f} s ({n_req / wall:.3f} "
+        f"requests/s) on {card}; stats " + json.dumps(stats)
+        + "; solver cache (bucket:result) " + json.dumps(jit)
+        + "; launches " + json.dumps(launches))
+    for route, want in rids.items():
+        rs = [res[r] for r in want]
+        log(f"[12] route {route}: {len(rs)} requests, mean solve_s "
+            f"{sum(r.solve_s for r in rs) / len(rs):.3f}, mean queue_wait_s "
+            f"{sum(r.queue_wait_s for r in rs) / len(rs):.3f}, solve_s "
+            f"{[round(r.solve_s, 3) for r in rs]}, levels "
+            f"{[r.n_levels for r in rs]}, parts {[r.n_parts for r in rs]}")
+    log(f"[12] warm modes " + json.dumps(modes) + "; connectivity cold -> "
+        "warm " + json.dumps([(res[a].connectivity, res[b].connectivity)
+                              for a, b in zip((rids["bucket"][-1],
+                                               rids["vcycle"][-1]),
+                                              rids["warm"])]))
+
+    # the 8 smallest bucket requests again: identical parts
+    small = sorted(range(len(bucket_reqs)),
+                   key=lambda i: bucket_reqs[i][0].n_nodes)[:8]
+    t0 = time.perf_counter()
+    svc2 = PartitionService(theta=8, batch_slots=4, bucket_base=64,
+                            route_threshold=2048, device=dev)
+    again = {i: svc2.submit(*bucket_reqs[i]) for i in small}
+    res2 = svc2.drain()
+    svc2.close()
+    need(all(np.array_equal(res2[again[i]].parts,
+                            res[rids["bucket"][i]].parts) for i in small),
+         "service: a second run of the 8 smallest gives identical parts")
+
+    # the 2 smallest through partition_batch_device, on the card and the CPU
+    two = small[:2]
+    b = res[rids["bucket"][two[0]]].bucket
+    need(res[rids["bucket"][two[1]]].bucket == b, "the 2 smallest share "
+         "a bucket")
+    hgs = [bucket_reqs[i][0] for i in two]
+    om = np.asarray([bucket_reqs[i][1] for i in two], np.int32)
+    dl = np.asarray([bucket_reqs[i][2] for i in two], np.int32)
+    t_again = time.perf_counter() - t0
+    outs, secs = {}, {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        outs[d] = partition_batch_device(
+            stack_device_batch(hgs, b.caps, d), om, dl, b.caps, b.kcap,
+            theta=8, max_levels=b.max_levels, device=d)
+        secs[d] = time.perf_counter() - t0
+    need(all(torch.equal(outs["cpu"][k], outs[dev][k].cpu())
+             for k in outs["cpu"]),
+         "partition_batch_device: the card gives the CPU's output")
+    for lane, i in enumerate(two):
+        p = outs[dev]["parts"][lane][: hgs[lane].n_nodes].cpu().numpy()
+        need(np.array_equal(np.unique(p, return_inverse=True)[1],
+                            res[rids["bucket"][i]].parts),
+             "partition_batch_device gives the service's parts")
+    log(f"[12] second run of the 8 smallest: identical parts "
+        f"({t_again:.3f} s); the 2 smallest ({[hg.n_nodes for hg in hgs]} "
+        f"nodes, bucket n {b.caps.n}) give the same output through "
+        f"partition_batch_device on the card ({secs[dev]:.3f} s) and the "
+        f"CPU ({secs['cpu']:.3f} s)")
+
+    # one bucket solve of one request (the middle rung's first) under the
+    # profiler, device activity only: a solve launches hundreds of
+    # thousands of kernels, so the busy time is summed from the trace file
+    # the profiler writes, not from its Python event objects
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    i = SERVICE_PER_RUNG
+    bm = res[rids["bucket"][i]].bucket
+    batch = stack_device_batch([bucket_reqs[i][0]], bm.caps, dev)
+    om = np.asarray([bucket_reqs[i][1]], np.int32)
+    dl = np.asarray([bucket_reqs[i][2]], np.int32)
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        partition_batch_device(batch, om, dl, bm.caps, bm.kcap, theta=8,
+                               max_levels=bm.max_levels, device=dev)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+        events = json.loads((Path(tmp) / "trace.json").read_text())
+    events = events.get("traceEvents", events)
+    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in dev_ev) / 1e6
+    by_name = collections.Counter()
+    for e in dev_ev:
+        by_name[e["name"][:48]] += e["dur"] / 1e3
+    share = f"{1 - busy / pwall:.3f}" if busy > 0 else "not measured"
+    log(f"[12] profile, one bucket solve of 1 request "
+        f"({bucket_reqs[i][0].n_nodes} nodes, bucket n {bm.caps.n}): wall "
+        f"{pwall:.3f} s under the profiler, device busy {busy:.3f} s (idle "
+        f"share {share}), {len(dev_ev)} device kernels and copies, "
+        f"{time.perf_counter() - t_prof:.1f} s with the trace's export and "
+        f"parse; top "
+        f"(name, ms) " + json.dumps(
+            [(k, round(v, 3)) for k, v in by_name.most_common(5)])
+        + f", on {card}")
+
+    doc = obs.dump_json(str(out_dir / "chip_smoke_metrics.json"))
+    need(set(doc) == {"ts", "metrics", "spans"}
+         and "service.solve" in {s["name"] for s in doc["spans"]},
+         "metrics dump: ts, metrics and spans with service.solve")
+    solve = next(s for s in doc["spans"] if s["name"] == "service.solve")
+    log(f"[12] metrics dump: {len(doc['spans'])} span names, service.solve "
+        f"{solve['count']} times, {solve['total_s']:.3f} s in all")
 
 
 def main(argv=None) -> int:
@@ -660,6 +956,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pair_scores import ref as ps_ref
     from repro_torch.kernels.pins_count import ops as pc_ops
     from repro_torch.kernels.pins_count import ref as pc_ref
+    from repro_torch.obs import trace as otrace
     from repro_torch.utils import segops
 
     dev = torch.device("cuda")
@@ -698,8 +995,8 @@ def main(argv=None) -> int:
     # level 0 (the initial partition that refinement starts from)
     _co, _ct = make_coarsen_fns(CoarsenParams(omega=omega, delta=delta))
     target = max(1, math.ceil(hg.n_nodes / omega))
-    dk, _, _, gammas, _ = run_coarsen_loop(d0, caps, target, 64, _co, _ct,
-                                           None)
+    dk, _, _, gammas, _, _ = run_coarsen_loop(d0, caps, target, 64, _co,
+                                              _ct, None)
     k = int(dk.n_nodes)
     kcap = _next_pow2(k)
     parts0 = torch.arange(caps.n, dtype=torch.int32, device=dev)
@@ -815,6 +1112,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    check_telemetry(r1, otrace.last_root("partition"), hg, "[3]")
     log(f"[3] peak device memory of the solve: {peak / 2**30:.3f} GiB, "
         f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
         f"held before it, on {card}")
@@ -1003,7 +1301,7 @@ def main(argv=None) -> int:
 
     log(f"[8] {time.perf_counter() - t_start:.1f} s from the start")
 
-    # ---- 9-11. bucketed solve, streaming, k-way ---------------------------
+    # ---- 9-12. bucketed solve, streaming, k-way, the service ------------
     torch.use_deterministic_algorithms(True)
     bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta)
     log(f"[9] {time.perf_counter() - t_start:.1f} s from the start")
@@ -1011,6 +1309,8 @@ def main(argv=None) -> int:
     log(f"[10] {time.perf_counter() - t_start:.1f} s from the start")
     kway_phase(torch, kernels, hg, dl, cold, card, theta, dev)
     log(f"[11] {time.perf_counter() - t_start:.1f} s from the start")
+    service_phase(torch, kernels, card, "cuda")
+    log(f"[12] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

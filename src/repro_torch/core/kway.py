@@ -11,7 +11,6 @@ the constrained mode with K = k.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -23,12 +22,14 @@ from repro_torch.core.hypergraph import (Caps, HostHypergraph,
                                          device_from_host, device_pair_count,
                                          host_from_device, host_pair_count)
 from repro_torch.core.partitioner import (PartitionResult, WarmCache,
-                                          _extend_parts, _next_pow2, _sync,
+                                          _extend_parts, _next_pow2,
                                           apply_deltas, check_ported,
                                           make_coarsen_fns, make_refine_fn,
                                           refine_from, run_coarsen_loop,
                                           run_refine_loop, warm_storage)
 from repro_torch.core.refine import RefineParams
+from repro_torch.obs import trace as otrace
+from repro_torch.obs import vcycle as ovcycle
 from repro_torch.utils.device import resolve_device
 
 BIG_DELTA = 2 ** 29
@@ -84,63 +85,71 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
     names another), minimising connectivity; the audit adds
     ``balance_eps``. The signature is the JAX package's: ``race``,
     ``race_seed`` and ``dist_coarsen`` act only with ``plan``; ``plan``,
-    ``shard_graph``, ``compensated_psum`` and ``collect_stats`` raise
-    ``NotImplementedError``."""
-    check_ported(plan, shard_graph, compensated_psum, collect_stats)
+    ``shard_graph`` and ``compensated_psum`` raise ``NotImplementedError``.
+    ``collect_stats`` fills the quality side of ``level_stats`` as in
+    ``partitioner.partition``; the phase times are a "partition_kway" span
+    tree (setup / coarsen / initial_kway / refine / audit), and
+    ``timings`` is a view over it."""
+    check_ported(plan, shard_graph, compensated_psum)
     dev = resolve_device(device)
     omega = _omega(hg, k, eps)
-    t0 = time.perf_counter()
-    caps = Caps.for_host(hg)
-    # exact int64 level-0 audit (see partitioner.partition)
-    check_expansion_caps(caps, host_pair_count(hg))
-    d = device_from_host(hg, caps, dev)
-    cparams = CoarsenParams(omega=omega, delta=BIG_DELTA, n_cands=n_cands,
-                            use_kernels=use_kernels)
-    if coarse_target is None:
-        coarse_target = min(4096, max(4 * k, 64))
-    log: list | None = [] if collect_log else None
-    _coarsen, _contract = make_coarsen_fns(cparams)
+    with otrace.span("partition_kway", nodes=hg.n_nodes, edges=hg.n_edges,
+                     k=k, omega=omega) as sp_total:
+        with otrace.span("setup"):
+            caps = Caps.for_host(hg)
+            # exact int64 level-0 audit (see partitioner.partition)
+            check_expansion_caps(caps, host_pair_count(hg))
+            d = device_from_host(hg, caps, dev)
+        cparams = CoarsenParams(omega=omega, delta=BIG_DELTA,
+                                n_cands=n_cands, use_kernels=use_kernels)
+        if coarse_target is None:
+            coarse_target = min(4096, max(4 * k, 64))
+        log: list | None = [] if collect_log else None
+        _coarsen, _contract = make_coarsen_fns(cparams)
 
-    t_c = time.perf_counter()
-    d, caps, levels, gammas, coarsen_hits = run_coarsen_loop(
-        d, caps, coarse_target, max_levels, _coarsen, _contract, log)
-    check_expansion_caps(caps, device_pair_count(d.edge_off))
-    _sync(dev)
-    t_coarsen = time.perf_counter() - t_c
+        with otrace.span("coarsen") as sp_coarsen:
+            d, caps, levels, gammas, coarsen_hits, coarsen_meta = \
+                run_coarsen_loop(d, caps, coarse_target, max_levels,
+                                 _coarsen, _contract, log)
+        check_expansion_caps(caps, device_pair_count(d.edge_off))
 
-    # initial k-way on the coarsest graph (host; it is small)
-    coarse_host = host_from_device(d)
-    coarse_sizes = d.node_size[: coarse_host.n_nodes].cpu().numpy()
-    init = greedy_initial_kway(coarse_host, coarse_sizes, k, omega)
-    kcap = _next_pow2(k)
-    parts = torch.zeros((caps.n,), dtype=torch.int32, device=dev)
-    parts[: coarse_host.n_nodes] = torch.from_numpy(
-        init.astype(np.int32)).to(dev)
+        # initial k-way on the coarsest graph (host; it is small)
+        with otrace.span("initial_kway"):
+            coarse_host = host_from_device(d)
+            coarse_sizes = d.node_size[: coarse_host.n_nodes].cpu().numpy()
+            init = greedy_initial_kway(coarse_host, coarse_sizes, k, omega)
+            kcap = _next_pow2(k)
+            parts = torch.zeros((caps.n,), dtype=torch.int32, device=dev)
+            parts[: coarse_host.n_nodes] = torch.from_numpy(
+                init.astype(np.int32)).to(dev)
 
-    # check_delta is the JAX signature's: Delta is +inf either way
-    rparams = RefineParams(omega=omega, delta=BIG_DELTA, theta=theta,
-                           use_kernels=use_kernels)
-    rlog: list | None = [] if collect_log else None
-    _refine = make_refine_fn(k, kcap, rparams, rlog)
-    t_r = time.perf_counter()
-    # the JAX package's k-way logs no refine entries of its own
-    parts, refine_hits, pins_hits = run_refine_loop(
-        d, parts, caps, levels, gammas, _refine, None)
-    _sync(dev)
-    t_refine = time.perf_counter() - t_r
+        # check_delta is the JAX signature's: Delta is +inf either way
+        rparams = RefineParams(omega=omega, delta=BIG_DELTA, theta=theta,
+                               use_kernels=use_kernels)
+        rlog: list | None = [] if collect_log else None
+        _refine = make_refine_fn(k, kcap, rparams, rlog)
+        # the JAX package's k-way logs no refine entries of its own
+        parts, sp_refine, refine_meta, refine_hits, pins_hits = \
+            run_refine_loop(d, parts, caps, levels, gammas, _refine, kcap,
+                            omega, BIG_DELTA, collect_stats, None)
+        refine_meta[len(levels)]["structure"] = dict(
+            nodes=coarse_host.n_nodes, edges=coarse_host.n_edges,
+            pins=coarse_host.n_pins)
 
-    parts_np = parts[: hg.n_nodes].cpu().numpy().astype(np.int64)
-    aud = metrics.audit(hg, parts_np, omega=omega, delta=BIG_DELTA)
-    aud["balance_eps"] = metrics.balance_epsilon(parts_np, k)
+        with otrace.span("audit"):
+            parts_np = parts[: hg.n_nodes].cpu().numpy().astype(np.int64)
+            aud = metrics.audit(hg, parts_np, omega=omega, delta=BIG_DELTA)
+            aud["balance_eps"] = metrics.balance_epsilon(parts_np, k)
     return PartitionResult(
         parts=parts_np, n_parts=int(parts_np.max()) + 1,
         n_levels=len(gammas),
         connectivity=aud["connectivity"], cut_net=aud["cut_net"], audit=aud,
-        timings=dict(total=time.perf_counter() - t0, coarsen=t_coarsen,
-                     refine=t_refine),
+        timings=dict(total=sp_total.duration, coarsen=sp_coarsen.duration,
+                     refine=sp_refine.duration),
         level_log=(log or []) + (rlog or []),
         kernel_path=dict(coarsen=coarsen_hits, refine=refine_hits,
-                         pins=pins_hits))
+                         pins=pins_hits),
+        level_stats=ovcycle.assemble(coarsen_meta, refine_meta))
 
 
 def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
@@ -162,8 +171,9 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     constraints (Omega from the post-delta node count, Delta = +inf),
     falling back to a cold ``partition_kway`` when the drift exceeds the
     threshold or the warm result breaks the size bound. ``n_parts=k`` is
-    pinned so empty trailing partitions keep their ids."""
-    check_ported(plan, shard_graph, compensated_psum, collect_stats)
+    pinned so empty trailing partitions keep their ids. ``collect_stats``
+    reaches both solves."""
+    check_ported(plan, shard_graph, compensated_psum)
     dev = resolve_device(device)
     apply_deltas(hg, deltas, cache)
     omega = _omega(hg, k, eps)
@@ -173,7 +183,8 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
         res = partition_kway(
             hg, k, eps, n_cands=n_cands, theta=theta,
             coarse_target=coarse_target, use_kernels=use_kernels,
-            collect_log=collect_log, max_levels=max_levels, device=dev)
+            collect_log=collect_log, max_levels=max_levels,
+            collect_stats=collect_stats, device=dev)
         res.mode = mode
         hg.reset_drift()
         if cache is not None:
@@ -187,7 +198,8 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     res = refine_from(
         hg, parts0, omega, BIG_DELTA, n_parts=k, theta=theta,
         use_kernels=use_kernels, collect_log=collect_log,
-        device_graph=wc.d, caps=wc.caps, mode="warm")
+        collect_stats=collect_stats, device_graph=wc.d, caps=wc.caps,
+        mode="warm")
     res.audit["balance_eps"] = metrics.balance_epsilon(res.parts, k)
     if not res.audit["size_ok"]:
         return _cold("fallback-audit")

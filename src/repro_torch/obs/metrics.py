@@ -20,8 +20,8 @@ Export paths: ``snapshot()`` (plain dict), ``to_jsonl()`` (one JSON object
 per series line), ``render()`` (Prometheus text exposition), ``dump_json()``
 (snapshot + span aggregates as one JSON document — the format the
 ``--metrics-json`` CLI flags write and ``tests/data/metrics_schema.json``
-pins; the span list stays empty until ``obs/trace.py`` is ported), and
-``PeriodicDumper`` (background thread re-dumping every ``interval_s``).
+pins), and ``PeriodicDumper`` (background thread re-dumping every
+``interval_s``).
 """
 from __future__ import annotations
 
@@ -257,11 +257,12 @@ def observe(name: str, value: float, buckets: tuple | None = None,
 def dump_json(path: str, registry: Registry | None = None) -> dict:
     """Write the one-file metrics dump: registry snapshot + span aggregates
     (the `--metrics-json` format; see docs/observability.md). Atomic
-    (tmp + rename) so a `PeriodicDumper` overwrite never tears a reader.
-    ``spans`` is empty: span tracing is not ported yet (ROADMAP.md Queue A
-    item 11)."""
+    (tmp + rename) so a `PeriodicDumper` overwrite never tears a reader."""
+    from repro_torch.obs import trace
+
     reg = registry if registry is not None else REGISTRY
-    doc = dict(ts=time.time(), metrics=reg.snapshot(), spans=[])
+    doc = dict(ts=time.time(), metrics=reg.snapshot(),
+               spans=trace.aggregate())
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(doc, f, indent=2, sort_keys=True)

@@ -1,9 +1,10 @@
 """The port's k-way mode (paper Sec. VII-E) on the CPU against the JAX
 package's: ``partition_kway`` on the graph of
 tests/test_partitioner.py:27-34 with the kernels off and on (parts, audit,
-``balance_eps``, levels, kernel path and log equal), and the host pieces
-``greedy_initial_kway`` and ``balance_epsilon``. The warm k-way path is in
-test_torch_repartition.py, beside the other warm solves."""
+``balance_eps``, levels, kernel path, log and ``level_stats`` equal), and
+the host pieces ``greedy_initial_kway`` and ``balance_epsilon``. The warm
+k-way path is in test_torch_repartition.py, beside the other warm
+solves."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ from repro.core import metrics as jmet
 from repro_torch.core import generate as tgen
 from repro_torch.core import kway as tkway
 from repro_torch.core import metrics as tmet
+from test_torch_partitioner import assert_level_stats_equal
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -30,7 +32,7 @@ def _one_torch_thread():
 @pytest.mark.parametrize("k", [2, 4])
 def test_partition_kway_matches_jax(k, use_kernels):
     kw = dict(k=k, eps=0.05, theta=4, coarse_target=32,
-              use_kernels=use_kernels, collect_log=True)
+              use_kernels=use_kernels, collect_log=True, collect_stats=True)
     jr = jkway.partition_kway(jgen.ispd_like(n_nodes=400, seed=4), **kw)
     tr = tkway.partition_kway(tgen.ispd_like(n_nodes=400, seed=4),
                               device="cpu", **kw)
@@ -41,6 +43,7 @@ def test_partition_kway_matches_jax(k, use_kernels):
     assert tr.audit == jr.audit   # balance_eps included
     assert tr.kernel_path == jr.kernel_path
     assert tr.level_log == jr.level_log
+    assert_level_stats_equal(tr, jr)
     assert set(tr.timings) == {"total", "coarsen", "refine"}
     # the JAX package's own bar (tests/test_partitioner.py:27-34)
     assert tr.n_parts <= k and tr.audit["size_ok"]

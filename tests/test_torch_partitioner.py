@@ -41,15 +41,29 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def assert_level_stats_equal(tr, jr):
+    """``level_stats`` equal to the JAX package's field by field: integers
+    and occupancies exact, the quality floats within 1e-5."""
+    assert len(tr.level_stats) == len(jr.level_stats) == tr.n_levels + 1
+    for t, j in zip(tr.level_stats, jr.level_stats):
+        td, jd = t.to_dict(), j.to_dict()
+        for k in ("connectivity", "cut_net"):
+            a, b = td.pop(k), jd.pop(k)
+            assert (a is None) == (b is None), (t.level, k)
+            assert a is None or abs(a - b) <= 1e-5, (t.level, k, a, b)
+        assert td == jd, t.level
+
+
 def assert_partition_matches_jax(name, kw, args, use_kernels):
     """Port ``partition(device="cpu")`` against the JAX package's on one
-    graph: parts, levels, kernel path, audit and log equal; a repeat run
-    gives the same parts."""
+    graph, both with ``collect_stats``: parts, levels, kernel path, audit,
+    log and ``level_stats`` equal; a repeat run without the stats gives the
+    same parts."""
     jr = jpartition(getattr(jgen, name)(**kw), use_kernels=use_kernels,
-                    collect_log=True, **args)
+                    collect_log=True, collect_stats=True, **args)
     hg = getattr(tgen, name)(**kw)
     tr = tpartition(hg, use_kernels=use_kernels, collect_log=True,
-                    device="cpu", **args)
+                    collect_stats=True, device="cpu", **args)
     np.testing.assert_array_equal(tr.parts, jr.parts)
     assert tr.parts.dtype == jr.parts.dtype
     assert (tr.n_levels, tr.n_parts) == (jr.n_levels, jr.n_parts)
@@ -57,6 +71,8 @@ def assert_partition_matches_jax(name, kw, args, use_kernels):
     assert tr.audit == jr.audit
     assert tr.audit["size_ok"] and tr.audit["inbound_ok"]
     assert tr.level_log == jr.level_log
+    assert_level_stats_equal(tr, jr)
+    assert tr.level_stats[0].connectivity == tr.connectivity
     assert set(tr.timings) == {"total", "coarsen", "refine"}
     again = tpartition(hg, use_kernels=use_kernels, device="cpu", **args)
     np.testing.assert_array_equal(again.parts, tr.parts)
@@ -79,8 +95,9 @@ BUCKET_GRAPH = ("snn_layered", dict(n_layers=3, width=12, fanout=4, window=6,
 
 def assert_bucketed_matches_jax(use_kernels: bool, **extra):
     """``partition(bucket=True)`` against the JAX package's bucketed run:
-    parts, levels, kernel path, audit and log (which names each level's
-    node capacity) equal, and the parts equal the unbucketed run's."""
+    parts, levels, kernel path, audit, log (which names each level's node
+    capacity) and ``level_stats`` (whose occupancies are against each
+    level's own caps) equal, and the parts equal the unbucketed run's."""
     name, kw, args = BUCKET_GRAPH
     jr = jpartition(getattr(jgen, name)(**kw), use_kernels=use_kernels,
                     bucket=True, collect_log=True, **args, **extra)
@@ -92,6 +109,7 @@ def assert_bucketed_matches_jax(use_kernels: bool, **extra):
     assert tr.kernel_path == jr.kernel_path
     assert tr.audit == jr.audit
     assert tr.level_log == jr.level_log
+    assert_level_stats_equal(tr, jr)
     flat = tpartition(hg, use_kernels=use_kernels, device="cpu", **args,
                       **extra)
     np.testing.assert_array_equal(flat.parts, tr.parts)
@@ -129,7 +147,7 @@ def test_partition_needs_a_device_without_cuda():
 
 @pytest.mark.parametrize("kw", [dict(plan=object()), dict(shard_graph=True),
                                 dict(compensated_psum=True),
-                                dict(collect_stats=True)])
+                                dict(plan=object(), shard_graph=True)])
 def test_unported_arguments_raise(kw):
     hg = tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -4,9 +4,7 @@ field (error cases included), ``perturb_delta``, the warm
 ``refine_from`` / ``repartition`` / ``WarmCache`` path with its drift and
 audit fallbacks, ``_extend_parts``, and the warm k-way path. Mirrors
 tests/test_repartition.py:46-223,268-286; every solve's parts, mode,
-audit and kernel path equal the JAX run's. Until ``obs/trace.py`` is
-ported, the span-tree test reads ``n_levels == 0`` and
-``timings["coarsen"] == 0.0`` instead of the spans."""
+audit, kernel path and ``level_stats`` equal the JAX run's."""
 import dataclasses
 
 import numpy as np
@@ -21,6 +19,7 @@ from repro_torch.core import generate as tgen
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import kway as tkway
 from repro_torch.core import partitioner as tpart
+from repro_torch.obs import trace as otrace
 
 _GRAPH = dict(n_layers=4, width=24, fanout=6, seed=3)
 _C = dict(omega=16, delta=64, theta=4)
@@ -73,6 +72,8 @@ def assert_results_equal(tr, jr):
     assert tr.audit == jr.audit
     assert tr.kernel_path == jr.kernel_path
     assert (tr.connectivity, tr.cut_net) == (jr.connectivity, jr.cut_net)
+    assert [s.to_dict() for s in tr.level_stats] == \
+        [s.to_dict() for s in jr.level_stats]
 
 
 # --------------------------------------------------------------- delta apply
@@ -202,8 +203,9 @@ def test_zero_delta_repartition_bit_identical_to_refine_from(cold_parts):
 
 
 def test_warm_path_skips_coarsening(cold_parts):
-    """The span-tree test of the JAX package, read through the result
-    until ``obs/trace.py`` is ported: no coarsening level ran."""
+    """The span-tree test of the JAX package: the warm solve's tree has no
+    "coarsen" or "coarsen_level" span, its root carries the mode, and
+    ``timings`` is a view over it."""
     jh, th = _graphs()
     kw = dict(theta=_C["theta"], drift_threshold=0.9)
     jr = jpart.repartition(jh, cold_parts, _C["omega"], _C["delta"],
@@ -211,10 +213,16 @@ def test_warm_path_skips_coarsening(cold_parts):
     tr = tpart.repartition(th, cold_parts, _C["omega"], _C["delta"],
                            deltas=tgen.perturb_delta(th, 3, seed=1),
                            device="cpu", **kw)
+    root = otrace.last_root("partition")
     assert tr.mode == "warm" and tr.n_levels == 0
     assert tr.kernel_path["coarsen"] == []
+    assert root.attrs["mode"] == "warm"
+    assert root.find("coarsen") is None and root.find("coarsen_level") is None
+    assert [c.name for c in root.children] == ["setup", "refine", "audit"]
     assert tr.timings["coarsen"] == 0.0
-    assert tr.timings["total"] >= tr.timings["refine"] > 0.0
+    assert tr.timings["total"] == root.duration
+    assert tr.timings["refine"] == root.find("refine").duration > 0.0
+    assert len(tr.level_stats) == 1 and tr.level_stats[0].nodes == th.n_nodes
     assert_results_equal(tr, jr)
     assert_hosts_equal(th, jh)
 
@@ -353,7 +361,8 @@ ENTRY_POINTS = {
 
 
 UNPORTED = [dict(plan=object()), dict(shard_graph=True),
-            dict(collect_stats=True), dict(compensated_psum=True)]
+            dict(plan=object(), shard_graph=True),
+            dict(compensated_psum=True)]
 
 
 @pytest.mark.parametrize("entry,kw", [
