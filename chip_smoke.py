@@ -60,7 +60,8 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      ``apply_delta`` timed apart from the solve;
  11. k-way at k=2: pins_count and gains at kcap 2 (every edge on gains'
      pins-row branch) against their plain versions on level 0 with the
-     k-way initial parts, and timed; ``partition_kway`` (audit, balance,
+     k-way initial parts, and timed beside ``torch.bincount`` and
+     ``torch.sparse.mm``; ``partition_kway`` (audit, balance,
      gains on level 0 and pins everywhere), then a warm
      ``repartition_kway`` with phase 10's delta;
  12. the partition service (``PartitionService``, theta 8, 4 batch slots,
@@ -77,10 +78,32 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      requests/s, solve and queue times per route, and the device's idle
      share of one bucket solve under the profiler; the metrics dump
      carries the ``service.solve`` span.
+ 13. the paper's Fig. 7 comparison: the nine graphs of
+     ``paper_snn_suite(1.0)`` and ``paper_ispd_suite(1.0)`` (768-8,192
+     nodes) under the JAX lanes' constraints (SNN: Omega 32, Delta 128
+     for the ``-s`` graphs, else 48 and 192; ISPD: 32 and 128), after one
+     warm-up solve on the smallest: ``partition(theta=8)`` on the card
+     with the kernels off and on (valid, identical parts, launches equal
+     to ``kernel_path``, pair_scores perhaps once more for the last
+     coarsening attempt, which matched nothing and is no level; counts
+     reset before each kernels-on solve), the
+     three baselines on the host; per graph and method the seconds,
+     connectivity, parts and validity, the speed-up over ``seq-ml`` and
+     the connectivity ratio to it, and the ordering (printed, not
+     asserted); the card's parts equal the CPU's on ``model-s`` and
+     ``ibm01-like``; then ``onepass_partition`` on phase 3's graph beside
+     the cold solve;
+ 14. MoE expert placement for deepseek-v2-236b (160 experts, top-6) on 8
+     EP shards from a 4,096-token routing trace: ``plan_expert_placement``
+     k-way and under Delta 3072, three ``replan_expert_placement``
+     windows at a 10% shift, and ``plan_stage_assignment(qwen2-1.5b,
+     4)``: each perm a permutation with 20 experts a shard,
+     ``a2a_reduction >= 1``, every result equal to the CPU's, no kernel
+     launch; the times on card and CPU.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 12 run under
+the same parts. Phases 3 to 5 and 9 to 14 run under
 ``torch.use_deterministic_algorithms(True)``. Phases 3, 9 and 11 also check
 each solve's ``level_stats`` and span-tree ``timings``.
 Float matmuls run in full f32 (TF32 off). The second-to-last line is the
@@ -188,6 +211,36 @@ def bound(nbytes: float, ops: float,
     binds."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def pins_library_ms(torch, hg, d, parts, caps, kcap: int) -> float:
+    """B2's yardstick: one ``torch.bincount`` over e*K+p keys (dst pins
+    offset by E*K) on level ``d`` with ``parts``, in ms."""
+    dev = d.edge_pins.device
+    off = torch.from_numpy(hg.edge_off).to(dev)
+    e_of = torch.repeat_interleave(torch.arange(hg.n_edges, device=dev),
+                                   off.diff())
+    pin_p = parts.long()[d.edge_pins[: hg.n_pins].long()]
+    is_dst = torch.arange(hg.n_pins, device=dev) - off[e_of] \
+        >= d.edge_nsrc.long()[e_of]
+    keys = torch.cat([e_of * kcap + pin_p,
+                      caps.e * kcap + (e_of * kcap + pin_p)[is_dst]])
+    return cuda_ms(torch, lambda: torch.bincount(
+        keys, minlength=2 * caps.e * kcap), 20)
+
+
+def gains_library_ms(torch, g_ref, d, pins, caps, h: int) -> float:
+    """B3's yardstick: ``torch.sparse.mm`` of the weighted incidence (CSR)
+    by the dense ``pins > 0`` on level ``d``, in ms."""
+    inc, w = g_ref.incidence_dense(d, caps, h)
+    nz = w != 0
+    rows_i = torch.arange(caps.n, device=w.device)[:, None].expand_as(
+        inc)[nz]
+    a_sp = torch.sparse_coo_tensor(
+        torch.stack([rows_i, inc[nz].long()]), w[nz],
+        (caps.n, caps.e)).coalesce().to_sparse_csr()
+    b_dense = (pins.T > 0).float()
+    return cuda_ms(torch, lambda: torch.sparse.mm(a_sp, b_dense), 10)
 
 
 def attn_inputs(torch, s_len, heads, kv_heads, dh, dtype):
@@ -678,10 +731,13 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
     b_g = bound(4.0 * (caps.n + 1 + hg.n_pins + caps.e + 1 + hg.n_pins
                        + caps.n + caps.e + caps.n * kcap + n_rows * kcap),
                 float(hg.n_pins) * kcap)
+    lib_pc = pins_library_ms(torch, hg, d0, parts0, caps, kcap)
+    lib_g = gains_library_ms(torch, g_ref, d0, pins, caps, h)
     log(f"[11] at kcap {kcap}: pins_count {ms_pc:.4f} ms (plain "
-        f"{plain_pc:.4f}, bound {b_pc[0]:.4f} by {b_pc[1]}), gains "
-        f"{ms_g:.4f} ms (plain {plain_g:.4f}, bound {b_g[0]:.4f} by "
-        f"{b_g[1]}), on {card}")
+        f"{plain_pc:.4f}, bound {b_pc[0]:.4f} by {b_pc[1]}, library "
+        f"torch.bincount {lib_pc:.4f}), gains {ms_g:.4f} ms (plain "
+        f"{plain_g:.4f}, bound {b_g[0]:.4f} by {b_g[1]}, library "
+        f"torch.sparse.mm {lib_g:.4f}), on {card}")
     del d0, parts0, pins, pins_in, want, want_in, conn, want_c
 
     kernels.reset_launches()
@@ -917,6 +973,207 @@ def service_phase(torch, kernels, card, dev) -> None:
     solve = next(s for s in doc["spans"] if s["name"] == "service.solve")
     log(f"[12] metrics dump: {len(doc['spans'])} span names, service.solve "
         f"{solve['count']} times, {solve['total_s']:.3f} s in all")
+
+
+def fig7_constraints(suite: str, name: str) -> tuple[int, int]:
+    """(Omega, Delta) of the JAX lanes: the Fig. 7 rule for the SNN suite
+    (``benchmarks/common.py:39``), Tab. II's 32 and 128 for the ISPD
+    suite."""
+    if suite == "ispd" or name.endswith("-s"):
+        return 32, 128
+    return 48, 192
+
+
+def fig7_phase(torch, kernels, card, big_hg, cold) -> None:
+    """Phase 13: the paper's Fig. 7 comparison on the nine graphs of
+    ``paper_snn_suite(1.0)`` and ``paper_ispd_suite(1.0)``: our
+    ``partition(theta=8)`` on the card with the kernels off (the JAX
+    lane's setting) and on, and the three baselines on the host; then
+    ``onepass_partition`` on ``big_hg``, phase 3's graph built anew
+    (phases 10 and 11 apply their deltas to the first one in place)."""
+    import numpy as np
+    from repro_torch import baselines
+    from repro_torch.core import generate, metrics
+    from repro_torch.core.partitioner import partition
+
+    graphs = [("snn", n, g) for n, g in generate.paper_snn_suite(1.0).items()]
+    graphs += [("ispd", n, g)
+               for n, g in generate.paper_ispd_suite(1.0).items()]
+    smallest = min(graphs, key=lambda x: x[2].n_nodes)
+    om, dl = fig7_constraints(smallest[0], smallest[1])
+    t0 = time.perf_counter()
+    partition(smallest[2], omega=om, delta=dl, theta=8)
+    log(f"[13] warm-up solve on {smallest[1]} ({smallest[2].n_nodes} nodes): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    methods = (("seq-ml", baselines.sequential_multilevel),
+               ("overlap", baselines.overlap_partition),
+               ("onepass", baselines.onepass_partition))
+    total = collections.Counter()
+    speedups, ratios = [], []
+    for suite, name, hg in graphs:
+        om, dl = fig7_constraints(suite, name)
+        rows = {}
+        t0 = time.perf_counter()
+        off = partition(hg, omega=om, delta=dl, theta=8, use_kernels=False)
+        rows["ours"] = (time.perf_counter() - t0, off.audit)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        on = partition(hg, omega=om, delta=dl, theta=8, use_kernels=True)
+        rows["ours+kernels"] = (time.perf_counter() - t0, on.audit)
+        launches = dict(kernels.LAUNCHES)
+        total.update(launches)
+        kp = on.kernel_path
+        need((off.audit["size_ok"] and off.audit["inbound_ok"]
+              and on.audit["size_ok"] and on.audit["inbound_ok"]),
+             f"[13] {name}: our result is valid")
+        need(np.array_equal(on.parts, off.parts),
+             f"[13] {name}: identical parts with the kernels off and on")
+        # the last coarsening attempt, which matches nothing, is no level
+        # and is not in kernel_path, yet it may have launched pair_scores
+        need((launches["pins_count"], launches["gains"])
+             == (sum(kp["pins"]), sum(kp["refine"]))
+             and 0 <= launches["pair_scores"] - sum(kp["coarsen"]) <= 1,
+             f"[13] {name}: kernel_path {kp} records the launches "
+             f"{launches}")
+        for m, fn in methods:
+            t0 = time.perf_counter()
+            parts, _ = fn(hg, om, dl)
+            rows[m] = (time.perf_counter() - t0,
+                       metrics.audit(hg, parts, om, dl))
+        t_seq, a_seq = rows["seq-ml"]
+        for m, (t, a) in rows.items():
+            ratio = a["connectivity"] / max(a_seq["connectivity"], 1e-9)
+            log(f"[13] {name:10s} {m:12s} nodes {hg.n_nodes} pins "
+                f"{hg.n_pins} Omega {om} Delta {dl}: {t:.4f} s, "
+                f"connectivity {a['connectivity']:.0f}, parts "
+                f"{a['n_parts']}, valid {a['size_ok'] and a['inbound_ok']}, "
+                f"speed-up over seq-ml {t_seq / t:.3f}x, connectivity / "
+                f"seq-ml {ratio:.4f}")
+        order = sorted(rows, key=lambda m: rows[m][1]["connectivity"])
+        log(f"[13] {name} by connectivity: " + " <= ".join(order)
+            + f"; levels {off.n_levels}, launches " + json.dumps(launches))
+        speedups.append(t_seq / rows["ours"][0])
+        ratios.append(a_seq["connectivity"]
+                      / max(rows["ours"][1]["connectivity"], 1e-9))
+        if name in ("model-s", "ibm01-like"):
+            t0 = time.perf_counter()
+            cpu = partition(hg, omega=om, delta=dl, theta=8, device="cpu")
+            need(np.array_equal(cpu.parts, off.parts),
+                 f"[13] {name}: the card's parts equal the CPU's")
+            log(f"[13] {name}: card parts equal the CPU's (CPU solve "
+                f"{time.perf_counter() - t0:.3f} s)")
+    need(all(total[n] > 0 for n in ("pair_scores", "pins_count", "gains")),
+         f"[13] the kernels-on solves launch B1-B3: {dict(total)}")
+    gmean = math.exp(sum(map(math.log, speedups)) / len(speedups))
+    log(f"[13] over the nine graphs: speed-up of ours (kernels off) over "
+        f"seq-ml {min(speedups):.3f}-{max(speedups):.3f}x, geometric mean "
+        f"{gmean:.3f}x; seq-ml connectivity / ours {min(ratios):.4f}-"
+        f"{max(ratios):.4f}; launches with the kernels on "
+        + json.dumps(dict(total)) + f", on {card}")
+
+    t0 = time.perf_counter()
+    parts, _ = baselines.onepass_partition(big_hg, 256, 1024)
+    t_one = time.perf_counter() - t0
+    a = metrics.audit(big_hg, parts, 256, 1024)
+    log(f"[13] onepass on phase 3's {big_hg.n_nodes}-node graph (Omega 256, "
+        f"Delta 1024): {t_one:.3f} s, connectivity {a['connectivity']:.0f} "
+        f"in {a['n_parts']} parts, valid {a['size_ok'] and a['inbound_ok']}"
+        f"; the cold solve's {cold['connectivity']:.0f} in "
+        f"{cold['timings']['total']:.3f} s")
+
+
+def moe_phase(torch, kernels, card) -> None:
+    """Phase 14: MoE expert placement for deepseek-v2-236b (160 experts,
+    top-6) on 8 EP shards from a 4,096-token routing trace, k-way and
+    under a Delta, three warm re-placements at a 10% shift, and
+    ``plan_stage_assignment(qwen2-1.5b, 4)``; every result on the card
+    equal to the CPU's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.examples.moe_placement import shifted_trace
+
+    cfg = get_config("deepseek-v2-236b")
+    n_shards, per_shard = 8, cfg.moe.n_experts // 8
+    trace = planner.synth_routing_trace(cfg, n_tokens=4096, seed=0)
+
+    def same(a, b, what):
+        need(np.array_equal(a["perm"], b["perm"])
+             and np.array_equal(a["parts"], b["parts"])
+             and np.array_equal(a["raw_parts"], b["raw_parts"])
+             and (a["mode"], a["n_levels"]) == (b["mode"], b["n_levels"]),
+             f"[14] {what}: the card's perm, parts, mode and levels equal "
+             f"the CPU's")
+
+    def placed(out, what):
+        rep = out["report"]
+        need(sorted(out["perm"].tolist()) == list(range(cfg.moe.n_experts)),
+             f"[14] {what}: perm is a permutation")
+        need((np.bincount(out["parts"], minlength=n_shards)
+              == per_shard).all(), f"[14] {what}: {per_shard} experts a shard")
+        need(rep["a2a_reduction"] >= 1.0,
+             f"[14] {what}: a2a_reduction {rep['a2a_reduction']}")
+
+    def timed(fn, **kw):
+        t0 = time.perf_counter()
+        out = fn(**kw)
+        return out, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    delta = 3072
+    runs = {}
+    for route, dl in (("k-way", None), (f"Delta {delta}", delta)):
+        kw = dict(cfg=cfg, n_shards=n_shards, trace=trace, delta=dl)
+        gpu, t_gpu = timed(planner.plan_expert_placement, **kw)
+        cpu, t_cpu = timed(planner.plan_expert_placement, device="cpu", **kw)
+        placed(gpu, route)
+        same(gpu, cpu, route)
+        rep = gpu["report"]
+        log(f"[14] plan_expert_placement ({route}), {cfg.moe.n_experts} "
+            f"experts top-{cfg.moe.top_k}, {n_shards} shards, "
+            f"{gpu['graph'].n_edges} routing groups: card {t_gpu:.3f} s, CPU "
+            f"{t_cpu:.3f} s; mode {gpu['mode']}, {gpu['n_levels']} levels; "
+            f"connectivity {rep['connectivity']:.0f} against identity "
+            f"{rep['connectivity_identity']:.0f} (a2a_reduction "
+            f"{rep['a2a_reduction']:.4f}), max_inbound {rep['max_inbound']}, "
+            f"inbound_ok {rep['inbound_ok']}, identical on card and CPU")
+        runs[route] = (gpu, cpu)
+
+    gpu, cpu = runs["k-way"]
+    tr = trace
+    for window in (1, 2, 3):
+        tr = shifted_trace(cfg, tr, frac=0.10, seed=window)
+        gpu, t_gpu = timed(planner.replan_expert_placement, cfg=cfg,
+                           prev=gpu, n_shards=n_shards, trace=tr)
+        cpu, t_cpu = timed(planner.replan_expert_placement, cfg=cfg,
+                           prev=cpu, n_shards=n_shards, trace=tr,
+                           device="cpu")
+        placed(gpu, f"window {window}")
+        same(gpu, cpu, f"window {window}")
+        log(f"[14] replan window {window}: mode {gpu['mode']}, card "
+            f"{t_gpu:.3f} s, CPU {t_cpu:.3f} s; connectivity "
+            f"{gpu['report']['connectivity']:.0f} (a2a_reduction "
+            f"{gpu['report']['a2a_reduction']:.4f}), identical on card and "
+            f"CPU")
+
+    dense = get_config("qwen2-1.5b")
+    gpu, t_gpu = timed(planner.plan_stage_assignment, cfg=dense, n_stages=4)
+    cpu, t_cpu = timed(planner.plan_stage_assignment, cfg=dense, n_stages=4,
+                       device="cpu")
+    need(np.array_equal(gpu["stage_of_layer"], cpu["stage_of_layer"])
+         and gpu["report"] == cpu["report"],
+         "[14] plan_stage_assignment: card equal to CPU")
+    need(len(gpu["stage_of_layer"]) == dense.n_layers,
+         "[14] a stage for every layer")
+    log(f"[14] plan_stage_assignment(qwen2-1.5b, 4): card {t_gpu:.3f} s, "
+        f"CPU {t_cpu:.3f} s; layers a stage "
+        f"{np.bincount(gpu['stage_of_layer'], minlength=4).tolist()}, "
+        f"report " + json.dumps(gpu["report"]) + ", identical on card and CPU")
+    launches = dict(kernels.LAUNCHES)
+    need(not any(launches.values()),
+         f"[14] the planner runs with the kernels off: {launches}")
+    log(f"[14] launches: " + json.dumps(launches) + f", on {card}")
 
 
 def main(argv=None) -> int:
@@ -1199,24 +1456,11 @@ def main(argv=None) -> int:
                                                           kcap), 50)
     plain = cuda_ms(torch, lambda: pc_ref.pins_matrix_ref(d0, parts0, caps,
                                                           kcap, dbar), 10)
-    # yardstick: one bincount over e*K+p keys (dst pins offset by E*K)
-    e_of = torch.repeat_interleave(
-        torch.arange(hg.n_edges, device=dev),
-        torch.from_numpy(hg.edge_off).to(dev).diff())
-    pin_p = parts0.long()[d0.edge_pins[: hg.n_pins].long()]
-    rel = torch.arange(hg.n_pins, device=dev) - \
-        torch.from_numpy(hg.edge_off).to(dev)[e_of]
-    is_dst = rel >= d0.edge_nsrc.long()[e_of]
-    keys = torch.cat([e_of * kcap + pin_p,
-                      caps.e * kcap + (e_of * kcap + pin_p)[is_dst]])
-    lib = cuda_ms(torch, lambda: torch.bincount(keys,
-                                                minlength=2 * caps.e * kcap),
-                  20)
+    lib = pins_library_ms(torch, hg, d0, parts0, caps, kcap)
     b, by = bound(pc_bytes, float(hg.n_pins))
     rows_used.append(dict(name="pins_count", ms=ms, plain_ms=plain,
                           bound_ms=b, bound_by=by, library_ms=lib,
                           max_abs_err=err_pc))
-    del keys, e_of, pin_p, rel, is_dst
 
     # gains: node CSR, edge CSR, parts and edge_w read once, the pins rows
     # of edges above the threshold once each, conn written once; an
@@ -1233,20 +1477,11 @@ def main(argv=None) -> int:
                                                    kcap), 50)
     plain = cuda_ms(torch, lambda: g_ref.conn_weights_walk(
         d0, parts0, pins_k, caps, kcap, h, wide), 3, warmup=1)
-    # yardstick: sparse (weighted incidence) @ dense (pins > 0)
-    inc, w = g_ref.incidence_dense(d0, caps, h)
-    nz = w != 0
-    rows_i = torch.arange(caps.n, device=dev)[:, None].expand_as(inc)[nz]
-    a_sp = torch.sparse_coo_tensor(
-        torch.stack([rows_i, inc[nz].long()]), w[nz],
-        (caps.n, caps.e)).coalesce().to_sparse_csr()
-    b_dense = (pins_k.T > 0).float()
-    lib = cuda_ms(torch, lambda: torch.sparse.mm(a_sp, b_dense), 10)
+    lib = gains_library_ms(torch, g_ref, d0, pins_k, caps, h)
     b, by = bound(g_bytes, g_ops_n)
     rows_used.append(dict(name="gains", ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by, library_ms=lib, max_abs_err=err_g))
-    del inc, w, nz, rows_i, a_sp, b_dense, pins_k, d0, r0, r1, r2, e_card, \
-        walked
+    del pins_k, d0, r0, r1, r2, e_card, walked
 
     # flash_attn at the serving path's longest prefill: q/k/v/o read or
     # written once; the two products over the causal triangle's S(S+1)/2
@@ -1311,6 +1546,15 @@ def main(argv=None) -> int:
     log(f"[11] {time.perf_counter() - t_start:.1f} s from the start")
     service_phase(torch, kernels, card, "cuda")
     log(f"[12] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 13-14. the paper's comparison, the placement planner ----------
+    del hg
+    fig7_phase(torch, kernels, card, generate.snn_layered(
+        n_layers=args.layers, width=8192, fanout=16, window=64, seed=0),
+        cold)
+    log(f"[13] {time.perf_counter() - t_start:.1f} s from the start")
+    moe_phase(torch, kernels, card)
+    log(f"[14] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

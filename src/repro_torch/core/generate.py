@@ -9,6 +9,8 @@ seed.
 * ``random_kuniform``— uniform random k-edges.
 * ``perturb_delta``  — a seeded ``GraphDelta`` that swaps edges for fresh
   ones of the same sizes (the streaming path's load shift).
+* ``paper_snn_suite``, ``paper_ispd_suite`` — the named graphs of the
+  paper's comparison (Fig. 7, Tab. II) at CPU-tractable scale.
 """
 from __future__ import annotations
 
@@ -127,3 +129,25 @@ def perturb_delta(hg: HostHypergraph, n_edges: int = 8,
         adds.append((pins, 1 if k > 1 else 0, float(hg.edge_w[int(e)])))
     return GraphDelta(del_edges=tuple(int(e) for e in dels),
                       add_edges=tuple(adds))
+
+
+# Named suites mirroring the paper's tables at CPU-tractable scale.
+def paper_snn_suite(scale: float = 1.0) -> dict[str, HostHypergraph]:
+    s = lambda x: max(2, int(x * scale))
+    return {
+        "model-s": snn_layered(n_layers=s(5), width=s(192), fanout=10, seed=1),
+        "model-m": snn_layered(n_layers=s(6), width=s(320), fanout=12, seed=2),
+        "model-l": snn_layered(n_layers=s(8), width=s(448), fanout=14, seed=3),
+        "rand-s": snn_smallworld(n_nodes=s(768), fanout=12, seed=4),
+        "rand-m": snn_smallworld(n_nodes=s(1536), fanout=16, seed=5),
+        "rand-l": snn_smallworld(n_nodes=s(3072), fanout=16, seed=6),
+    }
+
+
+def paper_ispd_suite(scale: float = 1.0) -> dict[str, HostHypergraph]:
+    s = lambda x: max(64, int(x * scale))
+    return {
+        "ibm01-like": ispd_like(n_nodes=s(2048), seed=11),
+        "ibm05-like": ispd_like(n_nodes=s(4096), seed=12),
+        "ibm10-like": ispd_like(n_nodes=s(8192), seed=13),
+    }

@@ -1,4 +1,4 @@
-"""Partitioning quality metrics and constraint audits (paper Eq. 1, 16),
+"""Partitioning quality metrics and constraint audits (paper Eq. 1, 2, 16),
 numpy, with the same results as ``repro.core.metrics``. The per-edge
 distinct-partition count is vectorised (one ``np.unique`` over
 (edge, partition) keys) so audits stay fast at 10^5 edges."""
@@ -29,6 +29,13 @@ def cut_net(hg: HostHypergraph, parts: np.ndarray) -> float:
     """Cut-net(rho) = sum_e w(e) * 1[lambda(e) > 1]   (paper Eq. 16)."""
     lam = _lambda_per_edge(hg, parts)
     return float((hg.edge_w * (lam > 1)).sum())
+
+
+def coarsening_score(hg: HostHypergraph, gamma: np.ndarray) -> float:
+    """Score(gamma) = sum_e w(e) * (|e| - |gamma(e)|)   (paper Eq. 2)."""
+    card = np.diff(hg.edge_off)
+    lam = _lambda_per_edge(hg, gamma)
+    return float((hg.edge_w * (card - lam)).sum())
 
 
 def partition_loads(hg: HostHypergraph, parts: np.ndarray,
