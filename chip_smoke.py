@@ -61,9 +61,10 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
  11. k-way at k=2: pins_count and gains at kcap 2 (every edge on gains'
      pins-row branch) against their plain versions on level 0 with the
      k-way initial parts, and timed beside ``torch.bincount`` and
-     ``torch.sparse.mm``; ``partition_kway`` (audit, balance,
-     gains on level 0 and pins everywhere), then a warm
-     ``repartition_kway`` with phase 10's delta;
+     ``torch.sparse.mm``; ``partition_kway`` with its V-cycle cut to
+     ``KWAY_MAX_LEVELS`` levels (audit, balance, gains on level 0 and
+     pins everywhere), then a warm ``repartition_kway`` with phase 10's
+     delta;
  12. the partition service (``PartitionService``, theta 8, 4 batch slots,
      bucket ladder from 64 nodes, routed above 2048): a flood of 12
      netlist-like bucket requests over three ladder rungs (224-256,
@@ -100,12 +101,30 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      4)``: each perm a permutation with 20 experts a shard,
      ``a2a_reduction >= 1``, every result equal to the CPU's, no kernel
      launch; the times on card and CPU.
+ 15. the mesh V-cycle (``repro_torch.dist.partition``) on the graph cut
+     to ``DIST_LAYERS`` layers: B1-B3 launched on each of two row
+     stripes of level 0 (the stripes of a two-shard mesh) equal to
+     their plain versions, the stripes together equal to the
+     whole-level launch (``torch.equal``), stripe 0 timed; the
+     single-device ``partition(use_kernels=True)``; then ranks spawned
+     by ``repro_torch.dist.spawn.run_ranks`` (``dist_rank``), all on
+     this card over gloo with their collectives staged through the
+     host (NCCL refuses two ranks on one GPU): mesh (1, 2) and (2, 2)
+     with racing off give the single-device parts, levels, audit and
+     kernel path bit for bit, (2, 2) with racing on passes the audit
+     and a second run with the same seed repeats it, and a one-rank
+     NCCL group gives the single-device parts; each under
+     ``DIST_TIMEOUT``; per mesh the wall seconds, transport, host-staged
+     copies and bytes, launches (stripe launches counted apart) and
+     peak device memory of each rank. The stripe rows of the kernels
+     JSON carry the (1, 2) solve's stripe launches over both ranks.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 14 run under
-``torch.use_deterministic_algorithms(True)``. Phases 3, 9 and 11 also check
-each solve's ``level_stats`` and span-tree ``timings``.
+the same parts. Phases 3 to 5 and 9 to 15 run under
+``torch.use_deterministic_algorithms(True)``, in every rank too. Phases
+3, 9 and 11 also check each solve's ``level_stats`` and span-tree
+``timings``.
 Float matmuls run in full f32 (TF32 off). The second-to-last line is the
 kernels JSON, the last the device JSON. Exits nonzero with no result when
 no CUDA device is present or the package sources are not beside this
@@ -138,6 +157,17 @@ SERVE_ARCH = "qwen2-1.5b"
 # the kernels-off run (phase 5) at a cut depth: it only shows the plain path
 # passes the audit, and the script's time goes to the new paths
 OFF_LAYERS = 4
+# phase 11's k-way V-cycle cut to 16 levels: uncut, its coarsening stalls
+# at the default 64 levels with 276 nodes and the solve takes 93-120 s. A
+# cut of the graph's depth instead fails the balance check (0.101 at 4
+# layers, 0.109 at 8, against eps 0.03)
+KWAY_MAX_LEVELS = 16
+# phase 15's mesh solves: two layers (16,384 neurons, half of phase 5's
+# cut), because a mesh solve on one shared card takes 3-5x the single
+# device's; and a hard limit on each spawned mesh so a hung collective
+# fails the run
+DIST_LAYERS = 2
+DIST_TIMEOUT = 600.0
 # phase 12's bucket lane: node ranges of three ladder rungs, requests a rung
 # (four, not eight: eight a rung took the phase to 177 s, six to 160 s and
 # five to 168 s, over its budget of about 150 s)
@@ -662,8 +692,9 @@ def stream_phase(torch, kernels, hg, cold, card, omega, delta, theta):
 
 def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
     """Phase 11: B2 and B3 at kcap 2 against their plain versions, then
-    ``partition_kway(k=2)`` at full size and a warm ``repartition_kway``
-    with phase 10's delta."""
+    ``partition_kway(k=2)`` at full size with its V-cycle cut to
+    ``KWAY_MAX_LEVELS`` levels and a warm ``repartition_kway`` with phase
+    10's delta."""
     from repro_torch.core import kway
     from repro_torch.core.coarsen import CoarsenParams
     from repro_torch.core.hypergraph import device_from_host, host_from_device
@@ -742,12 +773,13 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
 
     kernels.reset_launches()
     rk = kway.partition_kway(hg, k=k, eps=eps, theta=theta,
-                             use_kernels=True)
+                             use_kernels=True, max_levels=KWAY_MAX_LEVELS)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_telemetry(rk, otrace.last_root("partition_kway"), hg, "[11]")
     aud = rk.audit
-    log(f"[11] partition_kway(k=2): n_parts {rk.n_parts}, n_levels "
+    log(f"[11] partition_kway(k=2, max_levels={KWAY_MAX_LEVELS}): "
+        f"n_parts {rk.n_parts}, n_levels "
         f"{rk.n_levels}, connectivity {rk.connectivity}, cut_net "
         f"{rk.cut_net}, max_size {aud['max_size']} of Omega {omega}, "
         f"balance_eps {aud['balance_eps']:.5f}")
@@ -766,7 +798,8 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
     kernels.reset_launches()
     rw = kway.repartition_kway(hg, rk.parts, k=k, eps=eps, deltas=dl,
                                cache=WarmCache(), theta=theta,
-                               use_kernels=True)
+                               use_kernels=True,
+                               max_levels=KWAY_MAX_LEVELS)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     log(f"[11] repartition_kway: mode {rw.mode}, n_levels {rw.n_levels}, "
@@ -1176,6 +1209,292 @@ def moe_phase(torch, kernels, card) -> None:
     log(f"[14] launches: " + json.dumps(launches) + f", on {card}")
 
 
+def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs):
+    """One rank of phase 15: the mesh solves ``runs`` (a list of ``(race,
+    race_seed)``) of the phase-15 graph on a ``(data, model)`` mesh whose
+    ranks all compute on ``cuda:0``, each with the launch and staging
+    counts reset just before it and read just after."""
+    sys.path.insert(0, src)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch import kernels
+    from repro_torch.core import generate
+    from repro_torch.core.partitioner import partition
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    plan = make_mesh(data, model, dev)
+    hg = generate.snn_layered(n_layers=layers, width=8192, fanout=16,
+                              window=64, seed=0)
+    out = []
+    for race, seed in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        r = partition(hg, omega=omega, delta=delta, theta=theta,
+                      use_kernels=True, plan=plan, race=race,
+                      race_seed=seed)
+        torch.cuda.synchronize()
+        out.append(dict(parts=r.parts, n_levels=r.n_levels, audit=r.audit,
+                        kernel_path=r.kernel_path,
+                        wall=time.perf_counter() - t0,
+                        launches=dict(kernels.LAUNCHES),
+                        staged=dict(comm.STATS),
+                        peak=torch.cuda.max_memory_allocated(),
+                        describe=plan.describe(), race=race, seed=seed))
+    return out
+
+
+def stripe_checks(torch, kernels, hg, card, omega, delta, nstripes: int):
+    """Phase 15's kernel checks: on level 0 of ``hg`` with the coarsest
+    clusters as parts, each of B1-B3 launched on each of ``nstripes`` row
+    stripes (the stripes of a ``nstripes``-shard mesh) equals its plain
+    version on that stripe, and the stripes concatenated equal the
+    whole-level launch, all with ``torch.equal``. Returns the kernels-JSON
+    rows of the first stripe's launches, timed here."""
+    from repro_torch.core.coarsen import CoarsenParams
+    from repro_torch.core.hypergraph import (Caps, build_neighbors,
+                                             build_pairs, device_from_host)
+    from repro_torch.core.partitioner import (_next_pow2, make_coarsen_fns,
+                                              run_coarsen_loop)
+    from repro_torch.kernels.gains import ops as g_ops
+    from repro_torch.kernels.gains import ref as g_ref
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.pair_scores import ref as ps_ref
+    from repro_torch.kernels.pins_count import ops as pc_ops
+    from repro_torch.kernels.pins_count import ref as pc_ref
+    from repro_torch.utils import segops
+
+    dev = torch.device("cuda")
+    caps = Caps.for_host(hg)
+    d0 = device_from_host(hg, caps, dev)
+    _co, _ct = make_coarsen_fns(CoarsenParams(omega=omega, delta=delta))
+    dk, _, _, gammas, _, _ = run_coarsen_loop(
+        d0, caps, max(1, math.ceil(hg.n_nodes / omega)), 64, _co, _ct, None)
+    kcap = _next_pow2(int(dk.n_nodes))
+    parts0 = torch.arange(caps.n, dtype=torch.int32, device=dev)
+    for g in gammas:
+        parts0 = g.long()[parts0.long()].to(torch.int32)
+    del dk, gammas
+    pairs = build_pairs(d0, caps)
+    nbrs = build_neighbors(pairs, d0, caps)
+    bins = ps_ops.bin_budget(nbrs)
+    h, wide = g_ops.h_bound(caps), g_ops.wide_bound(kcap)
+    dbar = pc_ops.tile_bounds(caps)[0]
+
+    def ranges(total, per):
+        return [(min(r * per, total), min(per, max(total - r * per, 0)))
+                for r in range(nstripes)]
+
+    e_rng = ranges(caps.e, pc_ops.stripe_rows(caps, nstripes))
+    n_rng = ranges(caps.n, g_ops.stripe_rows(caps, nstripes))
+    pins_w, pins_in_w = pc_ops.pins_matrix_kernel(d0, parts0, caps, kcap)
+    conn_w = g_ops.conn_weights(d0, parts0, pins_w, caps, kcap)
+    eta_w, inter_w = ps_ops.pair_scores(d0, nbrs, caps, bins)
+    got = {"pins_count": [], "gains": [], "pair_scores": []}
+    for r, ((e0, ne), (n0, nn)) in enumerate(zip(e_rng, n_rng)):
+        last = r == nstripes - 1
+        k_pc = pc_ops.pins_rows(d0, parts0, caps, kcap, e0, ne)
+        p_pc = pc_ref.pins_rows_ref(d0, parts0, caps, kcap, dbar, e0, ne)
+        k_g = g_ops.conn_rows(d0, parts0, pins_w, caps, kcap, n0, nn)
+        p_g = g_ref.conn_weights_walk(d0, parts0, pins_w, caps, kcap, h,
+                                      wide, n0, nn)
+        k_ps = ps_ops.pair_scores(d0, nbrs, caps, bins, n0, nn, last)
+        p_ps = ps_ref.score_slots_walk(d0, nbrs, caps, bins, n0, nn, last)
+        torch.cuda.synchronize()
+        for name, k_out, p_out in (("pins_count", k_pc, p_pc),
+                                   ("gains", (k_g,), (p_g,)),
+                                   ("pair_scores", k_ps, p_ps)):
+            need(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+                 f"{name} on stripe {r} of {nstripes} equal to its plain "
+                 f"version")
+            got[name].append(k_out)
+        log(f"[15] stripe {r} of {nstripes}: pins_count edge rows "
+            f"[{e0}, {e0 + ne}), gains and pair_scores node rows "
+            f"[{n0}, {n0 + nn}): each equal to its plain version")
+    need(torch.equal(torch.cat([x[0] for x in got["pins_count"]]),
+                     pins_w.T)
+         and torch.equal(torch.cat([x[1] for x in got["pins_count"]]),
+                         pins_in_w.T)
+         and torch.equal(torch.cat([x[0] for x in got["gains"]]), conn_w)
+         and torch.equal(torch.cat([x[0] for x in got["pair_scores"]]),
+                         eta_w)
+         and torch.equal(torch.cat([x[1] for x in got["pair_scores"]]),
+                         inter_w),
+         "the stripes concatenated equal the whole-level launches")
+    log(f"[15] level 0 of {hg.n_nodes} nodes (kcap {kcap}): the "
+        f"{nstripes} stripes of each of B1-B3 concatenated equal the "
+        f"whole-level launch")
+    del got, eta_w, inter_w
+
+    # times of stripe 0, bounds as in phase 6 over the stripe's rows
+    (e0, ne), (n0, nn) = e_rng[0], n_rng[0]
+    e_off = d0.edge_off.long()
+    n_off = d0.node_off.long()
+    e_pins = float(e_off[e0 + ne] - e_off[e0])
+    n_inc = float(n_off[n0 + nn] - n_off[n0])
+    rows = []
+    pc_bytes = 4.0 * (ne + 1 + e_pins + ne + caps.n + 2 * ne * kcap)
+    b = bound(pc_bytes, e_pins)
+    off = torch.from_numpy(hg.edge_off).to(dev)
+    e_of = torch.repeat_interleave(torch.arange(hg.n_edges, device=dev),
+                                   off.diff())
+    pin_p = parts0.long()[d0.edge_pins[: hg.n_pins].long()]
+    is_dst = (torch.arange(hg.n_pins, device=dev) - off[e_of]
+              >= d0.edge_nsrc.long()[e_of])
+    mine = (e_of >= e0) & (e_of < e0 + ne)
+    loc = (e_of - e0) * kcap + pin_p
+    keys = torch.cat([loc[mine], ne * kcap + loc[mine & is_dst]])
+    rows.append(dict(
+        name="pins_count", ms=cuda_ms(torch, lambda: pc_ops.pins_rows(
+            d0, parts0, caps, kcap, e0, ne), 50),
+        plain_ms=cuda_ms(torch, lambda: pc_ref.pins_rows_ref(
+            d0, parts0, caps, kcap, dbar, e0, ne), 10),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=cuda_ms(torch, lambda: torch.bincount(
+            keys, minlength=2 * ne * kcap), 20), max_abs_err=0.0))
+    walked = (e_off[1:] - e_off[:-1]).double() <= wide
+    inc_e = d0.node_edges[n_off[n0]:n_off[n0 + nn]].long()
+    card_i = (e_off[inc_e + 1] - e_off[inc_e]).double()
+    g_bytes = 4.0 * (nn + 1 + n_inc + caps.e + 1 + hg.n_pins + caps.n
+                     + caps.e + nn * kcap + float((~walked).sum()) * kcap)
+    g_n = float(torch.where(walked[inc_e], card_i, float(kcap)).sum())
+    b = bound(g_bytes, g_n)
+    inc, w = g_ref.incidence_dense(d0, caps, h)
+    inc, w = inc[n0:n0 + nn], w[n0:n0 + nn]
+    nz = w != 0
+    rows_i = torch.arange(nn, device=dev)[:, None].expand_as(inc)[nz]
+    a_sp = torch.sparse_coo_tensor(
+        torch.stack([rows_i, inc[nz].long()]), w[nz],
+        (nn, caps.e)).coalesce().to_sparse_csr()
+    b_dense = (pins_w.T > 0).float()
+    rows.append(dict(
+        name="gains", ms=cuda_ms(torch, lambda: g_ops.conn_rows(
+            d0, parts0, pins_w, caps, kcap, n0, nn), 50),
+        plain_ms=cuda_ms(torch, lambda: g_ref.conn_weights_walk(
+            d0, parts0, pins_w, caps, kcap, h, wide, n0, nn), 3, warmup=1),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=cuda_ms(torch, lambda: torch.sparse.mm(a_sp, b_dense),
+                           10), max_abs_err=0.0))
+    ucnt = (nbrs.off[1:] - nbrs.off[:-1]).double()[n0:n0 + nn]
+    lcnt = segops.segment_count(pairs.valid, pairs.n.clamp(0, caps.n - 1),
+                                caps.n).double()[n0:n0 + nn]
+    slots = float(nbrs.off[n0 + nn] - nbrs.off[n0])
+    ps_bytes = 4.0 * (2 * nn + 1 + n_inc + caps.e + 1 + hg.n_pins
+                      + 2 * caps.e + nn + 1 + 3 * slots)
+    ps_n = float((lcnt * torch.ceil(torch.log2(ucnt.clamp(max=bins) + 1))
+                  * torch.ceil(ucnt / bins)).sum())
+    b = bound(ps_bytes, ps_n)
+    rows.append(dict(
+        name="pair_scores", ms=cuda_ms(torch, lambda: ps_ops.pair_scores(
+            d0, nbrs, caps, bins, n0, nn, False), 20),
+        plain_ms=cuda_ms(torch, lambda: ps_ref.score_slots_walk(
+            d0, nbrs, caps, bins, n0, nn, False), 3, warmup=1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None, max_abs_err=0.0))
+    for r in rows:
+        log(f"[15] {r['name']} stripe 0 of {nstripes}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, library {r['library_ms']}) on {card}")
+    return rows
+
+
+def dist_phase(torch, kernels, card, layers, omega, delta, theta):
+    """Phase 15: the mesh V-cycle. ``partition(use_kernels=True)`` of the
+    ``layers``-deep graph on one device, then the same solve by spawned
+    ranks that all compute on this card over gloo (their collectives
+    staged through the host): meshes (1, 2) and (2, 2) with racing off
+    give the single-device parts, levels, audit and kernel path bit for
+    bit; (2, 2) with racing on is valid and repeats for its seed; a
+    one-rank NCCL group gives the single-device parts. B1-B3's stripe
+    launches are held to their plain versions first. Returns the stripe
+    rows of the kernels JSON, their launches those of the (1, 2) solve
+    over both ranks."""
+    from repro_torch.core import generate
+    from repro_torch.core.partitioner import partition
+    from repro_torch.dist.spawn import run_ranks
+
+    hg = generate.snn_layered(n_layers=layers, width=8192, fanout=16,
+                              window=64, seed=0)
+    rows = stripe_checks(torch, kernels, hg, card, omega, delta, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r0 = partition(hg, omega=omega, delta=delta, theta=theta,
+                   use_kernels=True)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    log(f"[15] single device, {hg.n_nodes} nodes ({layers} layers): "
+        f"{wall0:.2f} s, n_parts {r0.n_parts}, n_levels {r0.n_levels}, "
+        f"connectivity {r0.connectivity}, kernel_path "
+        + json.dumps(r0.kernel_path) + f", on {card}")
+    need(r0.audit["size_ok"] and r0.audit["inbound_ok"],
+         "[15] single-device audit")
+    src = str(Path(__file__).resolve().parent / "src")
+    args = (src, layers, omega, delta, theta)
+    meshes = [((1, 2), "gloo", [(False, 0)]),
+              ((2, 2), "gloo", [(False, 0), (True, 5), (True, 5)]),
+              ((1, 1), "nccl", [(False, 0)])]
+    stripe_launches = None
+    for (data, model), backend, runs in meshes:
+        t0 = time.perf_counter()
+        res = run_ranks(dist_rank, data * model, *args, data, model, runs,
+                        backend=backend, timeout=DIST_TIMEOUT)
+        log(f"[15] mesh ({data}, {model}) over {backend}: "
+            f"{time.perf_counter() - t0:.1f} s with the spawn, on {card}")
+        for i, (race, seed) in enumerate(runs):
+            per = [rank_out[i] for rank_out in res]
+            a = per[0]
+            for o in per[1:]:
+                need((o["parts"] == a["parts"]).all(),
+                     f"[15] ({data}, {model}) every rank's parts agree")
+            what = f"({data}, {model}) race={race}"
+            if race:
+                need(a["audit"]["size_ok"] and a["audit"]["inbound_ok"],
+                     f"[15] {what} audit")
+            else:
+                need((a["parts"] == r0.parts).all()
+                     and a["n_levels"] == r0.n_levels
+                     and a["audit"] == r0.audit
+                     and a["kernel_path"] == r0.kernel_path,
+                     f"[15] {what}: the single-device parts, levels, "
+                     f"audit and kernel path")
+            log(f"[15] {what} seed {seed}: {a['describe']}; wall "
+                + ", ".join(f"{o['wall']:.2f}" for o in per)
+                + " s by rank; connectivity "
+                f"{int(a['audit']['connectivity'])}; host-staged copies "
+                + ", ".join(f"{o['staged']['copies']} "
+                            f"({o['staged']['bytes'] / 2**30:.3f} GiB, "
+                            f"{o['staged']['seconds']:.2f} s)" for o in per)
+                + "; peak device memory "
+                + ", ".join(f"{o['peak'] / 2**30:.3f}" for o in per)
+                + " GiB by rank; launches "
+                + json.dumps([{k: v for k, v in o["launches"].items() if v}
+                              for o in per]) + f"; on {card}")
+        if (data, model) == (2, 2):
+            a, b = res[0][1], res[0][2]
+            need((a["parts"] == b["parts"]).all(),
+                 "[15] a second raced solve with the same seed repeats")
+            log(f"[15] (2, 2) raced: valid, repeats for seed 5; "
+                f"connectivity {int(a['audit']['connectivity'])} against "
+                f"{int(r0.audit['connectivity'])} unraced")
+        if (data, model) == (1, 2):
+            stripe_launches = {
+                name: sum(o[0]["launches"][name + "_stripe"] for o in res)
+                for name in ("pair_scores", "pins_count", "gains")}
+            for name, n in stripe_launches.items():
+                need(n > 0, f"[15] {name} launched on stripes by the "
+                     f"(1, 2) solve")
+    for r in rows:
+        r["launches"] = stripe_launches[r["name"]]
+        r["kernel"], r["name"] = r["name"], r["name"] + "_stripe"
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=16,
@@ -1555,14 +1874,21 @@ def main(argv=None) -> int:
     log(f"[13] {time.perf_counter() - t_start:.1f} s from the start")
     moe_phase(torch, kernels, card)
     log(f"[14] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 15. the mesh V-cycle --------------------------------------------
+    rows_used += dist_phase(torch, kernels, card,
+                            min(args.layers, DIST_LAYERS), omega, delta,
+                            theta)
+    log(f"[15] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []
     for r in rows_used:
-        n = r["name"]
+        n, kern = r["name"], r.get("kernel", r["name"])
         out.append(dict(name=n, route="cuda",
-                        source=f"src/repro_torch/csrc/{n}.cu",
-                        replaces=REPLACES[n], launches=launches[n],
+                        source=f"src/repro_torch/csrc/{kern}.cu",
+                        replaces=REPLACES[kern],
+                        launches=r.get("launches", launches.get(n)),
                         max_abs_err=r["max_abs_err"], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -59,34 +59,47 @@ class Proposals:
     kernel_path_taken: int = 0
 
 
-def score_slots(nbrs: Neighborhoods, pairs: PairExpansion, caps: Caps):
+def score_slots(nbrs: Neighborhoods, pairs: PairExpansion, caps: Caps,
+                ctx: segops.ShardCtx = segops.ShardCtx()):
     """(eta, inter) ``[NBcap]`` by segment sums over the pair lanes, in lane
-    order."""
+    order. On a mesh ``pairs`` is this shard's lane stripe: the integer
+    ``inter`` partials psum, and the float ``eta`` lanes are gathered in
+    shard order (the global lane order) and summed as on one device."""
     n_safe = pairs.n.clamp(0, caps.n - 1).long()
     lo = nbrs.off[n_safe]
     hi = nbrs.off[(pairs.n.long() + 1).clamp(0, caps.n)]
     iters = max(1, math.ceil(math.log2(caps.nbrs + 1)) + 1)
     slot = segops.searchsorted_segmented(nbrs.ids, lo, hi, pairs.m, iters)
     slot = torch.where(pairs.valid, slot, caps.nbrs)
-    eta = segops.segment_sum(pairs.w_norm, slot, caps.nbrs)
-    inter = segops.segment_count(pairs.both_dst, slot, caps.nbrs)
+    w_norm, w_slot = pairs.w_norm, slot
+    if ctx.axis is not None:
+        lanes = ctx.gather(torch.stack([w_norm.view(torch.int32), slot], 1))
+        w_norm = lanes[:, 0].contiguous().view(torch.float32)
+        w_slot = lanes[:, 1]
+    eta = segops.segment_sum(w_norm, w_slot, caps.nbrs)
+    inter = ctx.psum(segops.segment_count(pairs.both_dst, slot, caps.nbrs))
     return eta, inter
 
 
 def propose(d: DeviceHypergraph, nbrs: Neighborhoods, pairs: PairExpansion,
-            caps: Caps, params: CoarsenParams) -> Proposals:
+            caps: Caps, params: CoarsenParams,
+            ctx: segops.ShardCtx = segops.ShardCtx()) -> Proposals:
+    """Scores, noise, constraints and the Pi candidate rounds. On a mesh
+    each round argmaxes this shard's stripe of slot lanes, the winners
+    combine by the cross-shard (value, slot) ``pmax_pair`` and the shard
+    owning a winning slot retires it."""
     kernel_taken = 0
     if params.use_kernels:
         from repro_torch.kernels.pair_scores import ops as ps_ops
         # tile bounds are level-0 derived: a level that outgrows them takes
         # the segment path, and the flag records which one ran
-        if ps_ops.fits_kernel(nbrs, pairs, caps):
-            eta, inter = ps_ops.score_slots_kernel(d, nbrs, pairs, caps)
+        if ps_ops.fits_kernel(nbrs, pairs, caps, ctx):
+            eta, inter = ps_ops.score_slots_kernel(d, nbrs, pairs, caps, ctx)
             kernel_taken = 1
         else:
-            eta, inter = score_slots(nbrs, pairs, caps)
+            eta, inter = score_slots(nbrs, pairs, caps, ctx)
     else:
-        eta, inter = score_slots(nbrs, pairs, caps)
+        eta, inter = score_slots(nbrs, pairs, caps, ctx)
 
     owner = segops.rows_from_offsets(nbrs.off, caps.nbrs, caps.n)
     m = nbrs.ids
@@ -108,18 +121,23 @@ def propose(d: DeviceHypergraph, nbrs: Neighborhoods, pairs: PairExpansion,
     # the winning slot retires for the next round. Dead slots hold -inf and
     # never hit, so they drop out of the segments instead of joining the
     # last node's (which the JAX package's clamp does, to the same result)
-    sl = torch.arange(caps.nbrs, dtype=torch.int32, device=m.device)
-    seg = torch.where(entry_live, owner_safe, caps.n)
+    sl, sl_ok = ctx.lanes(caps.nbrs, m.device)
+    seg = ctx.take(torch.where(entry_live, owner_safe, caps.n), sl, sl_ok,
+                   caps.n)
+    value = ctx.take(value, sl, sl_ok, NEG)
+    per = sl.shape[0]
     cand_ids, cand_scores = [], []
     for _ in range(params.n_cands):
-        mx, arg_slot = segops.segment_argmax(value, sl, seg, caps.n,
-                                             valid=value > NEG)
+        mx, arg_slot = ctx.pmax_pair(*segops.segment_argmax(
+            value, sl, seg, caps.n, valid=value > NEG))
         got = (arg_slot >= 0) & ~torch.isneginf(mx)
         cid = torch.where(got, m[arg_slot.clamp(0, caps.nbrs - 1).long()], -1)
         cand_ids.append(cid)
         cand_scores.append(torch.where(got, mx, 0.0))
-        retired = segops.scatter_set(caps.nbrs, arg_slot, got, got, False)
-        value = torch.where(retired, NEG, value)
+        loc = arg_slot - sl[0]
+        mine = got & (loc >= 0) & (loc < per)
+        value = torch.where(segops.scatter_set(per, loc, mine, mine, False),
+                            NEG, value)
 
     return Proposals(cand_ids=torch.stack(cand_ids),
                      cand_scores=torch.stack(cand_scores),
@@ -128,7 +146,9 @@ def propose(d: DeviceHypergraph, nbrs: Neighborhoods, pairs: PairExpansion,
 
 
 def run_matching_rounds(props: Proposals, d: DeviceHypergraph, caps: Caps,
-                        params: CoarsenParams) -> torch.Tensor:
+                        params: CoarsenParams,
+                        ctx: segops.ShardCtx = segops.ShardCtx()
+                        ) -> torch.Tensor:
     """Pi rounds of matching; matched nodes leave later rounds' graphs."""
     dev = props.cand_ids.device
     ids = torch.arange(caps.n, dtype=torch.int32, device=dev)
@@ -144,7 +164,8 @@ def run_matching_rounds(props: Proposals, d: DeviceHypergraph, caps: Caps,
             mutual = (tgt >= 0) & (tgt[tgt.clamp(0, caps.n - 1).long()] == ids)
             m_round = torch.where(mutual, tgt, -1)
         else:
-            m_round = match_pseudoforest(tgt, props.cand_scores[pi], unmatched)
+            m_round = match_pseudoforest(tgt, props.cand_scores[pi],
+                                         unmatched, ctx)
         match = torch.where((match < 0) & (m_round >= 0), m_round, match)
     return match
 
@@ -173,17 +194,30 @@ def pair_isolated(match: torch.Tensor, props: Proposals,
     return torch.where(paired, partner, match)
 
 
-def coarsen_step(d: DeviceHypergraph, caps: Caps, params: CoarsenParams):
+def coarsen_step_impl(d: DeviceHypergraph, caps: Caps,
+                      params: CoarsenParams,
+                      ctx: segops.ShardCtx = segops.ShardCtx()):
     """One coarsening level: pairs -> neighbourhoods -> proposals ->
     matching. Returns (match[Ncap], n_matched_pairs, proposals); the
-    contraction is ``core.contract.contract``."""
-    pairs = build_pairs(d, caps)
-    nbrs = build_neighbors(pairs, d, caps)
-    props = propose(d, nbrs, pairs, caps, params)
-    match = run_matching_rounds(props, d, caps, params)
+    contraction is ``core.contract.contract``. On a mesh (``ctx``) the
+    pairs and slot pipelines run on this shard's lane stripes; the
+    isolated-node pairing is node-sized and stays replicated."""
+    if ctx.axis is None:
+        pairs = build_pairs(d, caps)
+    else:
+        pidx, pidx_ok = ctx.lanes(caps.pairs, d.device)
+        pairs = build_pairs(d, caps, idx=pidx, idx_ok=pidx_ok, ctx=ctx)
+    nbrs = build_neighbors(pairs, d, caps, ctx)
+    props = propose(d, nbrs, pairs, caps, params, ctx)
+    match = run_matching_rounds(props, d, caps, params, ctx)
     match = pair_isolated(match, props, d, caps, params)
     ids = torch.arange(caps.n, device=match.device)
     n_pairs = ((match >= 0) & (ids < d.n_nodes)).sum() // 2
     props.n_pairs_live = pairs.n_pairs
     props.n_nbr_entries = nbrs.n_entries
     return match, n_pairs, props
+
+
+def coarsen_step(d: DeviceHypergraph, caps: Caps, params: CoarsenParams):
+    """The single-device level of ``coarsen_step_impl``."""
+    return coarsen_step_impl(d, caps, params)

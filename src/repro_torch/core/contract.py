@@ -9,6 +9,13 @@ src-first repack is a pair of segmented rank scans and a scatter to
 ``edge_off_new[e] + rank``; the incidence is rebuilt by a second sort.
 Edge ids and weights persist level over level. Every value is an integer,
 so the result is exact.
+
+On a mesh (``ctx``) the keys are built on this shard's stripe of pin lanes,
+both sorts are the distributed sample sort (stripes in and out), the rank
+scans carry across stripes, and the dense results combine by integer psums
+of disjoint scatters or by gathers of the sorted stripes: bit for bit one
+device's contraction. The graph is stored replicated; the memory-sharded
+storage of the JAX package waits for ROADMAP.md Queue A item 13b.
 """
 from __future__ import annotations
 
@@ -22,6 +29,12 @@ IMAX = 2**31 - 1
 
 def contract(d: DeviceHypergraph, match: torch.Tensor, caps: Caps):
     """Returns (coarse DeviceHypergraph, gamma[Ncap] old -> coarse id)."""
+    return contract_impl(d, match, caps)
+
+
+def contract_impl(d: DeviceHypergraph, match: torch.Tensor, caps: Caps,
+                  ctx: segops.ShardCtx = segops.ShardCtx()):
+    """``contract`` with its pins-sized pipeline on this shard's lanes."""
     dev = d.device
     i32 = torch.int32
     ids = torch.arange(caps.n, dtype=i32, device=dev)
@@ -37,11 +50,11 @@ def contract(d: DeviceHypergraph, match: torch.Tensor, caps: Caps):
                                   torch.where(live, gamma, caps.n), caps.n)
 
     # ---- coarse edge pins: map through gamma, dedup, src-first repack ----
-    t = torch.arange(caps.p, dtype=i32, device=dev)
-    pin_live = t < d.n_pins
-    e_of = segops.rows_from_offsets(d.edge_off, caps.p, caps.e)
+    t, t_in = ctx.lanes(caps.p, dev)
+    pin_live = t_in & (t < d.n_pins)
+    e_of = ctx.rows(d.edge_off, t, caps.p, caps.e)
     e_safe = e_of.clamp(0, caps.e - 1).long()
-    pin = torch.where(pin_live, d.edge_pins, 0).clamp(0, caps.n - 1).long()
+    pin = ctx.gread(d.edge_pins, t, pin_live, 0).clamp(0, caps.n - 1).long()
     pprime = torch.where(pin_live, gamma[pin], IMAX)
     rel = t - d.edge_off[e_safe]
     is_dst = pin_live & (rel >= d.edge_nsrc[e_safe])
@@ -50,45 +63,54 @@ def contract(d: DeviceHypergraph, match: torch.Tensor, caps: Caps):
     # within an (edge, coarse pin) group dst (0) sorts before src (1), so the
     # kept first occurrence carries the dst role whenever the pin had both
     k_r = torch.where(is_dst, 0, 1).to(i32)
-    (se, sp, sr), _ = segops.sort_by([k_e, pprime, k_r], [])
-    starts = segops.segment_starts_from_sorted([se, sp])
-    e_start = segops.segment_starts_from_sorted([se])
+    (se, sp, sr), _ = ctx.sort_by([k_e, pprime, k_r], [], striped_in=True,
+                                  striped_out=True)
+    prev = ctx.edge_prev(torch.stack([se, sp], 1), 0)
+    starts = ctx.starts_from_sorted([se, sp], prev)
+    e_start = ctx.starts_from_sorted([se], prev[:, :1])
     keep = starts & (se != IMAX) & (sp != IMAX)
     kept_dst = keep & (sr == 0)
     kept_src = keep & (sr == 1)
 
-    counts_e = segops.segment_count(keep, se, caps.e)
-    nsrc_new = segops.segment_count(kept_src, se, caps.e)
+    counts_e = ctx.psum(segops.segment_count(keep, se, caps.e))
+    nsrc_new = ctx.psum(segops.segment_count(kept_src, se, caps.e))
     edge_off_new = segops.offsets_from_counts(counts_e)
     n_pins_new = edge_off_new[caps.e]
 
     # prefix-sum packing: src rank / dst rank within each edge, then a
     # disjoint scatter to edge_off_new[e] (+ nsrc for dst) + rank
-    src_rank = segops.segmented_scan(kept_src.to(i32), e_start)
-    dst_rank = segops.segmented_scan(kept_dst.to(i32), e_start)
+    ranks, _ = ctx.segmented_scan(
+        torch.stack([kept_src.to(i32), kept_dst.to(i32)], 1), e_start)
+    src_rank, dst_rank = ranks[:, 0], ranks[:, 1]
     se_safe = se.clamp(0, caps.e - 1).long()
     base = edge_off_new[se_safe]
     pos = torch.where(kept_src, base + src_rank - 1,
                       base + nsrc_new[se_safe] + dst_rank - 1)
-    pins_new = torch.where(t < n_pins_new,
-                           segops.scatter_set(caps.p, pos, sp, keep, 0), NSENT)
+    slot = torch.arange(caps.p, dtype=i32, device=dev)
+    pins_new = torch.where(slot < n_pins_new, ctx.psum(
+        segops.scatter_set(caps.p, pos, sp, keep, 0)), NSENT)
 
     # ---- incidence rebuild (inbound first) -------------------------------
-    t2_live = t < n_pins_new
-    e2 = segops.rows_from_offsets(edge_off_new, caps.p, caps.e)
+    t2_live = t_in & (t < n_pins_new)
+    e2 = ctx.rows(edge_off_new, t, caps.p, caps.e)
     e2_safe = e2.clamp(0, caps.e - 1).long()
     rel2 = t - edge_off_new[e2_safe]
     isdst2 = t2_live & (rel2 >= nsrc_new[e2_safe])
-    node2 = torch.where(t2_live, pins_new, IMAX)
+    node2 = ctx.gread(pins_new, t, t2_live, IMAX)
     inkey = torch.where(isdst2, 0, 1).to(i32)
     key_e = torch.where(t2_live, e2, IMAX)
-    (sn2, _, se2), (sin2,) = segops.sort_by([node2, inkey, key_e],
-                                            [isdst2.to(i32)])
+    (sn2, _, se2), (sin2,) = ctx.sort_by([node2, inkey, key_e],
+                                         [isdst2.to(i32)], striped_in=True,
+                                         striped_out=True)
     node_live = sn2 != IMAX
-    node_edges_new = torch.where(node_live, se2, NSENT)
-    node_is_in_new = (sin2 == 1) & node_live
-    counts_n = segops.segment_count(node_live, sn2, caps.n)
-    nin_new = segops.segment_count(node_is_in_new, sn2, caps.n)
+    node_in = (sin2 == 1) & node_live
+    inc = ctx.unstripe(torch.stack([torch.where(node_live, se2, NSENT),
+                                    node_in.to(i32)], 1))[: caps.p]
+    node_edges_new, node_is_in_new = inc[:, 0].contiguous(), inc[:, 1] != 0
+    counts = ctx.psum(torch.stack([
+        segops.segment_count(node_live, sn2, caps.n),
+        segops.segment_count(node_in, sn2, caps.n)]))
+    counts_n, nin_new = counts[0], counts[1]
 
     d_new = DeviceHypergraph(
         edge_off=edge_off_new,

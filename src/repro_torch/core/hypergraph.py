@@ -446,9 +446,17 @@ class PairExpansion:
     n_pairs: torch.Tensor   # scalar int32
 
 
-def build_pairs(d: DeviceHypergraph, caps: Caps) -> PairExpansion:
+def build_pairs(d: DeviceHypergraph, caps: Caps,
+                idx: torch.Tensor | None = None,
+                idx_ok: torch.Tensor | None = None,
+                ctx=None) -> PairExpansion:
+    """The pair lanes ``idx`` (every lane by default; on a mesh this
+    shard's stripe, ``ctx.lanes(caps.pairs)``, with ``idx_ok`` its
+    in-range mask). ``ctx`` reads ``edge_pins`` through ``gfull``: the
+    graph is stored replicated, so that is the array itself."""
     L = caps.pairs
     ecap = d.ecap
+    edge_pins = d.edge_pins if ctx is None else ctx.gfull(d.edge_pins)
     dev = d.device
     card = d.edge_off[1:] - d.edge_off[:-1]
     live_edge = torch.arange(ecap, dtype=torch.int32, device=dev) < d.n_edges
@@ -457,9 +465,12 @@ def build_pairs(d: DeviceHypergraph, caps: Caps) -> PairExpansion:
     poff = segops.offsets_from_counts(pcnt)
     n_pairs = poff[-1]
 
-    idx = torch.arange(L, dtype=torch.int32, device=dev)
+    if idx is None:
+        idx = torch.arange(L, dtype=torch.int32, device=dev)
     e = (torch.searchsorted(poff, idx, right=True) - 1).clamp(0, ecap - 1)
     valid = idx < n_pairs
+    if idx_ok is not None:
+        valid &= idx_ok
     r = idx - poff[e]
     c = card[e].clamp(min=2)
     i = torch.div(r, c - 1, rounding_mode="floor")
@@ -468,8 +479,8 @@ def build_pairs(d: DeviceHypergraph, caps: Caps) -> PairExpansion:
     base = d.edge_off[e]
     slot_n = base + i
     slot_m = base + j
-    n = torch.where(valid, d.edge_pins[slot_n.clamp(0, caps.p - 1)], NSENT)
-    m = torch.where(valid, d.edge_pins[slot_m.clamp(0, caps.p - 1)], NSENT)
+    n = torch.where(valid, edge_pins[slot_n.clamp(0, caps.p - 1)], NSENT)
+    m = torch.where(valid, edge_pins[slot_m.clamp(0, caps.p - 1)], NSENT)
     nsrc = d.edge_nsrc[e]
     both_dst = valid & (i >= nsrc) & (j >= nsrc)
     w_e = d.edge_w[e]
@@ -492,23 +503,33 @@ class Neighborhoods:
 
 
 def build_neighbors(pairs: PairExpansion, d: DeviceHypergraph,
-                    caps: Caps) -> Neighborhoods:
-    """Sort-dedup the pair expansion into unique (n, m) adjacency."""
+                    caps: Caps, ctx=None) -> Neighborhoods:
+    """Sort-dedup the pair expansion into unique (n, m) adjacency.
+
+    On a mesh (``ctx``) ``pairs`` is this shard's lane stripe: the (n, m)
+    keys go through the distributed sort (stripes in and out), the dedup
+    flags and compaction slots come across stripe boundaries, and the dense
+    arrays combine by integer psums of disjoint scatters."""
     dev = d.device
+    ctx = segops.ShardCtx() if ctx is None else ctx
     keyn = torch.where(pairs.valid, pairs.n, NSENT)
     keym = torch.where(pairs.valid, pairs.m, NSENT)
-    (skn, skm), _ = segops.sort_by([keyn, keym], [])
-    starts = segops.segment_starts_from_sorted([skn, skm])
+    (skn, skm), _ = ctx.sort_by([keyn, keym], [], striped_in=True,
+                                striped_out=True)
+    starts = ctx.starts_from_sorted([skn, skm])
     keep = starts & (skn != NSENT)
     f = keep.to(torch.int32)
-    pos = torch.cumsum(f, 0) - f
-    n_entries = f.sum().to(torch.int32)
+    pos = ctx.cumsum(f) - f
+    n_entries = ctx.psum(f.sum().to(torch.int32))
     keep &= pos < caps.nbrs
     live = torch.arange(caps.nbrs, dtype=torch.int32, device=dev) < n_entries
 
-    ids = torch.where(live, segops.scatter_set(caps.nbrs, pos, skm, keep, 0),
-                      NSENT)
-    counts = segops.segment_count(keep, skn, caps.n)
+    # the disjoint id scatter and the counts combine in one integer psum
+    dense = ctx.psum(torch.cat([
+        segops.scatter_set(caps.nbrs, pos, skm, keep, 0),
+        segops.segment_count(keep, skn, caps.n)]))
+    ids = torch.where(live, dense[: caps.nbrs], NSENT)
+    counts = dense[caps.nbrs:]
     off = segops.offsets_from_counts(counts)
     return Neighborhoods(off=off, ids=ids, n_entries=n_entries)
 

@@ -6,7 +6,9 @@ early (at most 4096 coarse nodes) and an initial k-way partition is
 computed on the coarse graph. The paper hands that step to Mt-KaHyPar;
 like the JAX package, this places the coarsest nodes greedily on the host
 (affinity, then least load). Uncoarsening and refinement then run as in
-the constrained mode with K = k.
+the constrained mode with K = k. ``plan`` runs the V-cycle on a mesh as
+in ``partitioner.partition``; the greedy placement runs on the host of
+every rank, on the same coarsest graph.
 """
 from __future__ import annotations
 
@@ -26,11 +28,11 @@ from repro_torch.core.partitioner import (PartitionResult, WarmCache,
                                           apply_deltas, check_ported,
                                           make_coarsen_fns, make_refine_fn,
                                           refine_from, run_coarsen_loop,
-                                          run_refine_loop, warm_storage)
+                                          run_refine_loop, solve_device,
+                                          warm_storage)
 from repro_torch.core.refine import RefineParams
 from repro_torch.obs import trace as otrace
 from repro_torch.obs import vcycle as ovcycle
-from repro_torch.utils.device import resolve_device
 
 BIG_DELTA = 2 ** 29
 
@@ -81,17 +83,18 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
                    shard_graph: bool = False,
                    collect_stats: bool = False,
                    device=None) -> PartitionResult:
-    """k-way balanced partitioning on one device (CUDA unless ``device``
-    names another), minimising connectivity; the audit adds
-    ``balance_eps``. The signature is the JAX package's: ``race``,
-    ``race_seed`` and ``dist_coarsen`` act only with ``plan``; ``plan``,
-    ``shard_graph`` and ``compensated_psum`` raise ``NotImplementedError``.
+    """k-way balanced partitioning (CUDA unless ``device`` names another,
+    the plan's device with a ``plan``), minimising connectivity; the audit
+    adds ``balance_eps``. The signature is the JAX package's: ``race``,
+    ``race_seed`` and ``dist_coarsen`` act only with ``plan``;
+    ``shard_graph`` and ``compensated_psum`` raise
+    ``NotImplementedError``.
     ``collect_stats`` fills the quality side of ``level_stats`` as in
     ``partitioner.partition``; the phase times are a "partition_kway" span
     tree (setup / coarsen / initial_kway / refine / audit), and
     ``timings`` is a view over it."""
-    check_ported(plan, shard_graph, compensated_psum)
-    dev = resolve_device(device)
+    check_ported(shard_graph, compensated_psum)
+    dev = solve_device(device, plan)
     omega = _omega(hg, k, eps)
     with otrace.span("partition_kway", nodes=hg.n_nodes, edges=hg.n_edges,
                      k=k, omega=omega) as sp_total:
@@ -105,7 +108,7 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
         if coarse_target is None:
             coarse_target = min(4096, max(4 * k, 64))
         log: list | None = [] if collect_log else None
-        _coarsen, _contract = make_coarsen_fns(cparams)
+        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen)
 
         with otrace.span("coarsen") as sp_coarsen:
             d, caps, levels, gammas, coarsen_hits, coarsen_meta = \
@@ -127,7 +130,8 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
         rparams = RefineParams(omega=omega, delta=BIG_DELTA, theta=theta,
                                use_kernels=use_kernels)
         rlog: list | None = [] if collect_log else None
-        _refine = make_refine_fn(k, kcap, rparams, rlog)
+        _refine = make_refine_fn(k, kcap, rparams, rlog, plan, race,
+                                 race_seed)
         # the JAX package's k-way logs no refine entries of its own
         parts, sp_refine, refine_meta, refine_hits, pins_hits = \
             run_refine_loop(d, parts, caps, levels, gammas, _refine, kcap,
@@ -172,9 +176,9 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     falling back to a cold ``partition_kway`` when the drift exceeds the
     threshold or the warm result breaks the size bound. ``n_parts=k`` is
     pinned so empty trailing partitions keep their ids. ``collect_stats``
-    reaches both solves."""
-    check_ported(plan, shard_graph, compensated_psum)
-    dev = resolve_device(device)
+    reaches both solves, ``plan`` too."""
+    check_ported(shard_graph, compensated_psum)
+    dev = solve_device(device, plan)
     apply_deltas(hg, deltas, cache)
     omega = _omega(hg, k, eps)
     parts0 = _extend_parts(prev_parts, hg.n_nodes, k)
@@ -184,7 +188,8 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
             hg, k, eps, n_cands=n_cands, theta=theta,
             coarse_target=coarse_target, use_kernels=use_kernels,
             collect_log=collect_log, max_levels=max_levels,
-            collect_stats=collect_stats, device=dev)
+            collect_stats=collect_stats, plan=plan, race=race,
+            race_seed=race_seed, dist_coarsen=dist_coarsen, device=dev)
         res.mode = mode
         hg.reset_drift()
         if cache is not None:
@@ -198,8 +203,8 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     res = refine_from(
         hg, parts0, omega, BIG_DELTA, n_parts=k, theta=theta,
         use_kernels=use_kernels, collect_log=collect_log,
-        collect_stats=collect_stats, device_graph=wc.d, caps=wc.caps,
-        mode="warm")
+        collect_stats=collect_stats, plan=plan, race=race,
+        race_seed=race_seed, device_graph=wc.d, caps=wc.caps, mode="warm")
     res.audit["balance_eps"] = metrics.balance_epsilon(res.parts, k)
     if not res.audit["size_ok"]:
         return _cold("fallback-audit")

@@ -23,11 +23,17 @@ NEG = float("-inf")
 
 
 def match_pseudoforest(target: torch.Tensor, score: torch.Tensor,
-                       live: torch.Tensor) -> torch.Tensor:
+                       live: torch.Tensor,
+                       ctx: segops.ShardCtx = segops.ShardCtx()
+                       ) -> torch.Tensor:
     """Returns match[Ncap] int32: partner id, or -1 if unmatched.
 
     target: proposed partner per node (-1 = none). score: eta of the
-    proposal. live: nodes taking part in this round."""
+    proposal. live: nodes taking part in this round. On a mesh (``ctx``)
+    the state stays replicated and each wavefront reduces this shard's
+    stripe of child lanes: counts psum, the best child by (value, id)
+    pmax, and the float ``sum0`` pushes gather their lanes in shard order
+    and sum as on one device."""
     ncap = target.shape[0]
     dev = target.device
     ids = torch.arange(ncap, dtype=torch.int32, device=dev)
@@ -39,21 +45,32 @@ def match_pseudoforest(target: torch.Tensor, score: torch.Tensor,
 
     root_pair = tgt_live & (target[t_safe] == ids)
 
+    # this shard's stripe of child lanes (every lane on one device)
+    ch, ch_in = ctx.lanes(ncap, dev)
+    tgt_l = ctx.take(target, ch, ch_in, -1)
+
     def count_children(mask):
-        return segops.segment_count(mask, target, ncap)
+        return ctx.psum(segops.segment_count(ctx.take(mask, ch, ch_in, False),
+                                             tgt_l, ncap))
 
     def sum_children(mask, values):
-        seg = torch.where(mask, target, ncap)
-        return segops.segment_sum(torch.where(mask, values, 0.0), seg, ncap)
+        msk = ctx.take(mask, ch, ch_in, False)
+        seg = torch.where(msk, tgt_l, ncap)
+        val = torch.where(msk, ctx.take(values, ch, ch_in, 0.0), 0.0)
+        lanes = ctx.gather(torch.stack([val.view(torch.int32), seg], 1))
+        return segops.segment_sum(
+            lanes[:, 0].contiguous().view(torch.float32), lanes[:, 1], ncap)
 
     def best_children(values, mask):
-        seg = torch.where(mask, target, ncap)
-        v = torch.where(mask, values, NEG)
-        mx = segops.segment_max(v, seg, ncap)
+        msk = ctx.take(mask, ch, ch_in, False)
+        seg = torch.where(msk, tgt_l, ncap)
+        v = torch.where(msk, ctx.take(values, ch, ch_in, NEG), NEG)
+        mx = ctx.pmax(segops.segment_max(v, seg, ncap))
         mx = torch.nan_to_num(mx, nan=0.0, neginf=NEG)
-        hit = (mask & (v == mx[seg.clamp(0, ncap - 1).long()])
+        hit = (msk & (v == mx[seg.clamp(0, ncap - 1).long()])
                & ~torch.isneginf(v) & (seg < ncap))
-        arg = segops.segment_max(torch.where(hit, ids, -1), seg, ncap)
+        arg = ctx.pmax(segops.segment_max(torch.where(hit, ch, -1), seg,
+                                          ncap))
         return mx, arg
 
     has_parent = tgt_live & ~root_pair

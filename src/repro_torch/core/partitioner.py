@@ -23,6 +23,13 @@ capacities and device storage across resubmits.
 ``partition_batch_device`` solves a stacked batch of capacity-padded
 graphs (the partition service's bucket lane) lane by lane with
 ``vcycle_device``.
+
+``plan`` (a ``repro_torch.dist.Plan``, one process a rank) routes the
+V-cycle onto a ``("data", "model")`` mesh through ``dist.partition``:
+refinement repetitions race as replicas over "data" (``race=False`` for the
+deterministic mode, bit for bit the single-device result), and the
+pins-sized pipelines shard over "model", coarsening and contraction too
+unless ``dist_coarsen=False``.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from repro_torch.core.hypergraph import (Caps, CapacityError, GraphDelta,
 from repro_torch.core.refine import RefineParams, refine_level
 from repro_torch.obs import trace as otrace
 from repro_torch.obs import vcycle as ovcycle
+from repro_torch.utils import segops
 from repro_torch.utils.device import resolve_device
 
 
@@ -79,17 +87,27 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, math.ceil(math.log2(max(1, x))))
 
 
-def check_ported(plan=None, shard_graph: bool = False,
+def check_ported(shard_graph: bool = False,
                  compensated_psum: bool = False) -> None:
     """Raise ``NotImplementedError`` for an argument of the JAX signature
     whose path is not ported yet, naming its ROADMAP item."""
-    for name, used, item in (
-            ("plan / shard_graph", plan is not None or shard_graph,
-             "13 (distributed path)"),
-            ("compensated_psum", compensated_psum, "13 (distributed path)")):
+    for name, used in (("shard_graph", shard_graph),
+                       ("compensated_psum", compensated_psum)):
         if used:
             raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md Queue A item {item}")
+                f"{name} is not ported yet: {segops.ITEM_13B} "
+                f"(memory-sharded graph storage, compensated psum)")
+
+
+def solve_device(device, plan=None) -> torch.device:
+    """The device of a solve: the plan's when a plan is given (``device``,
+    if named too, must agree), else ``resolve_device(device)``."""
+    if plan is None:
+        return resolve_device(device)
+    if device is not None and not _same_device(torch.device(device),
+                                               plan.device):
+        raise ValueError(f"the plan computes on {plan.device}, not {device}")
+    return plan.device
 
 
 def _kcap(k: int, kcap_hint: int | None, what: str) -> int:
@@ -105,10 +123,24 @@ def _kcap(k: int, kcap_hint: int | None, what: str) -> int:
     return kcap_hint
 
 
-def make_coarsen_fns(cparams: CoarsenParams):
-    """Per-level coarsening dispatchers (the JAX package's no-plan branch):
-    ``coarsen(d, caps) -> (match, n_pairs, (n_pairs_live, n_nbr_entries,
-    kernel_path_taken))`` and ``contract(d, match, caps) -> (d2, gamma)``."""
+def make_coarsen_fns(cparams: CoarsenParams, plan=None,
+                     dist_coarsen: bool = True):
+    """Per-level coarsening dispatchers: ``coarsen(d, caps) -> (match,
+    n_pairs, (n_pairs_live, n_nbr_entries, kernel_path_taken))`` and
+    ``contract(d, match, caps) -> (d2, gamma)``. With a ``plan`` (and
+    ``dist_coarsen``) both run sharded on its mesh
+    (``dist.partition.coarsen_level`` / ``contract_level``), bit for bit
+    the single-device pair."""
+    if plan is not None and dist_coarsen:
+        from repro_torch.dist import partition as dist_partition
+
+        def _coarsen(d_, caps_):
+            return dist_partition.coarsen_level(d_, caps_, cparams, plan)
+
+        def _contract(d_, match_, caps_):
+            return dist_partition.contract_level(d_, match_, caps_, plan)
+        return _coarsen, _contract
+
     def _coarsen(d_, caps_):
         match, n_pairs, props = coarsen_step(d_, caps_, cparams)
         return match, n_pairs, (props.n_pairs_live, props.n_nbr_entries,
@@ -117,10 +149,21 @@ def make_coarsen_fns(cparams: CoarsenParams):
     return _coarsen, contract
 
 
-def make_refine_fn(k: int, kcap: int, rparams: RefineParams, rlog):
-    """Per-level refinement dispatcher (the JAX package's no-plan branch):
-    ``fn(d, parts, caps, level) -> (parts, (gains_kernel_reps,
-    pins_kernel_reps))``."""
+def make_refine_fn(k: int, kcap: int, rparams: RefineParams, rlog,
+                   plan=None, race: bool = True, race_seed: int = 0):
+    """Per-level refinement dispatcher: ``fn(d, parts, caps, level) ->
+    (parts, (gains_kernel_reps, pins_kernel_reps))``; with a ``plan`` the
+    raced and sharded ``dist.partition.refine_level``, its seed offset by
+    the level so the replicas' permutations differ across levels."""
+    if plan is not None:
+        from repro_torch.dist import partition as dist_partition
+
+        def _refine(d_, parts_, caps_, lvl_):
+            return dist_partition.refine_level(
+                d_, parts_, k, caps_, kcap, rparams, plan, race=race,
+                seed=race_seed + lvl_, log=rlog)
+        return _refine
+
     def _refine(d_, parts_, caps_, lvl_):
         return refine_level(d_, parts_, k, caps_, kcap, rparams, rlog)
 
@@ -361,9 +404,11 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
 
     The signature is the JAX package's. ``bucket=True`` re-buckets the
     capacities to powers of two between coarsening levels, with the same
-    result. ``race``, ``race_seed`` and ``dist_coarsen`` only act together
-    with ``plan``; ``plan``, ``shard_graph`` and ``compensated_psum`` are
-    not ported yet and raise ``NotImplementedError``.
+    result. ``plan`` runs the V-cycle on its mesh, on the plan's device
+    (see the module docstring); ``race``, ``race_seed`` and
+    ``dist_coarsen`` only act together with it. ``shard_graph`` and
+    ``compensated_psum`` are not ported yet and raise
+    ``NotImplementedError``.
     ``pair_cap``/``nbr_cap`` override the exact expansion capacities; an
     undersized one raises ``CapacityError``, never truncates.
     ``collect_stats=True`` also fills the quality side of ``level_stats``
@@ -372,8 +417,8 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
     ``timings`` is a view over the span tree ("partition" > setup /
     coarsen / refine / audit), whose spans end after the device finished.
     """
-    check_ported(plan, shard_graph, compensated_psum)
-    dev = resolve_device(device)
+    check_ported(shard_graph, compensated_psum)
+    dev = solve_device(device, plan)
 
     with otrace.span("partition", nodes=hg.n_nodes, edges=hg.n_edges,
                      pins=hg.n_pins, omega=omega, delta=delta) as sp_total:
@@ -388,7 +433,7 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
                                 use_kernels=use_kernels, matching=matching)
         target = max(1, math.ceil(hg.n_nodes / omega))
         log: list | None = [] if collect_log else None
-        _coarsen, _contract = make_coarsen_fns(cparams)
+        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen)
 
         with otrace.span("coarsen") as sp_coarsen:
             d, caps, levels, gammas, coarsen_hits, coarsen_meta = \
@@ -408,7 +453,8 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
             omega=omega, delta=delta, theta=theta, use_kernels=use_kernels,
             chain_rounds=chain_rounds)
         rlog: list | None = [] if collect_log else None
-        _refine = make_refine_fn(k, kcap, rparams, rlog)
+        _refine = make_refine_fn(k, kcap, rparams, rlog, plan, race,
+                                 race_seed)
 
         parts, sp_refine, refine_meta, refine_hits, pins_hits = \
             run_refine_loop(d, parts, caps, levels, gammas, _refine, kcap,
@@ -458,11 +504,11 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
     ``caps``, passed together, reuse device storage the caller holds for
     ``hg`` (``repartition``'s warm cache) instead of uploading it; the
     solve then runs on that storage's device. Otherwise it runs on CUDA
-    unless ``device`` names another. ``collect_stats`` is as in
-    ``partition``; ``plan`` and ``shard_graph`` raise
-    ``NotImplementedError``.
+    unless ``device`` names another. ``collect_stats`` and ``plan`` (with
+    ``race``, ``race_seed``) are as in ``partition``; ``shard_graph``
+    raises ``NotImplementedError``.
     """
-    check_ported(plan, shard_graph)
+    check_ported(shard_graph)
     with otrace.span("partition", nodes=hg.n_nodes, edges=hg.n_edges,
                      pins=hg.n_pins, omega=omega, delta=delta,
                      mode=mode) as sp_total:
@@ -471,7 +517,7 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
                 raise ValueError(
                     "device_graph and caps must be passed together")
             if caps is None:
-                dev = resolve_device(device)
+                dev = solve_device(device, plan)
                 caps = Caps.for_host(hg, pair_cap=pair_cap, nbr_cap=nbr_cap)
                 # exact int64 audit before any device work (refinement's
                 # in-sequence gains expand the same pin pairs)
@@ -480,10 +526,11 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
             else:
                 d = device_graph
                 dev = d.device
-                if device is not None and not _same_device(
-                        torch.device(device), dev):
+                want = plan.device if plan is not None else device
+                if want is not None and not _same_device(
+                        torch.device(want), dev):
                     raise ValueError(
-                        f"device_graph lies on {dev}, not {device}")
+                        f"device_graph lies on {dev}, not {want}")
 
             parts_in = np.asarray(parts, np.int64).ravel()
             if parts_in.shape[0] < hg.n_nodes:
@@ -509,7 +556,8 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
             omega=omega, delta=delta, theta=theta, use_kernels=use_kernels,
             chain_rounds=chain_rounds)
         rlog: list | None = [] if collect_log else None
-        _refine = make_refine_fn(k, kcap, rparams, rlog)
+        _refine = make_refine_fn(k, kcap, rparams, rlog, plan, race,
+                                 race_seed)
 
         parts_dev, sp_refine, refine_meta, refine_hits, pins_hits = \
             run_refine_loop(d, parts_dev, caps, [], [], _refine, kcap,
@@ -640,11 +688,12 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
     fresh caps. Cold fallbacks reset the drift and invalidate the cache;
     warm solves keep adding to the drift, so repeated small deltas end in
     one consolidating cold solve. Runs on CUDA unless ``device`` names
-    another; ``collect_stats`` is as in ``partition``; ``plan``,
-    ``shard_graph`` and ``compensated_psum`` raise ``NotImplementedError``.
+    another; ``collect_stats`` and ``plan`` (with ``race``, ``race_seed``,
+    ``dist_coarsen``) are as in ``partition``; ``shard_graph`` and
+    ``compensated_psum`` raise ``NotImplementedError``.
     """
-    check_ported(plan, shard_graph, compensated_psum)
-    dev = resolve_device(device)
+    check_ported(shard_graph, compensated_psum)
+    dev = solve_device(device, plan)
     apply_deltas(hg, deltas, cache)
 
     k_prev = (int(np.asarray(prev_parts).max(initial=0)) + 1
@@ -658,7 +707,8 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
             max_levels=max_levels, collect_log=collect_log,
             kcap_hint=kcap_hint, matching=matching,
             chain_rounds=chain_rounds, pair_cap=pair_cap, nbr_cap=nbr_cap,
-            collect_stats=collect_stats, device=dev)
+            collect_stats=collect_stats, plan=plan, race=race,
+            race_seed=race_seed, dist_coarsen=dist_coarsen, device=dev)
         res.mode = mode
         hg.reset_drift()
         if cache is not None:
@@ -674,6 +724,7 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
         use_kernels=use_kernels, refine_params=refine_params,
         collect_log=collect_log, kcap_hint=kcap_hint,
         chain_rounds=chain_rounds, collect_stats=collect_stats,
+        plan=plan, race=race, race_seed=race_seed,
         device_graph=wc.d, caps=wc.caps, mode="warm")
     if not (res.audit["size_ok"] and res.audit["inbound_ok"]):
         return _cold("fallback-audit")

@@ -18,6 +18,15 @@ The first half of the repetitions may propose size-violating moves, the
 second half enforces size feasibility in the proposal; the events check
 always enforces validity at the cut point.
 
+Every stage takes a ``segops.ShardCtx``. On a mesh (``dist.partition``)
+the pins- and pairs-sized stages run on this shard's lane stripe and
+combine exactly: integer counts by psum, float sums by gathering their
+lane columns (or disjoint node rows) in shard order and reducing them as
+one device does, sorts through the distributed sample sort, scans with
+cross-shard carries. The node-sized chain construction stays replicated
+(every rank builds the same chains); a racing replica passes its own
+``tie_rank``.
+
 ``pins`` is a ``[kcap, Ecap]`` view of contiguous ``[Ecap, kcap]`` rows:
 the layout the pins_count kernel writes and the gains kernel reads.
 """
@@ -60,22 +69,23 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 # 1. pins matrix
 # ---------------------------------------------------------------------------
 def pins_matrix(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
-                kcap: int):
+                kcap: int, ctx: segops.ShardCtx = segops.ShardCtx()):
     """pins[p, e] (all pins) and pins_in[p, e] (dst pins only) as
-    ``[kcap, Ecap]`` int32 views of contiguous ``[Ecap, kcap]`` rows."""
-    dev = d.device
-    t = torch.arange(caps.p, dtype=torch.int32, device=dev)
-    live = t < d.n_pins
-    e_of = segops.rows_from_offsets(d.edge_off, caps.p, caps.e)
+    ``[kcap, Ecap]`` int32 views of contiguous ``[Ecap, kcap]`` rows; on a
+    mesh each shard counts its pin lanes and the counts psum."""
+    t, in_rng = ctx.lanes(caps.p, d.device)
+    live = in_rng & (t < d.n_pins)
+    e_of = ctx.rows(d.edge_off, t, caps.p, caps.e)
     e_safe = e_of.clamp(0, caps.e - 1).long()
-    pin = torch.where(live, d.edge_pins, 0).clamp(0, caps.n - 1).long()
+    pin = ctx.gread(d.edge_pins, t, live, 0).clamp(0, caps.n - 1).long()
     p_of = parts[pin].long()
     rel = t - d.edge_off[e_safe]
     is_dst = live & (rel >= d.edge_nsrc[e_safe])
     ok = live & (p_of >= 0) & (p_of < kcap)
     flat = torch.where(ok, e_safe * kcap + p_of, caps.e * kcap)
-    pins = segops.segment_count(ok, flat, caps.e * kcap)
-    pins_in = segops.segment_count(ok & is_dst, flat, caps.e * kcap)
+    pins, pins_in = ctx.psum(torch.stack([
+        segops.segment_count(ok, flat, caps.e * kcap),
+        segops.segment_count(ok & is_dst, flat, caps.e * kcap)]))
     return pins.view(caps.e, kcap).T, pins_in.view(caps.e, kcap).T
 
 
@@ -90,85 +100,131 @@ def partition_sizes(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
 # ---------------------------------------------------------------------------
 # 2. move proposal (Eq. 13)
 # ---------------------------------------------------------------------------
-def _incidence_lanes(d: DeviceHypergraph, caps: Caps):
-    """Per incidence lane: live flag, node id (``caps.n`` in padding) and
-    edge id (clamped)."""
-    t = torch.arange(caps.p, dtype=torch.int32, device=d.device)
-    live = t < d.n_pins
-    n_of = segops.rows_from_offsets(d.node_off, caps.p, caps.n)
-    e = torch.where(live, d.node_edges, 0).clamp(0, caps.e - 1).long()
+def _incidence_lanes(d: DeviceHypergraph, caps: Caps,
+                     ctx: segops.ShardCtx = segops.ShardCtx()):
+    """Per incidence lane of this shard: live flag, node id (``caps.n`` in
+    padding) and edge id (clamped)."""
+    t, in_rng = ctx.lanes(caps.p, d.device)
+    live = in_rng & (t < d.n_pins)
+    n_of = ctx.rows(d.node_off, t, caps.p, caps.n)
+    e = ctx.gread(d.node_edges, t, live, 0).clamp(0, caps.e - 1).long()
     return live, n_of, e
 
 
 def conn_segments(d: DeviceHypergraph, pins: torch.Tensor, caps: Caps,
-                  kcap: int) -> torch.Tensor:
-    """conn_w[n, p] = sum_{e in I(n)} w(e) * [pins(p, e) > 0] by a segment
-    sum over the incidence lanes, each node in lane order."""
+                  kcap: int, a0: int = 0,
+                  a1: int | None = None) -> torch.Tensor:
+    """conn_w[n, p] = sum_{e in I(n)} w(e) * [pins(p, e) > 0] of the nodes
+    ``[a0, a1)`` (every node by default) by a segment sum over the
+    incidence lanes, each node in lane order."""
     live, _, e = _incidence_lanes(d, caps)
     w = torch.where(live, d.edge_w[e], 0.0)
     return conn_segments_csr(d, w, e, pins.T, caps,
-                             max(1, CONN_CHUNK_ELEMS // max(kcap, 1)))
+                             max(1, CONN_CHUNK_ELEMS // max(kcap, 1)), a0,
+                             a1)
 
 
 def conn_segments_csr(d: DeviceHypergraph, w: torch.Tensor, e: torch.Tensor,
-                      rows: torch.Tensor, caps: Caps,
-                      chunk: int) -> torch.Tensor:
-    """``conn_segments`` over chunks of about ``chunk`` lanes that hold
-    whole nodes of the incidence CSR (one read-back of ``node_off``), each
-    reduced node by node: the ``[lanes, kcap]`` contributions of one chunk
-    at a time, which keeps the order and bounds the memory."""
+                      rows: torch.Tensor, caps: Caps, chunk: int,
+                      a0: int = 0, a1: int | None = None) -> torch.Tensor:
+    """``conn_segments`` of the nodes ``[a0, a1)`` (every node by default)
+    over chunks of about ``chunk`` lanes that hold whole nodes of the
+    incidence CSR (one read-back of ``node_off``), each reduced node by
+    node: the ``[lanes, kcap]`` contributions of one chunk at a time, which
+    keeps the order and bounds the memory."""
+    a1 = caps.n if a1 is None else a1
     off = d.node_off.cpu().numpy().astype(np.int64)
-    out = torch.empty((caps.n, rows.shape[1]), dtype=torch.float32,
+    out = torch.empty((a1 - a0, rows.shape[1]), dtype=torch.float32,
                       device=w.device)
-    a = 0
-    while a < caps.n:
+    a = a0
+    while a < a1:
         b = int(np.searchsorted(off, off[a] + chunk, side="right")) - 1
-        b = min(max(b, a + 1), caps.n)
+        b = min(max(b, a + 1), a1)
         lo, hi = int(off[a]), int(off[b])
         contrib = w[lo:hi, None] * (rows[e[lo:hi]] > 0)
         seg_off = torch.from_numpy(off[a:b + 1] - lo).to(w.device)
-        out[a:b] = segops.reduce_sorted(contrib, seg_off)
+        out[a - a0:b - a0] = segops.reduce_sorted(contrib, seg_off)
         a = b
     return out
 
 
 def propose_moves(d: DeviceHypergraph, parts: torch.Tensor,
                   pins: torch.Tensor, caps: Caps, kcap: int,
-                  params: RefineParams, enforce_size: bool, n_parts: int):
+                  params: RefineParams, enforce_size: bool, n_parts: int,
+                  ctx: segops.ShardCtx = segops.ShardCtx()):
     """Returns (move_to[Ncap] or -1, gain_iso[Ncap], saving[Ncap],
     kernel_taken) — the last is 1 iff the connection weights came from
-    the gains kernel."""
-    live, n_of, e = _incidence_lanes(d, caps)
+    the gains kernel. On a mesh each shard proposes the moves of its
+    stripe of node rows (the gains kernel's stripes): each of a node's
+    sums (saving, w_tot, conn_w) adds its incidence lanes in lane order,
+    as on one device, and the stripes' (move_to, gain, saving) rows are
+    gathered in shard order, in place of the ``[N, kcap]`` conn_w rows."""
+    if ctx.axis is None:
+        return _propose_rows(d, parts, pins, caps, kcap, params,
+                             enforce_size, n_parts, 0, caps.n)
+    from repro_torch.kernels.gains.ops import stripe_rows
+    per = stripe_rows(caps, ctx.nshards)
+    n0 = min(ctx.index() * per, caps.n)
+    n1 = min(n0 + per, caps.n)
+    move_to, gain, saving, taken = _propose_rows(
+        d, parts, pins, caps, kcap, params, enforce_size, n_parts, n0, n1)
+    own = torch.zeros((per, 3), dtype=torch.int32, device=d.device)
+    own[: n1 - n0] = torch.stack([move_to, gain.view(torch.int32),
+                                  saving.view(torch.int32)], 1)
+    rows = ctx.gather(own)[: caps.n]
+    return (rows[:, 0].contiguous(),
+            rows[:, 1].contiguous().view(torch.float32),
+            rows[:, 2].contiguous().view(torch.float32), taken)
+
+
+def _propose_rows(d: DeviceHypergraph, parts: torch.Tensor,
+                  pins: torch.Tensor, caps: Caps, kcap: int,
+                  params: RefineParams, enforce_size: bool, n_parts: int,
+                  n0: int, n1: int):
+    """``propose_moves`` of the node rows ``[n0, n1)``."""
+    if (n0, n1) == (0, caps.n):
+        live, n_of, e = _incidence_lanes(d, caps)
+        seg = torch.where(live, n_of, caps.n)
+    else:
+        # the rows' incidence lanes are one contiguous run of the CSR
+        lo, hi = d.node_off[[n0, n1]].tolist()
+        t = torch.arange(lo, hi, dtype=torch.int32, device=d.device)
+        live = t < d.n_pins
+        n_of = torch.searchsorted(d.node_off[1:].contiguous(), t,
+                                  right=True).clamp(max=caps.n)
+        e = d.node_edges[lo:hi].clamp(0, caps.e - 1).long()
+        seg = torch.where(live, n_of - n0, n1 - n0)
+    nr = n1 - n0
     n_safe = n_of.clamp(0, caps.n - 1).long()
     w = torch.where(live, d.edge_w[e], 0.0)
     p_n = parts[n_safe].long()
-    seg = torch.where(live, n_of, caps.n)
 
     pins_own = pins[p_n, e]
     saving = segops.segment_sum(torch.where(live & (pins_own == 1), w, 0.0),
-                                seg, caps.n)
-    w_tot = segops.segment_sum(w, seg, caps.n)
+                                seg, nr)
+    w_tot = segops.segment_sum(w, seg, nr)
 
     kernel_taken = 0
     if params.use_kernels:
         from repro_torch.kernels.gains import ops as g_ops
         if g_ops.fits_kernel(d, caps):
-            conn_w = g_ops.conn_weights(d, parts, pins, caps, kcap)
+            conn_w = g_ops.conn_rows(d, parts, pins, caps, kcap, n0, nr)
             kernel_taken = 1
         else:
-            conn_w = conn_segments(d, pins, caps, kcap)
+            conn_w = conn_segments(d, pins, caps, kcap, n0, n1)
     else:
-        conn_w = conn_segments(d, pins, caps, kcap)
+        conn_w = conn_segments(d, pins, caps, kcap, n0, n1)
 
-    ids = torch.arange(caps.n, dtype=torch.int32, device=d.device)
+    ids = torch.arange(n0, n1, dtype=torch.int32, device=d.device)
     node_live = ids < d.n_nodes
+    parts_r = parts[n0:n1]
     # gain(n, p) = saving - (w_tot - conn_w); own partition excluded
     gain_all = saving[:, None] - w_tot[:, None] + conn_w
     col = torch.arange(kcap, dtype=torch.int32, device=d.device)[None, :]
-    mask = (col != parts[:, None]) & (col < n_parts)
+    mask = (col != parts_r[:, None]) & (col < n_parts)
     if enforce_size:
         psz = partition_sizes(d, parts, caps, kcap)
-        mask &= psz[None, :] + d.node_size[:, None] <= params.omega
+        mask &= psz[None, :] + d.node_size[n0:n1, None] <= params.omega
     gain_all = torch.where(mask, gain_all, NEG)
 
     # paper tie-break: the largest partition id among the maxima
@@ -190,7 +246,13 @@ def build_sequence(d: DeviceHypergraph, parts: torch.Tensor,
                    with_aux: bool = False):
     """Orders moves into gain-ranked chains; returns seq[Ncap] (IMAX for
     non-movers) and n_movers. ``tie_rank`` (a permutation of node ids,
-    default identity) replaces the node id where it only breaks ties."""
+    default identity) replaces the node id where it only breaks ties.
+
+    On a mesh every rank builds the same chains from replicated node-sized
+    inputs. The JAX package runs its two node-sized sorts through the
+    distributed sort, replicated in and out; here each rank sorts them
+    itself, to the same order, because gathering the sorted columns back
+    to every rank moves more than the sort saves."""
     n = caps.n
     dev = d.device
     ids = torch.arange(n, dtype=torch.int32, device=dev)
@@ -288,8 +350,17 @@ def build_sequence(d: DeviceHypergraph, parts: torch.Tensor,
 # ---------------------------------------------------------------------------
 def inseq_gains(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
                 move_to: torch.Tensor, gain_iso: torch.Tensor,
-                seq: torch.Tensor, caps: Caps, kcap: int) -> torch.Tensor:
-    pairs = build_pairs(d, caps)
+                seq: torch.Tensor, caps: Caps, kcap: int,
+                ctx: segops.ShardCtx = segops.ShardCtx()) -> torch.Tensor:
+    """gain_iso plus the exact in-sequence correction. On a mesh the pair
+    lanes are this shard's stripe, the per-slot counts reduce-scatter onto
+    the slot-lane stripes, and the f32 adjustments are gathered in shard
+    order and summed as on one device."""
+    if ctx.axis is None:
+        pairs = build_pairs(d, caps)
+    else:
+        pidx, p_ok = ctx.lanes(caps.pairs, d.device)
+        pairs = build_pairs(d, caps, idx=pidx, idx_ok=p_ok, ctx=ctx)
     n = pairs.n.clamp(0, caps.n - 1).long()
     m = pairs.m.clamp(0, caps.n - 1).long()
     mv_n = move_to[n]
@@ -300,23 +371,26 @@ def inseq_gains(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
     ps_m, pd_m = parts[m], mv_m.clamp(0, kcap - 1)
     del n, m, mv_n, mv_m
 
-    # per-(n, e) counts of earlier movers, keyed by n's incidence slot
-    seg = torch.where(before, pairs.slot_n, caps.p)
+    # per-(n, e) counts of earlier movers, keyed by n's incidence slot and
+    # read only at this shard's slot lanes
+    t, t_ok = ctx.lanes(caps.p, d.device)
+    stripe_total = t.shape[0] * ctx.nshards
+    seg = torch.where(before, pairs.slot_n, stripe_total)
 
     def cnt(cond):
-        return segops.segment_count(cond, seg, caps.p)
+        return segops.segment_count(cond, seg, stripe_total)
 
-    a_pd = cnt(pd_n == ps_m)          # m leaving n's destination
-    b_pd = cnt(pd_n == pd_m)          # m also entering it
-    a_ps = cnt(ps_n == ps_m)          # m also leaving n's source
-    b_ps = cnt(ps_n == pd_m)          # m entering it
+    # four counts in one reduce-scatter: m leaving n's destination, m also
+    # entering it, m also leaving n's source, m entering it
+    a_pd, b_pd, a_ps, b_ps = ctx.psum_stripe(torch.stack(
+        [cnt(pd_n == ps_m), cnt(pd_n == pd_m), cnt(ps_n == ps_m),
+         cnt(ps_n == pd_m)], 1)).unbind(1)
     del pairs, seg, before, ps_n, pd_n, ps_m, pd_m
 
-    t = torch.arange(caps.p, dtype=torch.int32, device=d.device)
-    slot_live = t < d.n_pins
-    e_slot = segops.rows_from_offsets(d.edge_off, caps.p, caps.e)
+    slot_live = t_ok & (t < d.n_pins)
+    e_slot = ctx.rows(d.edge_off, t, caps.p, caps.e)
     e_slot = e_slot.clamp(0, caps.e - 1).long()
-    n_slot = torch.where(slot_live, d.edge_pins, 0).clamp(0, caps.n - 1).long()
+    n_slot = ctx.gread(d.edge_pins, t, slot_live, 0).clamp(0, caps.n - 1).long()
     is_mover = slot_live & (move_to[n_slot] >= 0)
     psn = parts[n_slot].long()
     pdn = move_to[n_slot].clamp(0, kcap - 1).long()
@@ -334,8 +408,11 @@ def inseq_gains(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
         w * ((saving_now.float() - saving_iso.float())
              - (loss_now.float() - loss_iso.float())),
         0.0)
-    adj_n = segops.segment_sum(adj, torch.where(slot_live, n_slot, caps.n),
-                               caps.n)
+    lanes = ctx.gather(torch.stack([
+        adj.view(torch.int32),
+        torch.where(slot_live, n_slot, caps.n).to(torch.int32)], 1))
+    adj_n = segops.segment_sum(lanes[:, 0].contiguous().view(torch.float32),
+                               lanes[:, 1], caps.n)
     return gain_iso + adj_n
 
 
@@ -345,11 +422,15 @@ def inseq_gains(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
 def events_validity(d: DeviceHypergraph, parts: torch.Tensor,
                     pins_in: torch.Tensor, move_to: torch.Tensor,
                     seq: torch.Tensor, gain_seq: torch.Tensor, caps: Caps,
-                    kcap: int, params: RefineParams):
+                    kcap: int, params: RefineParams,
+                    ctx: segops.ShardCtx = segops.ShardCtx()):
     """Returns (apply_mask[Ncap], applied_gain): the max-cumulative-gain
     prefix of the move sequence whose end state satisfies both constraints
     for every partition (violations inside the prefix are permitted). All
-    running counts scan in integers."""
+    running counts scan in integers. On a mesh the pins-sized inbound
+    events are built on this shard's lanes, sorted by the distributed sort
+    (stripes in and out) and scanned with cross-shard carries; the
+    violation deltas psum. The node-sized size events stay replicated."""
     dev = d.device
     mover = move_to >= 0
     ps = torch.where(mover, parts, kcap)
@@ -375,45 +456,60 @@ def events_validity(d: DeviceHypergraph, parts: torch.Tensor,
     size_vseq = torch.where(sp < kcap, ss, IMAX)
 
     # ---- inbound events: (p, e, seq, +-1) over e in in(n) of movers ------
-    t = torch.arange(caps.p, dtype=torch.int32, device=dev)
-    slot_live = t < d.n_pins
-    n_of = segops.rows_from_offsets(d.node_off, caps.p, caps.n)
+    t, t_ok = ctx.lanes(caps.p, dev)
+    slot_live = t_ok & (t < d.n_pins)
+    n_of = ctx.rows(d.node_off, t, caps.p, caps.n)
     n_safe = n_of.clamp(0, caps.n - 1).long()
-    e_in = torch.where(slot_live, d.node_edges, 0).clamp(0, caps.e - 1)
-    is_ev = d.node_is_in & slot_live & mover[n_safe]
+    e_in = ctx.gread(d.node_edges, t, slot_live, 0).clamp(0, caps.e - 1)
+    is_ev = (ctx.gread(d.node_is_in, t, slot_live, False) & slot_live
+             & mover[n_safe])
     ie_p = torch.cat([torch.where(is_ev, ps[n_safe], kcap),
                       torch.where(is_ev, pd[n_safe], kcap)])
     ie_e = torch.where(is_ev, e_in, caps.e).repeat(2)
     ie_s = torch.where(is_ev, seq[n_safe], IMAX).repeat(2)
     ie_d = torch.cat([_i32(is_ev).neg(), _i32(is_ev)])
-    (ip, ie, isq), (idv,) = segops.sort_by([ie_p, ie_e, ie_s], [ie_d])
-    pe_start = segops.segment_starts_from_sorted([ip, ie])
+    # live event keys are distinct (seq is a permutation, a node's edges
+    # distinct), so the sorted order does not depend on how the shards'
+    # event lanes interleave
+    (ip, ie, isq), (idv,) = ctx.sort_by([ie_p, ie_e, ie_s], [ie_d],
+                                        striped_in=True, striped_out=True)
+    pe_prev = ctx.edge_prev(torch.stack([ip, ie], 1), 0)
+    pe_start = ctx.starts_from_sorted([ip, ie], pe_prev)
     base = pins_in[ip.clamp(0, kcap - 1).long(), ie.clamp(0, caps.e - 1).long()]
-    run = base + segops.segmented_scan(idv, pe_start)
-    prev_run = torch.where(pe_start, base, torch.cat([base[:1], run[:-1]]))
+    cum_pe, carry_pe = ctx.segmented_scan(idv, pe_start)
+    run = base + cum_pe
+    # the run just before this stripe: its (p, e) from the previous stripe,
+    # its scan value the carry (the globally first element starts a group)
+    prev_p = pe_prev[:1, 0].clamp(0, kcap - 1).long()
+    prev_e = pe_prev[:1, 1].clamp(0, caps.e - 1).long()
+    run_prev = torch.cat([pins_in[prev_p, prev_e] + carry_pe, run[:-1]])
+    prev_run = torch.where(pe_start, base, run_prev)
     live_ev = (ip < kcap) & (ie < caps.e)
     up = live_ev & (prev_run == 0) & (run > 0)     # 0 -> 1: new distinct edge
     dn = live_ev & (prev_run > 0) & (run == 0)     # 1 -> 0: edge left p
     dd = _i32(up) - _i32(dn)
     # distinct-count running value per (p, seq) over the transitions
-    (dp2, ds2), (dd2,) = segops.sort_by(
-        [torch.where(dd != 0, ip, kcap), torch.where(dd != 0, isq, IMAX)], [dd])
-    p_start2 = segops.segment_starts_from_sorted([dp2])
+    (dp2, ds2), (dd2,) = ctx.sort_by(
+        [torch.where(dd != 0, ip, kcap), torch.where(dd != 0, isq, IMAX)],
+        [dd], striped_in=True, striped_out=True)
+    p_start2 = ctx.starts_from_sorted([dp2])
     # per-(p, seq) group: the state observable at its last event
-    grp_last = ((torch.cat([dp2[1:], dp2.new_full((1,), -1)]) != dp2)
-                | (torch.cat([ds2[1:], ds2.new_full((1,), -1)]) != ds2))
-    cum2 = segops.segmented_scan(dd2, p_start2)
+    grp = torch.stack([dp2, ds2], 1)
+    grp_last = (ctx.edge_next(grp, -1) != grp).any(1)
+    # the distinct-count deltas and the group closings share their starts
+    scans, _ = ctx.segmented_scan(torch.stack([dd2, _i32(grp_last)], 1),
+                                  p_start2)
+    cum2, nglast = scans[:, 0], scans[:, 1]
     dp2_safe = dp2.clamp(0, kcap - 1).long()
     distinct_after = init_distinct[dp2_safe] + cum2
     inv_i = (dp2 < kcap) & (distinct_after > params.delta)
     # forward-fill the last group state within the p-segment (value+1;
     # 0 = none yet)
     state_here = torch.where(grp_last, _i32(inv_i), -1)
-    filled = segops.segmented_scan(
+    filled, carry_fill = ctx.segmented_scan(
         torch.where(state_here >= 0, state_here + 1, 0),
         p_start2 | (state_here >= 0))
-    prev_state = torch.cat([filled.new_zeros(1), filled[:-1]]) - 1
-    nglast = segops.segmented_scan(_i32(grp_last), p_start2)
+    prev_state = torch.cat([carry_fill[None], filled[:-1]]) - 1
     init_inv_i = _i32(init_distinct[dp2_safe] > params.delta)
     prev_state = torch.where(p_start2 | (prev_state < 0) | (nglast <= 1),
                              init_inv_i, prev_state)
@@ -425,8 +521,8 @@ def events_validity(d: DeviceHypergraph, parts: torch.Tensor,
     nm_cap = caps.n  # seq positions < caps.n
     vd_size = segops.segment_sum(
         size_vdelta, torch.where(size_vseq == IMAX, nm_cap, size_vseq), nm_cap)
-    vd_inb = segops.segment_sum(
-        inb_vdelta, torch.where(inb_vseq == IMAX, nm_cap, inb_vseq), nm_cap)
+    vd_inb = ctx.psum(segops.segment_sum(
+        inb_vdelta, torch.where(inb_vseq == IMAX, nm_cap, inb_vseq), nm_cap))
     v0 = ((init_size > params.omega).sum()
           + (init_distinct > params.delta).sum())
     active = v0 + torch.cumsum(vd_size + vd_inb, 0)
@@ -450,28 +546,30 @@ def events_validity(d: DeviceHypergraph, parts: torch.Tensor,
 # ---------------------------------------------------------------------------
 def refine_step(d: DeviceHypergraph, parts: torch.Tensor, n_parts: int,
                 caps: Caps, kcap: int, params: RefineParams,
-                enforce_size: bool, tie_rank: torch.Tensor | None = None):
+                enforce_size: bool, tie_rank: torch.Tensor | None = None,
+                ctx: segops.ShardCtx = segops.ShardCtx()):
     """One repetition (pins -> proposal -> chains -> in-sequence gains ->
-    events). Returns (parts, applied_gain, n_applied, gains_kernel_taken,
-    pins_kernel_taken)."""
+    events), the JAX package's ``refine_step_impl``. Returns (parts,
+    applied_gain, n_applied, gains_kernel_taken, pins_kernel_taken)."""
     pins_taken = 0
     if params.use_kernels:
         from repro_torch.kernels.pins_count import ops as pc_ops
         if pc_ops.fits_kernel(d, caps):
-            pins, pins_in = pc_ops.pins_matrix_kernel(d, parts, caps, kcap)
+            pins, pins_in = pc_ops.pins_matrix_kernel(d, parts, caps, kcap,
+                                                      ctx)
             pins_taken = 1
         else:
-            pins, pins_in = pins_matrix(d, parts, caps, kcap)
+            pins, pins_in = pins_matrix(d, parts, caps, kcap, ctx)
     else:
-        pins, pins_in = pins_matrix(d, parts, caps, kcap)
+        pins, pins_in = pins_matrix(d, parts, caps, kcap, ctx)
     move_to, gain_iso, _, kernel_taken = propose_moves(
-        d, parts, pins, caps, kcap, params, enforce_size, n_parts)
+        d, parts, pins, caps, kcap, params, enforce_size, n_parts, ctx)
     seq, _ = build_sequence(d, parts, move_to, gain_iso, caps, kcap, params,
                             tie_rank=tie_rank)
     gain_seq = inseq_gains(d, parts, pins, move_to, gain_iso, seq, caps,
-                           kcap)
+                           kcap, ctx)
     apply_mask, applied_gain = events_validity(
-        d, parts, pins_in, move_to, seq, gain_seq, caps, kcap, params)
+        d, parts, pins_in, move_to, seq, gain_seq, caps, kcap, params, ctx)
     parts_new = torch.where(apply_mask & (move_to >= 0), move_to, parts)
     return (parts_new, applied_gain, apply_mask.sum(), kernel_taken,
             pins_taken)

@@ -8,6 +8,9 @@
 //   conn[n, k] = sum_{j < min(deg n, h)} w(e_j) * [pins[e_j, k] > 0]
 //   e_j = node_edges[node_off[n] + j],   f32 [ncap, kcap]
 //
+// over the node rows [row0, row0 + nrows) (all of them on one device, a
+// contiguous stripe a shard on a mesh), written as [nrows, kcap] rows.
+//
 // For a live edge, pins[e, k] > 0 exactly when some pin p of e has
 // parts[p] == k (0 <= k < kcap), which is how pins_count builds the row from
 // the same edge CSR. So the kernel walks the edge's pins instead of reading
@@ -65,13 +68,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                  const float* __restrict__ edge_w,
                  const int* __restrict__ pins, float* __restrict__ conn,
                  int ncap, int ecap, int kcap, int h, int wide,
-                 bool smem_rows) {
+                 int row0, int nrows, bool smem_rows) {
   extern __shared__ int smem[];  // per warp: [kcap] f32 row, 2 bit rows
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (n >= ncap) return;  // the whole warp leaves together
-  float* out = conn + static_cast<int64_t>(n) * kcap;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= nrows) return;  // the whole warp leaves together
+  const int n = row0 + r;
+  float* out = conn + static_cast<int64_t>(r) * kcap;
   const int nw = mark_words(kcap);
   int* slice = smem + warp * (kcap + 2 * nw);
   float* row = smem_rows ? reinterpret_cast<float*>(slice) : out;
@@ -151,13 +155,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 }  // namespace
 
 // wide: edges with more pins take the pins-row branch (the wrapper's
-// ops.wide_bound; the plain version uses the same threshold).
+// ops.wide_bound; the plain version uses the same threshold). conn holds
+// the rows [row0, row0 + nrows).
 extern "C" int gains_launch(const void* node_off, const void* node_edges,
                             const void* edge_off, const void* edge_pins,
                             const void* parts, const void* edge_w,
                             const void* pins, void* conn, int ncap, int ecap,
-                            int kcap, int h, int wide, void* stream) {
-  if (ncap <= 0 || kcap <= 0) return static_cast<int>(cudaSuccess);
+                            int kcap, int h, int wide, int row0, int nrows,
+                            void* stream) {
+  if (nrows <= 0 || kcap <= 0) return static_cast<int>(cudaSuccess);
+  if (row0 < 0 || row0 + nrows > ncap)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t per_warp =
       (static_cast<size_t>(kcap) + 2 * mark_words(kcap)) * sizeof(int);
   const bool smem_rows = per_warp <= kSmemLimit;
@@ -169,12 +177,12 @@ extern "C" int gains_launch(const void* node_off, const void* node_edges,
       gains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (ncap + warps - 1) / warps;
+  const int grid = (nrows + warps - 1) / warps;
   gains_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(node_off), static_cast<const int*>(node_edges),
       static_cast<const int*>(edge_off), static_cast<const int*>(edge_pins),
       static_cast<const int*>(parts), static_cast<const float*>(edge_w),
       static_cast<const int*>(pins), static_cast<float*>(conn), ncap, ecap,
-      kcap, h, smem_rows ? wide : -1, smem_rows);
+      kcap, h, smem_rows ? wide : -1, row0, nrows, smem_rows);
   return static_cast<int>(cudaGetLastError());
 }

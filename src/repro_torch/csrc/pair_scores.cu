@@ -99,24 +99,30 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
                        const int* __restrict__ nbr_off,
                        const int* __restrict__ nbr_ids,
                        float* __restrict__ eta, int* __restrict__ inter,
-                       int ncap, int ecap, int nbcap, int bins) {
+                       int ncap, int ecap, int nbcap, int bins, int row0,
+                       int nrows, bool tail) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;  // lanes before this one
 
+  // the outputs hold the slots from the stripe's first, `base`
+  const int base = nbr_off[row0];
+  eta -= base;
+  inter -= base;
   // slots past the last node's range hold no entry: 0, as score_slots
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t s = nbr_off[ncap] +
                    static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       s < nbcap; s += stride) {
+       tail && s < nbcap; s += stride) {
     eta[s] = 0.0f;
     inter[s] = 0;
   }
 
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= ncap) return;  // the whole warp leaves together
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= nrows) return;  // the whole warp leaves together
+  const int n = row0 + r;
   int* ids = smem + warp * warp_words(bins);
   float* bin_eta = reinterpret_cast<float*>(ids + bins);
   int* bin_inter = ids + 2 * bins;
@@ -272,15 +278,23 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 }  // namespace
 
 // bins: the neighbour slots a warp holds at once (the wrapper's
-// ops.bin_budget); a node with more takes them in batches.
+// ops.bin_budget); a node with more takes them in batches. The launch
+// covers the node rows [row0, row0 + nrows): eta and inter hold the slots
+// from nbr_off[row0] on, and with `tail` also the zeroed slots from
+// nbr_off[ncap] to nbcap (the last stripe of a sharded level, or the whole
+// level on one device).
 extern "C" int pair_scores_launch(const void* node_off, const void* node_edges,
                                   const void* node_nin, const void* edge_off,
                                   const void* edge_pins, const void* edge_nsrc,
                                   const void* edge_w, const void* nbr_off,
                                   const void* nbr_ids, void* eta, void* inter,
                                   int ncap, int ecap, int nbcap, int bins,
+                                  int row0, int nrows, int tail,
                                   void* stream) {
   if (ncap <= 0 || ecap <= 0 || nbcap <= 0) return static_cast<int>(cudaSuccess);
+  if (row0 < 0 || nrows < 0 || row0 + nrows > ncap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nrows == 0 && !tail) return static_cast<int>(cudaSuccess);
   const size_t smem =
       static_cast<size_t>(kWarps) * warp_words(bins) * sizeof(int);
   if (bins <= 0 || smem > kSmemLimit)
@@ -289,7 +303,7 @@ extern "C" int pair_scores_launch(const void* node_off, const void* node_edges,
       pair_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (ncap + kWarps - 1) / kWarps;
+  const int grid = ((nrows > 0 ? nrows : 1) + kWarps - 1) / kWarps;
   pair_scores_kernel<<<grid, kWarps * 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(node_off), static_cast<const int*>(node_edges),
@@ -297,6 +311,7 @@ extern "C" int pair_scores_launch(const void* node_off, const void* node_edges,
       static_cast<const int*>(edge_pins), static_cast<const int*>(edge_nsrc),
       static_cast<const float*>(edge_w), static_cast<const int*>(nbr_off),
       static_cast<const int*>(nbr_ids), static_cast<float*>(eta),
-      static_cast<int*>(inter), ncap, ecap, nbcap, bins);
+      static_cast<int*>(inter), ncap, ecap, nbcap, bins, row0, nrows,
+      tail != 0);
   return static_cast<int>(cudaGetLastError());
 }

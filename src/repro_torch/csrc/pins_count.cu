@@ -8,7 +8,9 @@
 //   pins[e, k]    = #{pins v of edge e : parts[v] == k}          k < kcap
 //   pins_in[e, k] = #{dst pins v of edge e : parts[v] == k}
 //
-// written as contiguous int32 [ecap, kcap] rows; the caller uses the free
+// for the edge rows [row0, row0 + nrows) (all of them on one device, a
+// contiguous stripe a shard on a mesh), written as contiguous int32
+// [nrows, kcap] rows; the caller uses the free
 // [kcap, ecap] transpose view, and the gains kernel reads the rows.
 //
 // What bounds it: bytes. At the main-path shapes (ecap 122880, kcap 512 to
@@ -36,11 +38,12 @@ __global__ void pins_count_kernel(const int* __restrict__ edge_off,
                                   const int* __restrict__ parts,
                                   int* __restrict__ pins,
                                   int* __restrict__ pins_in,
-                                  int ncap, int kcap, bool smem_counters) {
+                                  int ncap, int kcap, int row0,
+                                  bool smem_counters) {
   extern __shared__ int counters[];  // [2 * kcap] when smem_counters
-  const int e = blockIdx.x;
-  int* row = pins + static_cast<int64_t>(e) * kcap;
-  int* row_in = pins_in + static_cast<int64_t>(e) * kcap;
+  const int e = row0 + blockIdx.x;
+  int* row = pins + static_cast<int64_t>(blockIdx.x) * kcap;
+  int* row_in = pins_in + static_cast<int64_t>(blockIdx.x) * kcap;
   int* c = smem_counters ? counters : row;
   int* c_in = smem_counters ? counters + kcap : row_in;
   for (int k = threadIdx.x; k < kcap; k += blockDim.x) {
@@ -74,15 +77,17 @@ __global__ void pins_count_kernel(const int* __restrict__ edge_off,
 extern "C" int pins_count_launch(const void* edge_off, const void* edge_pins,
                                  const void* edge_nsrc, const void* parts,
                                  void* pins, void* pins_in, int ecap, int ncap,
-                                 int kcap, void* stream) {
-  if (ecap <= 0 || kcap <= 0) return static_cast<int>(cudaSuccess);
+                                 int kcap, int row0, int nrows, void* stream) {
+  if (nrows <= 0 || kcap <= 0) return static_cast<int>(cudaSuccess);
+  if (row0 < 0 || row0 + nrows > ecap)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(kcap) * sizeof(int);
   const bool use_smem = smem <= kSmemLimit;
-  pins_count_kernel<<<ecap, kThreads, use_smem ? smem : 0,
+  pins_count_kernel<<<nrows, kThreads, use_smem ? smem : 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(edge_off), static_cast<const int*>(edge_pins),
       static_cast<const int*>(edge_nsrc), static_cast<const int*>(parts),
-      static_cast<int*>(pins), static_cast<int*>(pins_in), ncap, kcap,
+      static_cast<int*>(pins), static_cast<int*>(pins_in), ncap, kcap, row0,
       use_smem);
   return static_cast<int>(cudaGetLastError());
 }

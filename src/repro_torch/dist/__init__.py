@@ -1,5 +1,9 @@
-"""Supervision of the port (``repro.dist``): `StepWatchdog`, which the
-partition service arms around every solve. ``TrainSupervisor`` waits for
-ROADMAP.md Queue A item 14b (training), and the mesh path (``Plan``, the
-sharded partitioner, the distributed sort and graph) for item 13."""
+"""The port's ``repro.dist``: `StepWatchdog`, which the partition service
+arms around every solve, and the mesh path of the partitioner on
+``torch.distributed``: `Plan` (``sharding``), the collective helper
+(``comm``), the distributed sample sort (``sort``), the sharded and raced
+V-cycle drivers (``partition``) and a launcher of local ranks (``spawn``).
+``TrainSupervisor`` waits for ROADMAP.md Queue A item 14b (training); the
+memory-sharded graph (``dist/graph.py``) for item 13b."""
 from repro_torch.dist.ft import StepWatchdog  # noqa: F401
+from repro_torch.dist.sharding import Plan, make_mesh  # noqa: F401

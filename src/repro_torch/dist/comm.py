@@ -1,0 +1,125 @@
+"""The collectives of the mesh path, over one process group.
+
+`Comm` wraps the four collectives the sharded V-cycle uses (``all_reduce``,
+``all_gather``, ``all_to_all`` and ``broadcast``) for one group. Its
+transport is fixed when it is built, never chosen by catching an error:
+
+* ``"nccl"``: tensors on the ranks' CUDA devices pass through unchanged;
+* ``"gloo"``: CPU tensors pass through unchanged;
+* ``"gloo-staged"``: a gloo group whose tensors lie on a CUDA device, as
+  when several ranks share one card (NCCL refuses two ranks on one GPU).
+  Each collective copies its input to the host, runs there and copies the
+  result back to the device, explicitly; ``STATS`` counts the copies,
+  their bytes and the seconds from the device's last queued work being
+  done to the result being back on the device.
+
+The computation stays on the ranks' devices; only what a collective
+carries moves. Booleans travel as int32.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+import torch.distributed as dist
+
+# host-staged collectives of this process, over every Comm: copies (device
+# to host and back), their bytes, and seconds spent in them
+STATS = {"copies": 0, "bytes": 0, "seconds": 0.0}
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = type(STATS[k])(0)
+
+
+def transport_for(group, device: torch.device) -> str:
+    """The transport of ``group`` for tensors on ``device``."""
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("an NCCL group needs CUDA tensors")
+        return "nccl"
+    if backend == "gloo":
+        return "gloo-staged" if device.type == "cuda" else "gloo"
+    raise ValueError(f"unsupported process group backend {backend!r}")
+
+
+class Comm:
+    """Collectives over ``group`` for tensors on ``device``."""
+
+    def __init__(self, group, device):
+        self.group = group
+        self.device = torch.device(device)
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.transport = transport_for(group, self.device)
+
+    # --- staging ----------------------------------------------------------
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bool:
+            x = x.to(torch.int32)
+        x = x.contiguous()
+        if self.transport == "gloo-staged":
+            STATS["copies"] += 1
+            STATS["bytes"] += x.numel() * x.element_size()
+            x = x.cpu()
+        return x
+
+    def _back(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.transport == "gloo-staged":
+            STATS["copies"] += 1
+            STATS["bytes"] += x.numel() * x.element_size()
+            x = x.to(self.device)
+        return x != 0 if dtype == torch.bool else x
+
+    @contextlib.contextmanager
+    def _timed(self):
+        if self.transport != "gloo-staged":
+            yield
+            return
+        # the copy to the host waits for the device anyway: wait first, so
+        # the seconds are the collective's own
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        yield
+        STATS["seconds"] += time.perf_counter() - t0
+
+    # --- collectives ------------------------------------------------------
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Elementwise sum or max over the group (a new tensor)."""
+        with self._timed():
+            y = self._out(x).clone()
+            dist.all_reduce(y, op=_OPS[op], group=self.group)
+            return self._back(y, x.dtype)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[size, *x.shape]``: every rank's ``x`` in group-rank order."""
+        with self._timed():
+            y = self._out(x)
+            parts = [torch.empty_like(y) for _ in range(self.size)]
+            dist.all_gather(parts, y, group=self.group)
+            return self._back(torch.stack(parts), x.dtype)
+
+    def all_to_all(self, x: torch.Tensor, send: list[int],
+                   recv: list[int]) -> torch.Tensor:
+        """The first ``send[0]`` rows of ``x`` go to rank 0, the next
+        ``send[1]`` to rank 1, ...; the result holds ``recv[i]`` rows from
+        each rank ``i``, in rank order."""
+        with self._timed():
+            y = self._out(x)
+            out = y.new_empty((sum(recv),) + tuple(y.shape[1:]))
+            dist.all_to_all_single(out, y, output_split_sizes=recv,
+                                   input_split_sizes=send, group=self.group)
+            return self._back(out, x.dtype)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """``x`` of group rank ``src`` on every rank."""
+        with self._timed():
+            y = self._out(x).clone()
+            dist.broadcast(y, src=dist.get_global_rank(self.group, src),
+                           group=self.group)
+            return self._back(y, x.dtype)

@@ -27,6 +27,15 @@ Dispatch contract
   tensors on a CUDA device launch the kernel or raise. Nothing catches a
   failed build or launch to fall back.
 * Every launch adds one to ``LAUNCHES[name]``; nothing else does.
+* On a mesh (``ctx`` a sharded ``segops.ShardCtx``) each shard launches
+  the kernel on its contiguous row stripe (node rows for pair_scores and
+  gains, edge rows for pins_count), counted under ``name + "_stripe"``,
+  and the stripes concatenate in shard order (``ctx.gather``; for gains,
+  the moves ``refine.propose_moves`` derives from its rows): disjoint
+  rows, and per-row arithmetic that does not depend on the stripe, so the
+  bits are one device's. ``fits_kernel`` combines per-stripe counts with
+  an integer ``psum`` against the same bounds on every mesh, so the
+  branch taken, and ``kernel_path``, do not depend on the mesh.
 
 Build
 -----
@@ -58,8 +67,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# a partitioner kernel's launches on one stripe of a sharded level count
+# under "<name>_stripe", apart from its whole-level launches
 LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0,
-            "flash_attn": 0}
+            "flash_attn": 0, "pair_scores_stripe": 0,
+            "pins_count_stripe": 0, "gains_stripe": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,16 +79,17 @@ _F = ctypes.c_float
 # C signature of every entry point: (argument types) -> cudaError_t as int
 _SIGNATURES = {
     # edge_off, edge_pins, edge_nsrc, parts, pins, pins_in,
-    # ecap, ncap, kcap, stream
-    "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ecap, ncap, kcap, row0, nrows, stream
+    "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # node_off, node_edges, edge_off, edge_pins, parts, edge_w, pins, conn,
-    # ncap, ecap, kcap, h, wide, stream
+    # ncap, ecap, kcap, h, wide, row0, nrows, stream
     "gains_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _P],
+                     _I, _I, _P],
     # node_off, node_edges, node_nin, edge_off, edge_pins, edge_nsrc,
-    # edge_w, nbr_off, nbr_ids, eta, inter, ncap, ecap, nbcap, bins, stream
+    # edge_w, nbr_off, nbr_ids, eta, inter, ncap, ecap, nbcap, bins,
+    # row0, nrows, tail, stream
     "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, batch, seq, heads, kv_heads, head_dim, causal, scale,
     # dtype (0 f32, 1 bf16), stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

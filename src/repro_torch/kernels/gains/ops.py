@@ -40,15 +40,32 @@ def fits_kernel(d: DeviceHypergraph, caps: Caps) -> bool:
     return bool(torch.where(ids < d.n_nodes, deg, 0).max() <= h_bound(caps))
 
 
+def stripe_rows(caps: Caps, nshards: int) -> int:
+    """Node rows a shard's stripe holds on a mesh (ceil-divided, a
+    multiple of 8, as the JAX package's ``stripe_rows``): the rows whose
+    moves it proposes."""
+    return segops.round_up(-(-caps.n // max(nshards, 1)), 8)
+
+
 def conn_weights(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
                  caps: Caps, kcap: int) -> torch.Tensor:
     """conn_w ``[Ncap, kcap]`` f32 from ``parts`` and ``pins`` ``[kcap,
     Ecap]`` (a view of contiguous ``[Ecap, kcap]`` rows, counted from the
-    same ``parts``). CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
+    same ``parts``). On a mesh ``core.refine.propose_moves`` takes the
+    ``conn_rows`` of its shard's node rows and gathers the moves they
+    give."""
+    return conn_rows(d, parts, pins, caps, kcap, 0, caps.n)
+
+
+def conn_rows(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
+              caps: Caps, kcap: int, row0: int, nrows: int) -> torch.Tensor:
+    """conn_w rows ``[nrows, kcap]`` of the nodes ``[row0, row0 + nrows)``.
+    CUDA tensors launch the kernel (counted as a stripe launch unless the
+    range is every node); CPU tensors run the plain version."""
     h, wide = h_bound(caps), wide_bound(kcap)
     if not pins.is_cuda:
-        return ref.conn_weights_walk(d, parts, pins, caps, kcap, h, wide)
+        return ref.conn_weights_walk(d, parts, pins, caps, kcap, h, wide,
+                                     row0, nrows)
     dev = pins.device
     rows = pins.T
     kernels.check(rows, "pins rows", torch.int32, (caps.e, kcap), dev)
@@ -58,11 +75,13 @@ def conn_weights(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
     kernels.check(d.edge_off, "edge_off", torch.int32, (caps.e + 1,), dev)
     kernels.check(d.edge_pins, "edge_pins", torch.int32, (caps.p,), dev)
     kernels.check(d.edge_w, "edge_w", torch.float32, (caps.e,), dev)
-    conn = torch.empty((caps.n, kcap), dtype=torch.float32, device=dev)
+    conn = torch.empty((nrows, kcap), dtype=torch.float32, device=dev)
     kernels.check(conn, "conn", torch.float32)
-    kernels.launch("gains_launch", "gains", d.node_off.data_ptr(),
-                   d.node_edges.data_ptr(), d.edge_off.data_ptr(),
-                   d.edge_pins.data_ptr(), parts.data_ptr(),
-                   d.edge_w.data_ptr(), rows.data_ptr(), conn.data_ptr(),
-                   caps.n, caps.e, kcap, h, wide)
+    whole = (row0, nrows) == (0, caps.n)
+    kernels.launch("gains_launch", "gains" if whole else "gains_stripe",
+                   d.node_off.data_ptr(), d.node_edges.data_ptr(),
+                   d.edge_off.data_ptr(), d.edge_pins.data_ptr(),
+                   parts.data_ptr(), d.edge_w.data_ptr(), rows.data_ptr(),
+                   conn.data_ptr(), caps.n, caps.e, kcap, h, wide, row0,
+                   nrows)
     return conn

@@ -55,17 +55,21 @@ def conn_weights_ref(d: DeviceHypergraph, pins: torch.Tensor, caps: Caps,
 
 def conn_weights_walk(d: DeviceHypergraph, parts: torch.Tensor,
                       pins: torch.Tensor, caps: Caps, kcap: int, h: int,
-                      wide: int) -> torch.Tensor:
-    """conn_w ``[Ncap, kcap]``: incidence j < h of node n on edge e adds
-    w(e) once to ``conn[n, k]`` for every distinct part k in ``[0, kcap)``
-    among e's pins, or, when e has more than ``wide`` pins, for every k with
+                      wide: int, row0: int = 0,
+                      nrows: int | None = None) -> torch.Tensor:
+    """conn_w rows ``[nrows, kcap]`` of the nodes ``[row0, row0 + nrows)``
+    (every node by default): incidence j < h of node n on edge e adds w(e)
+    once to ``conn[n, k]`` for every distinct part k in ``[0, kcap)`` among
+    e's pins, or, when e has more than ``wide`` pins, for every k with
     ``pins[k, e] > 0``; the adds of one node run in j order."""
     dev = d.device
+    nrows = caps.n - row0 if nrows is None else nrows
     t = torch.arange(caps.p, device=dev)
     n_of = segops.rows_from_offsets(d.node_off, caps.p, caps.n).long()
     n_safe = n_of.clamp(max=caps.n - 1)
     rank = t - d.node_off[n_safe]
-    ok = (t < d.n_pins) & (n_of < caps.n) & (rank < h)
+    ok = ((t < d.n_pins) & (n_of >= row0) & (n_of < row0 + nrows)
+          & (rank < h))
     e = torch.where(ok, d.node_edges, 0).clamp(0, caps.e - 1).long()
     card = (d.edge_off[1:] - d.edge_off[:-1]).long()[e]
     # narrow edges: one lane per (incidence, pin), then the distinct parts
@@ -91,4 +95,4 @@ def conn_weights_walk(d: DeviceHypergraph, parts: torch.Tensor,
     for sel in torch.split(order, torch.bincount(
             rank[inc_all], minlength=h).tolist()):
         conn[flat[sel]] += w[sel]
-    return conn.view(caps.n, kcap)
+    return conn.view(caps.n, kcap)[row0:row0 + nrows]

@@ -45,19 +45,24 @@ def _expand(counts: torch.Tensor):
 
 
 def score_slots_walk(d: DeviceHypergraph, nbrs: Neighborhoods, caps: Caps,
-                     bins: int):
-    """(eta ``[NBcap]`` f32, inter ``[NBcap]`` int32): the lane (e, i, j) of
-    node n = pins_e[i] adds w(e)/|e| to n's slot of m = pins_e[j], j != i,
-    and counts in inter when i, j >= nsrc(e); a node's lanes add in (e, i,
-    j) order. A node holds ``bins`` slots at once: its lanes are walked once
-    per batch of slots, and a lane whose m lies outside the batch's id range
-    skips."""
+                     bins: int, row0: int = 0, nrows: int | None = None,
+                     tail: bool = True):
+    """(eta f32, inter int32) of the slots of the node rows ``[row0, row0 +
+    nrows)`` (every node by default), from ``nbrs.off[row0]`` on, and with
+    ``tail`` the zero slots past the last node's, to ``NBcap``: the lane
+    (e, i, j) of node n = pins_e[i] adds w(e)/|e| to n's slot of m =
+    pins_e[j], j != i, and counts in inter when i, j >= nsrc(e); a node's
+    lanes add in (e, i, j) order. A node holds ``bins`` slots at once: its
+    lanes are walked once per batch of slots, and a lane whose m lies
+    outside the batch's id range skips."""
     dev = d.device
+    nrows = caps.n - row0 if nrows is None else nrows
     # visits: each node's incidences in ascending edge order (the merge of
     # its inbound and outbound runs), an edge in both runs once
     t = torch.arange(caps.p, device=dev)
     n_of = segops.rows_from_offsets(d.node_off, caps.p, caps.n).long()
-    inc = torch.nonzero((t < d.n_pins) & (n_of < caps.n)).flatten()
+    inc = torch.nonzero((t < d.n_pins) & (n_of >= row0)
+                        & (n_of < row0 + nrows)).flatten()
     key = torch.unique(n_of[inc] * caps.e
                        + d.node_edges[inc].long().clamp(0, caps.e - 1))
     vn, ve = key // caps.e, key % caps.e
@@ -92,7 +97,8 @@ def score_slots_walk(d: DeviceHypergraph, nbrs: Neighborhoods, caps: Caps,
     eta = torch.zeros(caps.nbrs, dtype=torch.float32, device=dev)
     inter = torch.zeros(caps.nbrs, dtype=torch.int32, device=dev)
     found = torch.zeros_like(m, dtype=torch.bool)
-    for b in range(-(-int(ucnt.max()) // bins)):
+    umax = int(ucnt[row0:row0 + nrows].max()) if nrows else 0
+    for b in range(-(-umax // bins)):
         blo = lo + b * bins
         bhi = torch.minimum(blo + bins, hi)
         in_b = (blo < bhi) & (m >= nbrs.ids[blo.clamp(max=last)]) \
@@ -109,4 +115,6 @@ def score_slots_walk(d: DeviceHypergraph, nbrs: Neighborhoods, caps: Caps,
     # neighbourhood capacity truncated it, which the caps audit reports
     assert bool(found.all()) or int(nbrs.n_entries) > caps.nbrs, \
         "a pair lane's neighbour is missing from its node's slots"
-    return eta, inter
+    lo, hi = nbrs.off[[row0, row0 + nrows]].tolist()
+    out = slice(lo, caps.nbrs if tail else hi)
+    return eta[out], inter[out]

@@ -52,6 +52,16 @@ def pins_matrix_ref(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
                     kcap: int, dbar: int):
     """(pins, pins_in) as ``[kcap, Ecap]`` views of contiguous
     ``[Ecap, kcap]`` int32 rows, the layout the kernel writes."""
+    pins, pins_in = pins_rows_ref(d, parts, caps, kcap, dbar, 0, caps.e)
+    return pins.T, pins_in.T
+
+
+def pins_rows_ref(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
+                  kcap: int, dbar: int, row0: int, nrows: int):
+    """(pins, pins_in) rows ``[nrows, kcap]`` int32 of the edges ``[row0,
+    row0 + nrows)``, as the kernel writes a row range."""
     parts_dense, dst_dense = pins_dense(d, parts, caps, kcap, dbar)
-    pins, pins_in = pins_count_ref(parts_dense, dst_dense, max(kcap, 8))
-    return (pins[:, :kcap].contiguous().T, pins_in[:, :kcap].contiguous().T)
+    rows = slice(row0, row0 + nrows)
+    pins, pins_in = pins_count_ref(parts_dense[rows], dst_dense[rows],
+                                   max(kcap, 8))
+    return pins[:, :kcap].contiguous(), pins_in[:, :kcap].contiguous()

@@ -1,21 +1,68 @@
-"""Partitioner CLI on one device (CUDA unless ``--device`` names another).
+"""Partitioner CLI, on one device (CUDA unless ``--device`` names another)
+or on a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.partition --graph snn \
       --nodes 400 --omega 32 --delta 128 --theta 8 [--use-kernels] \
       [--device cpu] [--json out.json] [--repartition-from prev.json \
       --perturb-edges N --perturb-seed S --drift-threshold T]
 
-The single-device flags of ``repro.launch.partition``. ``--repartition-from
-prev.json`` warm-starts from an earlier run's ``--json`` dump (refinement
-only; ``core.partitioner.repartition`` falls back to a cold V-cycle on
-drift or a failed audit), ``--perturb-edges N`` applies a seeded
-``GraphDelta`` first. The mesh flags wait for the distributed path
-(ROADMAP.md Queue A item 13).
+  PYTHONPATH=src torchrun --nproc-per-node W -m repro_torch.launch.partition \
+      --mesh host --replicas R [--no-race] [--single-coarsen] \
+      [--race-seed S] ...
+
+The flags of ``repro.launch.partition``. ``--repartition-from prev.json``
+warm-starts from an earlier run's ``--json`` dump (refinement only;
+``core.partitioner.repartition`` falls back to a cold V-cycle on drift or a
+failed audit), ``--perturb-edges N`` applies a seeded ``GraphDelta`` first.
+
+``--mesh host`` runs the whole V-cycle on a ``(R, W // R)`` ``("data",
+"model")`` mesh of the W ranks (``build_plan``): refinement repetitions
+race as R replicas (``--no-race``: the identity tie-break, bit for bit the
+single-device result), the pipelines shard over W // R, coarsening too
+unless ``--single-coarsen``. Under ``torchrun`` (or any launcher that sets
+the ``env://`` variables) the process group starts here: gloo when the
+ranks share one card (their collectives staged through the host) or run
+on the CPU, NCCL when each rank has a card (``cuda:LOCAL_RANK``). Rank 0
+prints and writes ``--json``. ``--shard-graph`` and ``--compensated-psum``
+wait for ROADMAP.md Queue A item 13b.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+
+
+def build_plan(replicas: int, device=None):
+    """The `Plan` of a ``(replicas, world // replicas)`` mesh over the
+    default process group, started from the ``env://`` variables unless
+    it is already up: NCCL when every rank has a card of its own, else
+    gloo. The device: ``device`` if named (every rank on it), else this
+    rank's card (``cuda:LOCAL_RANK`` modulo the cards)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_mesh
+
+    own_card = False
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass --device cpu to run the mesh on the CPU")
+        count = torch.cuda.device_count()
+        device = torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", "0")) % count)
+        own_card = count >= int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    device = torch.device(device)
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if own_card else "gloo")
+    world = dist.get_world_size()
+    if replicas < 1 or world % replicas:
+        raise SystemExit(f"--replicas {replicas} does not divide the "
+                         f"{world} ranks")
+    return make_mesh(replicas, world // replicas, device)
 
 
 def main(argv=None):
@@ -36,6 +83,23 @@ def main(argv=None):
                     help="torch device (default: cuda; no CUDA device and no "
                          "--device is an error)")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--mesh", choices=["none", "host"], default="none")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="racing replicas along the mesh's data dim; the "
+                         "remaining ranks shard the pipelines")
+    ap.add_argument("--no-race", action="store_true",
+                    help="every replica takes the identity tie-break: bit "
+                         "for bit the single-device result")
+    ap.add_argument("--single-coarsen", action="store_true",
+                    help="coarsen and contract unsharded (refinement still "
+                         "runs on the mesh)")
+    ap.add_argument("--race-seed", type=int, default=0)
+    ap.add_argument("--shard-graph", action="store_true",
+                    help="memory-sharded graph storage: not ported yet "
+                         "(ROADMAP.md Queue A item 13b)")
+    ap.add_argument("--compensated-psum", action="store_true",
+                    help="compensated float psum: not ported yet "
+                         "(ROADMAP.md Queue A item 13b)")
     ap.add_argument("--repartition-from", default=None, metavar="PREV.json",
                     help="warm-start from a previous --json dump: skip "
                          "coarsening and re-refine from its parts vector "
@@ -54,6 +118,17 @@ def main(argv=None):
                          "warm --repartition-from solve falls back to the "
                          "cold V-cycle")
     args = ap.parse_args(argv)
+    if args.shard_graph or args.compensated_psum:
+        raise SystemExit("--shard-graph / --compensated-psum are not ported "
+                         "yet: ROADMAP.md Queue A item 13b")
+    plan = None
+    if args.mesh == "host":
+        import torch.distributed as dist
+        owned = not dist.is_initialized()   # this run starts the group
+        plan = build_plan(args.replicas, args.device)
+    # on a mesh rank 0 speaks for the group
+    say = print if plan is None or plan.mesh.get_rank() == 0 else \
+        (lambda *a, **k: None)
 
     from repro_torch.core import generate
     from repro_torch.core.hypergraph import apply_delta
@@ -67,14 +142,17 @@ def main(argv=None):
                                      seed=args.seed)
     else:
         hg = generate.ispd_like(n_nodes=args.nodes, seed=args.seed)
-    print("hypergraph:", hg.stats())
+    say("hypergraph:", hg.stats())
+    if plan is not None:
+        say(plan.describe())
 
     deltas = []
     if args.perturb_edges > 0:
         deltas.append(generate.perturb_delta(hg, n_edges=args.perturb_edges,
                                              seed=args.perturb_seed))
     common = dict(theta=args.theta, use_kernels=args.use_kernels,
-                  device=args.device)
+                  device=args.device, plan=plan, race=not args.no_race,
+                  race_seed=args.race_seed)
     if args.repartition_from:
         with open(args.repartition_from) as f:
             prev = json.load(f)
@@ -87,15 +165,17 @@ def main(argv=None):
                 f"for {hg.n_nodes} nodes — same --graph/--nodes/--seed?")
         res = repartition(hg, prev["parts"], args.omega, args.delta,
                           deltas=deltas,
-                          drift_threshold=args.drift_threshold, **common)
-        print(f"repartition mode={res.mode} "
+                          drift_threshold=args.drift_threshold,
+                          dist_coarsen=not args.single_coarsen, **common)
+        say(f"repartition mode={res.mode} "
               f"(warm refine {res.timings['refine']:.3f}s, "
               f"total {res.timings['total']:.3f}s vs previous total "
               f"{prev.get('timings', {}).get('total', float('nan')):.3f}s)")
     else:
         for dl in deltas:
             apply_delta(hg, dl)
-        res = partition(hg, omega=args.omega, delta=args.delta, **common)
+        res = partition(hg, omega=args.omega, delta=args.delta,
+                        dist_coarsen=not args.single_coarsen, **common)
     out = dict(
         connectivity=res.connectivity, cut_net=res.cut_net,
         n_parts=res.n_parts, n_levels=res.n_levels,
@@ -107,11 +187,13 @@ def main(argv=None):
         kernel_path=res.kernel_path if args.use_kernels else None,
     )
     # stdout skips the parts vector (noise at scale); the --json dump keeps it
-    print(json.dumps({k: v for k, v in out.items() if k != "parts"},
-                     indent=2))
-    if args.json:
+    say(json.dumps({k: v for k, v in out.items() if k != "parts"},
+                   indent=2))
+    if args.json and (plan is None or plan.mesh.get_rank() == 0):
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
+    if plan is not None and owned:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

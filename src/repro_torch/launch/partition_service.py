@@ -16,7 +16,7 @@ capacity buckets (one batch solve per bucket batch), anything above
 and the aggregated span tree) on exit; ``--metrics-interval N`` also
 rewrites it every N seconds while the flood drains (a `PeriodicDumper`).
 The mesh flags (``--mesh host``, ``--replicas``, ``--no-race``) wait for
-the distributed path (ROADMAP.md Queue A item 13).
+the service's mesh lane (ROADMAP.md Queue A item 13b).
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def main(argv=None):
     if args.mesh != "none" or args.replicas is not None or args.no_race:
         raise NotImplementedError(
             "--mesh / --replicas / --no-race are not ported yet: ROADMAP.md "
-            "Queue A item 13 (distributed path)")
+            "Queue A item 13b (the service's mesh lane)")
 
     from repro_torch import obs
     from repro_torch.core.generate import random_kuniform

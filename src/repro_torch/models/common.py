@@ -11,7 +11,8 @@ The numbers differ from JAX's (another generator); tests carry weights
 across with ``models.convert.params_from_jax``.
 
 The sharding helpers (``pspecs``, ``shardings``, ``shard_map``) wait for
-the distributed path (ROADMAP.md Queue A item 13).
+the LM framework's sharding rules (ROADMAP.md Queue A item 14); the
+partitioner's mesh is ``repro_torch.dist.Plan``.
 """
 from __future__ import annotations
 

@@ -43,7 +43,7 @@ instance by default; the CLI passes the process-global one so one
 ``--metrics-json`` dump carries the service, span and watchdog series).
 The ``stats`` counter dict is a read-only view over the registry. Every
 solve runs on CUDA unless the service is given another device; the mesh
-lane (``plan=``) waits for ROADMAP.md Queue A item 13.
+lane (``plan=``) waits for ROADMAP.md Queue A item 13b.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ from repro_torch.utils.device import resolve_device
 
 
 # the routed lane's name (the JAX package's mesh lane, "vcycle-sharded",
-# waits for ROADMAP.md Queue A item 13)
+# waits for ROADMAP.md Queue A item 13b)
 ROUTED = "vcycle"
 
 
@@ -159,7 +159,7 @@ class PartitionService:
     route_threshold : graphs with more nodes (or that fit no bucket) take
         the host-driven V-cycle.
     plan, shard_graph, race : the JAX signature's mesh lane. A ``plan``
-        raises ``NotImplementedError`` (ROADMAP.md Queue A item 13);
+        raises ``NotImplementedError`` (ROADMAP.md Queue A item 13b);
         ``shard_graph`` and ``race`` act only with one.
     deadline_s : `StepWatchdog` deadline per solve.
     max_restarts : per-request budget of failed or stalled solves before
@@ -187,8 +187,8 @@ class PartitionService:
                  collect_stats: bool = False, device=None):
         if plan is not None:
             raise NotImplementedError(
-                "plan / shard_graph is not ported yet: ROADMAP.md Queue A "
-                "item 13 (distributed path)")
+                "the service's mesh lane (plan, shard_graph) is not ported "
+                "yet: ROADMAP.md Queue A item 13b")
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if bucket_base < 2:

@@ -1,7 +1,7 @@
-"""Segmented / sorting primitives of the single-device partitioner.
-
-Port of ``repro.utils.segops`` without ``ShardCtx``. The conventions that
-let results match the JAX package field by field:
+"""Segmented / sorting primitives of the partitioner, port of
+``repro.utils.segops``, with ``ShardCtx``, the shard context of the mesh
+path (at the end of the module). The conventions that let results match
+the JAX package field by field:
 
 * Segment sums add in a fixed order on every device: the lanes are
   stably sorted by segment and reduced segment by segment
@@ -24,6 +24,7 @@ let results match the JAX package field by field:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -285,3 +286,262 @@ def searchsorted_segmented(sorted_vals: torch.Tensor, seg_off_lo: torch.Tensor,
         go_right = v < queries
         lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right, hi, mid)
     return lo.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Sharded pipelines: ShardCtx and the cross-shard scan
+# --------------------------------------------------------------------------
+ITEM_13B = "ROADMAP.md Queue A item 13b"
+
+
+def scan_combine(a, b):
+    """Monoid of segmented prefix sums over (start-flag, value) pairs,
+    identity (0, 0): the fold of the shards' summaries in
+    ``sharded_segmented_scan``."""
+    af, av = a
+    bf, bv = b
+    return torch.maximum(af, bf), torch.where(bf > 0, bv, av + bv)
+
+
+def apply_scan_carry(local: torch.Tensor, starts: torch.Tensor,
+                     carry_in: torch.Tensor) -> torch.Tensor:
+    """Add the running value carried in from the previous stripe to the
+    prefix of a stripe-local scan (``[n]`` or ``[n, c]``) that continues
+    the incoming segment."""
+    seen = torch.cumsum(starts.to(torch.int32), 0) == 0
+    return torch.where(seen[:, None] if local.dim() > 1 else seen,
+                       local + carry_in, local)
+
+
+def sharded_segmented_scan(values: torch.Tensor, starts: torch.Tensor,
+                           ctx: "ShardCtx"):
+    """Segmented inclusive scan over stripe-laid-out data (shard i holds
+    stripe i of the global order); ``values`` ``[n]`` or ``[n, c]`` (c
+    columns under the same starts). Each shard scans locally, the shards'
+    ``(has-start, last values)`` summaries are all-gathered in one
+    collective and the earlier ones fold with ``scan_combine`` into the
+    carry. Returns ``(scan of this stripe, carry_in)``."""
+    cols = values if values.dim() > 1 else values[:, None]
+    local = torch.stack([segmented_scan(cols[:, j], starts)
+                         for j in range(cols.shape[1])], 1)
+    zero = cols.new_zeros(cols.shape[1:])
+    if ctx.axis is None:
+        carry = zero
+    else:
+        flag = starts.any().to(cols.dtype).reshape(1)
+        allsum = ctx.gather(torch.cat([flag, local[-1]])[None])
+        cf, carry = zero[0], zero
+        for j in range(ctx.index()):
+            cf, carry = scan_combine((cf, carry), (allsum[j, 0],
+                                                   allsum[j, 1:]))
+        local = apply_scan_carry(local, starts, carry)
+    if values.dim() == 1:
+        return local[:, 0], carry[0]
+    return local, carry
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """One shard's view of the "model" process group in the sharded
+    pipelines, port of the JAX package's ``segops.ShardCtx``.
+
+    ``axis=None`` (the default) is the single-device identity: ``lanes``
+    covers everything, ``psum``/``gather``/``stripe`` return their input
+    and ``segmented_scan`` has a zero carry. Otherwise ``comm`` (a
+    ``repro_torch.dist.comm.Comm``) holds the group, this process's index
+    in it and the transport. Integers combine by ``psum`` (an
+    ``all_reduce`` sum), (value, id) claims by ``pmax_pair`` (maxima, exact
+    in any order), and float sums never travel as partial sums: their lane
+    columns, or the rows of disjoint row stripes, are gathered in shard
+    order and reduced as one device would. The graph is stored replicated;
+    the memory-sharded storage (``graph_striped``) and the compensated
+    float psum (``compensated``) are not ported."""
+
+    axis: str | None = None
+    nshards: int = 1
+    comm: object = None
+    compensated: bool = False
+    graph_striped: bool = False
+
+    def __post_init__(self):
+        if self.compensated:
+            raise NotImplementedError(
+                f"compensated_psum is not ported yet: {ITEM_13B}")
+        if self.graph_striped:
+            raise NotImplementedError(
+                f"memory-sharded graph storage (shard_graph) is not ported "
+                f"yet: {ITEM_13B}")
+        if self.axis is not None and self.comm is None:
+            raise ValueError("a sharded ShardCtx needs its comm")
+
+    def index(self) -> int:
+        return 0 if self.axis is None else self.comm.rank
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the shards. Integer partials only: a float partial sum
+        would not give one device's bits."""
+        if self.axis is None:
+            return x
+        if x.is_floating_point():
+            raise TypeError("psum takes integer partials")
+        return self.comm.all_reduce(x, "sum")
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis is None:
+            return x
+        return self.comm.all_reduce(x, "max")
+
+    def pmax_pair(self, values: torch.Tensor, ids: torch.Tensor):
+        """Cross-shard lexicographic (value, id) max, the larger id winning
+        ties; empty shards contribute (-inf, -1)."""
+        if self.axis is None:
+            return values, ids
+        v = self.pmax(values)
+        return v, self.pmax(torch.where(values == v, ids, -1))
+
+    def lanes(self, total: int, device):
+        """(global lane ids int32, in-range mask) of this shard's contiguous
+        stripe of ``total`` lanes, ceil-divided."""
+        per = -(-total // max(self.nshards, 1))
+        t = self.index() * per + torch.arange(per, dtype=torch.int32,
+                                              device=device)
+        return t, t < total
+
+    def take(self, x: torch.Tensor, lanes: torch.Tensor, ok: torch.Tensor,
+             fill) -> torch.Tensor:
+        """``x[lanes]`` with the lanes where ``ok`` fails set to ``fill``,
+        for ``lanes`` from ``self.lanes(len(x))``: on one device they are
+        every lane, and no gather is needed."""
+        if self.axis is None:
+            return torch.where(ok, x, fill)
+        return torch.where(ok, x[lanes.clamp(0, x.shape[0] - 1).long()], fill)
+
+    def gread(self, arr: torch.Tensor, t: torch.Tensor, ok: torch.Tensor,
+              fill) -> torch.Tensor:
+        """This shard's lanes of a pins-sized graph array (stored
+        replicated)."""
+        return self.take(arr, t, ok, fill)
+
+    def gfull(self, arr: torch.Tensor) -> torch.Tensor:
+        """The whole pins-sized graph array (stored replicated)."""
+        return arr
+
+    def rows(self, offsets: torch.Tensor, t: torch.Tensor, total: int,
+             num_rows: int) -> torch.Tensor:
+        """CSR row ids of the lanes ``t`` (``rows_from_offsets``
+        semantics)."""
+        if self.axis is None:
+            return rows_from_offsets(offsets, total, num_rows)
+        rows = torch.searchsorted(offsets[1:].contiguous(), t.to(
+            offsets.dtype), right=True)
+        return rows.clamp(max=num_rows).to(torch.int32)
+
+    def psum_stripe(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's stripe of the sum over the shards of a dense
+        per-lane vector (integers)."""
+        if self.axis is None:
+            return x
+        return self.stripe(self.psum(x))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's ``x`` concatenated in shard order along dim 0."""
+        if self.axis is None:
+            return x
+        return self.comm.all_gather(x).reshape((-1,) + tuple(x.shape[1:]))
+
+    def unstripe(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole array from its stripes (a gather in shard order: every
+        bit, -0.0 and NaN payloads too, as one device holds it)."""
+        return self.gather(x)
+
+    def edge_prev(self, x: torch.Tensor, fill) -> torch.Tensor:
+        """``out[i] = x[i-1]`` in the global stripe order (rows of a 2-D
+        ``x``, one collective for all its columns); the first element of
+        the globally first stripe gets ``fill``."""
+        first = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                           device=x.device)
+        if self.axis is None:
+            return torch.cat([first, x[:-1]])
+        lasts = self.gather(x[-1:])
+        i = self.index()
+        prev = lasts[i - 1:i] if i > 0 else first
+        return torch.cat([prev, x[:-1]])
+
+    def edge_next(self, x: torch.Tensor, fill) -> torch.Tensor:
+        """``out[i] = x[i+1]`` in the global stripe order (rows of a 2-D
+        ``x``); the globally last element gets ``fill``."""
+        last = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                          device=x.device)
+        if self.axis is None:
+            return torch.cat([x[1:], last])
+        firsts = self.gather(x[:1])
+        i = self.index()
+        nxt = firsts[i + 1:i + 2] if i < self.nshards - 1 else last
+        return torch.cat([x[1:], nxt])
+
+    def starts_from_sorted(self, keys: Sequence[torch.Tensor],
+                           prev: torch.Tensor | None = None) -> torch.Tensor:
+        """``segment_starts_from_sorted`` over stripes of sorted int32
+        columns: a stripe's first element compares with the previous
+        stripe's last (one collective for all columns). ``prev``: the
+        columns' ``edge_prev``, stacked, when the caller holds it."""
+        if self.axis is None:
+            return segment_starts_from_sorted(keys)
+        k = torch.stack(list(keys), 1)
+        if prev is None:
+            prev = self.edge_prev(k, 0)
+        start = (k != prev).any(1)
+        start[0] |= self.index() == 0
+        return start
+
+    def cumsum(self, x: torch.Tensor) -> torch.Tensor:
+        """Inclusive cross-shard prefix sum over the stripe layout."""
+        if self.axis is None:
+            return torch.cumsum(x, 0)
+        out, _ = self.segmented_scan(x, torch.zeros(x.shape, dtype=torch.bool,
+                                                    device=x.device))
+        return out
+
+    def sort_by(self, keys: Sequence[torch.Tensor],
+                payloads: Sequence[torch.Tensor], *, striped_in: bool = False,
+                striped_out: bool = False):
+        """Stable lexicographic multi-key sort across the shards: the
+        sample sort of ``repro_torch.dist.sort``, which gives the order of
+        the single-device ``sort_by`` (a global-rank tie key makes every
+        key distinct). ``striped_in``: the columns are this shard's stripe
+        of the global columns, else replicated full columns (striped here).
+        ``striped_out``: return this shard's stripe of the sorted order,
+        else the whole sorted columns."""
+        keys, payloads = list(keys), list(payloads)
+        if self.axis is None:
+            return sort_by(keys, payloads)
+        from repro_torch.dist import sort as dist_sort
+        if not striped_in:
+            length = keys[0].shape[0]
+            if length % self.nshards or length < self.nshards:
+                return sort_by(keys, payloads)  # replicated, still exact
+            keys = [self.stripe(k) for k in keys]
+            payloads = [self.stripe(p) for p in payloads]
+        ks, ps = dist_sort.sample_sort_stripes(self, keys, payloads)
+        if not striped_out:
+            cols = self.unstripe(torch.stack(
+                [dist_sort.pack(c) for c in ks + ps], 1))
+            out = [dist_sort.unpack(cols[:, j], c.dtype)
+                   for j, c in enumerate(ks + ps)]
+            ks, ps = out[: len(ks)], out[len(ks):]
+        return ks, ps
+
+    def stripe(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's contiguous stripe of a replicated array whose length
+        the shard count divides."""
+        if self.axis is None:
+            return x
+        per = x.shape[0] // self.nshards
+        return x[self.index() * per:(self.index() + 1) * per]
+
+    def stripe_start(self, length: int) -> int:
+        return self.index() * (length // max(self.nshards, 1))
+
+    def segmented_scan(self, values: torch.Tensor, starts: torch.Tensor):
+        """Cross-shard segmented scan of stripes; ``(values, carry_in)``."""
+        return sharded_segmented_scan(values, starts, self)

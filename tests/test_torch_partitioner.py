@@ -145,7 +145,8 @@ def test_partition_needs_a_device_without_cuda():
         tpartition(hg, omega=10, delta=40, theta=1)
 
 
-@pytest.mark.parametrize("kw", [dict(plan=object()), dict(shard_graph=True),
+@pytest.mark.parametrize("kw", [dict(plan=object(), shard_graph=True,
+                                     race=False), dict(shard_graph=True),
                                 dict(compensated_psum=True),
                                 dict(plan=object(), shard_graph=True)])
 def test_unported_arguments_raise(kw):

@@ -360,7 +360,8 @@ ENTRY_POINTS = {
 }
 
 
-UNPORTED = [dict(plan=object()), dict(shard_graph=True),
+UNPORTED = [dict(plan=object(), shard_graph=True, race=False),
+            dict(shard_graph=True),
             dict(plan=object(), shard_graph=True),
             dict(compensated_psum=True)]
 
