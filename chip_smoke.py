@@ -102,22 +102,33 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      ``a2a_reduction >= 1``, every result equal to the CPU's, no kernel
      launch; the times on card and CPU.
  15. the mesh V-cycle (``repro_torch.dist.partition``) on the graph cut
-     to ``DIST_LAYERS`` layers: B1-B3 launched on each of two row
-     stripes of level 0 (the stripes of a two-shard mesh) equal to
-     their plain versions, the stripes together equal to the
-     whole-level launch (``torch.equal``), stripe 0 timed; the
+     to ``DIST_LAYERS`` layers, Theta ``DIST_THETA``: B1-B3 launched on
+     each of two row stripes of level 0 (the stripes of a two-shard
+     mesh) equal to their plain versions, the stripes together equal to
+     the whole-level launch (``torch.equal``), stripe 0 timed; the
      single-device ``partition(use_kernels=True)``; then ranks spawned
      by ``repro_torch.dist.spawn.run_ranks`` (``dist_rank``), all on
      this card over gloo with their collectives staged through the
-     host (NCCL refuses two ranks on one GPU): mesh (1, 2) and (2, 2)
-     with racing off give the single-device parts, levels, audit and
-     kernel path bit for bit, (2, 2) with racing on passes the audit
-     and a second run with the same seed repeats it, and a one-rank
-     NCCL group gives the single-device parts; each under
-     ``DIST_TIMEOUT``; per mesh the wall seconds, transport, host-staged
-     copies and bytes, launches (stripe launches counted apart) and
+     host (NCCL refuses two ranks on one GPU): on mesh (1, 2) racing
+     off with the graph replicated and memory-sharded (``shard_graph``)
+     give the single-device parts, levels, audit and kernel path bit
+     for bit, a ``compensated_psum`` solve passes the audit (its
+     connectivity logged beside the exact one's), a ``WarmCache``
+     holding the sharded graph takes a 1% ``perturb_delta`` through
+     ``apply_delta_sharded`` and its warm ``repartition`` equals the
+     single-device one of the same delta, and one routed request
+     through ``PartitionService(plan=..., shard_graph=True,
+     race=False)`` gets the sharded mesh solve's parts; on (2, 2)
+     racing off gives the single-device parts and racing on, replicated
+     then sharded with one seed, gives the same valid parts twice; a
+     one-rank NCCL group gives the single-device parts; each mesh under
+     ``DIST_TIMEOUT``; every sharded rank stores at most ``9 *
+     ceil(caps.p / model)`` bytes of pins arrays; per run the wall
+     seconds, transport, ``pins_bytes_per_device``, host-staged copies,
+     bytes and seconds, launches (stripe launches counted apart) and
      peak device memory of each rank. The stripe rows of the kernels
-     JSON carry the (1, 2) solve's stripe launches over both ranks.
+     JSON carry the replicated (1, 2) solve's stripe launches over both
+     ranks.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
@@ -168,6 +179,11 @@ KWAY_MAX_LEVELS = 16
 # fails the run
 DIST_LAYERS = 2
 DIST_TIMEOUT = 600.0
+# and Theta 4, not 16: on an H100 80GB HBM3 (700 W) the phase took 547 s
+# at Theta 16 and 301 s at Theta 8 (its mesh runs' host-staged collectives
+# grow with the repetitions), and phases 1-14 vary by 150 s from card to
+# card, so at Theta 8 the script ended only 162 s inside its 1200 s limit
+DIST_THETA = 4
 # phase 12's bucket lane: node ranges of three ladder rungs, requests a rung
 # (four, not eight: eight a rung took the phase to 177 s, six to 160 s and
 # five to 168 s, over its budget of about 150 s)
@@ -1209,11 +1225,18 @@ def moe_phase(torch, kernels, card) -> None:
     log(f"[14] launches: " + json.dumps(launches) + f", on {card}")
 
 
-def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs):
-    """One rank of phase 15: the mesh solves ``runs`` (a list of ``(race,
-    race_seed)``) of the phase-15 graph on a ``(data, model)`` mesh whose
-    ranks all compute on ``cuda:0``, each with the launch and staging
-    counts reset just before it and read just after."""
+def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs,
+              prev_parts):
+    """One rank of phase 15: the runs ``runs`` of the phase-15 graph on a
+    ``(data, model)`` mesh whose ranks all compute on ``cuda:0``, each with
+    the launch and staging counts reset just before it and read just
+    after. A run is a dict: ``kind`` "solve" (a mesh ``partition`` with
+    ``race``, ``seed``, ``shard`` for ``shard_graph`` and ``comp`` for
+    ``compensated_psum``), "warm" (a ``WarmCache`` holding the
+    memory-sharded graph takes a 1% ``perturb_delta`` through
+    ``apply_delta_sharded``, then a warm ``repartition`` from
+    ``prev_parts``) or "service" (one routed request through
+    ``PartitionService(plan=..., shard_graph=True, race=False)``)."""
     sys.path.insert(0, src)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1221,33 +1244,71 @@ def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs):
     torch.use_deterministic_algorithms(True)
     from repro_torch import kernels
     from repro_torch.core import generate
-    from repro_torch.core.partitioner import partition
+    from repro_torch.core.hypergraph import Caps
+    from repro_torch.core.partitioner import (WarmCache, partition,
+                                              repartition)
     from repro_torch.dist import comm
+    from repro_torch.dist.graph import ShardedHypergraph, sharded_from_host
     from repro_torch.dist.sharding import make_mesh
+    from repro_torch.serve import PartitionService
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     plan = make_mesh(data, model, dev)
-    hg = generate.snn_layered(n_layers=layers, width=8192, fanout=16,
-                              window=64, seed=0)
+
+    def graph():
+        return generate.snn_layered(n_layers=layers, width=8192, fanout=16,
+                                    window=64, seed=0)
+
+    hg = graph()
+    caps = Caps.for_host(hg)
     out = []
-    for race, seed in runs:
+    for run in runs:
+        kind = run["kind"]
+        sharded = kind != "solve" or run["shard"]
+        # the stripe this rank would store (no solve holds it here yet)
+        pins_bytes = (sharded_from_host(hg, caps, plan)
+                      .pins_bytes_per_device() if sharded else 9 * caps.p)
+        extra = {}
+        if kind == "warm":
+            hw = graph()
+            cache = WarmCache(caps=caps, d=sharded_from_host(hw, caps, plan))
+            dl = generate.perturb_delta(hw, n_edges=round(
+                0.01 * hw.n_edges), seed=11)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         comm.reset_stats()
         t0 = time.perf_counter()
-        r = partition(hg, omega=omega, delta=delta, theta=theta,
-                      use_kernels=True, plan=plan, race=race,
-                      race_seed=seed)
+        if kind == "solve":
+            r = partition(hg, omega=omega, delta=delta, theta=theta,
+                          use_kernels=True, plan=plan, race=run["race"],
+                          race_seed=run["seed"], shard_graph=run["shard"],
+                          compensated_psum=run["comp"])
+        elif kind == "warm":
+            r = repartition(hw, prev_parts, omega, delta, theta=theta,
+                            deltas=dl, cache=cache, use_kernels=True,
+                            plan=plan, race=False, shard_graph=True)
+            extra = dict(mode=r.mode, cache_caps_kept=cache.caps is caps,
+                         cache_sharded=isinstance(cache.d,
+                                                  ShardedHypergraph))
+        else:
+            svc = PartitionService(theta=theta, plan=plan, shard_graph=True,
+                                   race=False)
+            rid = svc.submit(graph(), omega=omega, delta=delta)
+            r = svc.drain()[rid]
+            svc.close()
+            extra = dict(route=r.route)
         torch.cuda.synchronize()
-        out.append(dict(parts=r.parts, n_levels=r.n_levels, audit=r.audit,
-                        kernel_path=r.kernel_path,
+        out.append(dict(run=run, parts=r.parts, n_levels=r.n_levels,
+                        audit=r.audit,
+                        kernel_path=getattr(r, "kernel_path", None),
                         wall=time.perf_counter() - t0,
                         launches=dict(kernels.LAUNCHES),
                         staged=dict(comm.STATS),
                         peak=torch.cuda.max_memory_allocated(),
-                        describe=plan.describe(), race=race, seed=seed))
+                        pins_bytes=pins_bytes, caps_p=caps.p,
+                        describe=plan.describe(), **extra))
     return out
 
 
@@ -1404,23 +1465,41 @@ def stripe_checks(torch, kernels, hg, card, omega, delta, nstripes: int):
     return rows
 
 
+def _solve(race=False, seed=0, shard=False, comp=False) -> dict:
+    return dict(kind="solve", race=race, seed=seed, shard=shard, comp=comp)
+
+
 def dist_phase(torch, kernels, card, layers, omega, delta, theta):
     """Phase 15: the mesh V-cycle. ``partition(use_kernels=True)`` of the
     ``layers``-deep graph on one device, then the same solve by spawned
     ranks that all compute on this card over gloo (their collectives
-    staged through the host): meshes (1, 2) and (2, 2) with racing off
-    give the single-device parts, levels, audit and kernel path bit for
-    bit; (2, 2) with racing on is valid and repeats for its seed; a
-    one-rank NCCL group gives the single-device parts. B1-B3's stripe
-    launches are held to their plain versions first. Returns the stripe
-    rows of the kernels JSON, their launches those of the (1, 2) solve
+    staged through the host). Mesh (1, 2): racing off, with the graph
+    replicated and memory-sharded (``shard_graph``), each the
+    single-device parts, levels, audit and kernel path bit for bit; a
+    ``compensated_psum`` solve, valid and the same on every rank; the
+    sharded warm path (a 1% delta through ``apply_delta_sharded``, then a
+    warm ``repartition``) equal to the single-device ``repartition`` of
+    the same delta; one routed request through the service's mesh lane,
+    equal to the sharded mesh solve (the service runs the kernels off,
+    and the port's kernels give the segment path's bits). Mesh (2, 2):
+    racing off, then racing on replicated and memory-sharded with one
+    seed, the two equal and valid. A one-rank NCCL group gives the
+    single-device parts. Each sharded rank stores at most ``9 *
+    ceil(caps.p / model)`` bytes of pins arrays. B1-B3's stripe launches
+    are held to their plain versions first. Returns the stripe rows of
+    the kernels JSON, their launches those of the replicated (1, 2) solve
     over both ranks."""
     from repro_torch.core import generate
-    from repro_torch.core.partitioner import partition
+    from repro_torch.core.hypergraph import Caps
+    from repro_torch.core.partitioner import (WarmCache, partition,
+                                              repartition)
     from repro_torch.dist.spawn import run_ranks
 
-    hg = generate.snn_layered(n_layers=layers, width=8192, fanout=16,
-                              window=64, seed=0)
+    def graph():
+        return generate.snn_layered(n_layers=layers, width=8192, fanout=16,
+                                    window=64, seed=0)
+
+    hg = graph()
     rows = stripe_checks(torch, kernels, hg, card, omega, delta, 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1434,39 +1513,78 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
         + json.dumps(r0.kernel_path) + f", on {card}")
     need(r0.audit["size_ok"] and r0.audit["inbound_ok"],
          "[15] single-device audit")
+    # the warm reference: the same 1% delta through a cache at the same caps
+    hw = graph()
+    cache = WarmCache(caps=Caps.for_host(hw))
+    dl = generate.perturb_delta(hw, n_edges=round(0.01 * hw.n_edges),
+                                seed=11)
+    t0 = time.perf_counter()
+    rw = repartition(hw, r0.parts, omega, delta, theta=theta, deltas=dl,
+                     cache=cache, use_kernels=True)
+    torch.cuda.synchronize()
+    log(f"[15] single-device warm repartition after a {len(dl.del_edges)}"
+        f"-edge delta: mode {rw.mode}, {time.perf_counter() - t0:.2f} s, "
+        f"connectivity {rw.connectivity}, on {card}")
+    need(rw.mode == "warm" and rw.audit["size_ok"]
+         and rw.audit["inbound_ok"], "[15] single-device warm repartition")
     src = str(Path(__file__).resolve().parent / "src")
     args = (src, layers, omega, delta, theta)
-    meshes = [((1, 2), "gloo", [(False, 0)]),
-              ((2, 2), "gloo", [(False, 0), (True, 5), (True, 5)]),
-              ((1, 1), "nccl", [(False, 0)])]
+    meshes = [((1, 2), "gloo", [_solve(), _solve(shard=True),
+                                _solve(comp=True), dict(kind="warm"),
+                                dict(kind="service")]),
+              ((2, 2), "gloo", [_solve(), _solve(race=True, seed=5),
+                                _solve(race=True, seed=5, shard=True)]),
+              ((1, 1), "nccl", [_solve()])]
     stripe_launches = None
     for (data, model), backend, runs in meshes:
         t0 = time.perf_counter()
         res = run_ranks(dist_rank, data * model, *args, data, model, runs,
-                        backend=backend, timeout=DIST_TIMEOUT)
+                        r0.parts, backend=backend, timeout=DIST_TIMEOUT)
         log(f"[15] mesh ({data}, {model}) over {backend}: "
             f"{time.perf_counter() - t0:.1f} s with the spawn, on {card}")
-        for i, (race, seed) in enumerate(runs):
+        for i, run in enumerate(runs):
             per = [rank_out[i] for rank_out in res]
             a = per[0]
             for o in per[1:]:
                 need((o["parts"] == a["parts"]).all(),
                      f"[15] ({data}, {model}) every rank's parts agree")
-            what = f"({data}, {model}) race={race}"
-            if race:
-                need(a["audit"]["size_ok"] and a["audit"]["inbound_ok"],
-                     f"[15] {what} audit")
-            else:
+            what = (f"({data}, {model}) {run['kind']}"
+                    + "".join(f" {k}={v}" for k, v in run.items()
+                              if k != "kind"))
+            need(a["audit"]["size_ok"] and a["audit"]["inbound_ok"],
+                 f"[15] {what} audit")
+            if run["kind"] == "warm":
+                need(a["mode"] == "warm" and a["cache_caps_kept"]
+                     and a["cache_sharded"]
+                     and (a["parts"] == rw.parts).all()
+                     and a["audit"] == rw.audit,
+                     f"[15] {what}: a warm solve from the sharded cache "
+                     f"(caps kept) with the single-device repartition's "
+                     f"parts and audit")
+            elif run["kind"] == "service":
+                sharded = res[0][runs.index(_solve(shard=True))]
+                need(a["route"] == "vcycle-sharded"
+                     and (a["parts"] == sharded["parts"]).all()
+                     and a["n_levels"] == sharded["n_levels"],
+                     f"[15] {what}: the mesh partition()'s parts")
+            elif not run["race"] and not run["comp"]:
                 need((a["parts"] == r0.parts).all()
                      and a["n_levels"] == r0.n_levels
                      and a["audit"] == r0.audit
                      and a["kernel_path"] == r0.kernel_path,
                      f"[15] {what}: the single-device parts, levels, "
                      f"audit and kernel path")
-            log(f"[15] {what} seed {seed}: {a['describe']}; wall "
+            if run["kind"] != "solve" or run["shard"]:
+                bound = 9 * -(-a["caps_p"] // model)
+                need(all(o["pins_bytes"] <= bound for o in per),
+                     f"[15] {what}: pins_bytes_per_device within "
+                     f"9 * ceil(caps.p / model) = {bound}")
+            log(f"[15] {what}: {a['describe']}; wall "
                 + ", ".join(f"{o['wall']:.2f}" for o in per)
                 + " s by rank; connectivity "
-                f"{int(a['audit']['connectivity'])}; host-staged copies "
+                f"{int(a['audit']['connectivity'])}; pins_bytes_per_device "
+                + ", ".join(str(o["pins_bytes"]) for o in per)
+                + "; host-staged copies "
                 + ", ".join(f"{o['staged']['copies']} "
                             f"({o['staged']['bytes'] / 2**30:.3f} GiB, "
                             f"{o['staged']['seconds']:.2f} s)" for o in per)
@@ -1475,13 +1593,20 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
                 + " GiB by rank; launches "
                 + json.dumps([{k: v for k, v in o["launches"].items() if v}
                               for o in per]) + f"; on {card}")
+            if run.get("comp"):
+                log(f"[15] ({data}, {model}) compensated_psum: connectivity "
+                    f"{int(a['audit']['connectivity'])} against "
+                    f"{int(r0.audit['connectivity'])} exact, parts "
+                    f"{'equal to' if (a['parts'] == r0.parts).all() else 'unlike'}"
+                    f" the exact solve's")
         if (data, model) == (2, 2):
-            a, b = res[0][1], res[0][2]
-            need((a["parts"] == b["parts"]).all(),
-                 "[15] a second raced solve with the same seed repeats")
-            log(f"[15] (2, 2) raced: valid, repeats for seed 5; "
-                f"connectivity {int(a['audit']['connectivity'])} against "
-                f"{int(r0.audit['connectivity'])} unraced")
+            a, b, c = res[0]
+            need((b["parts"] == c["parts"]).all() and b["audit"] == c["audit"],
+                 "[15] the sharded raced solve equals the replicated raced "
+                 "solve for its seed")
+            log(f"[15] (2, 2) raced: valid, sharded equal to replicated "
+                f"for seed 5; connectivity {int(b['audit']['connectivity'])}"
+                f" against {int(r0.audit['connectivity'])} unraced")
         if (data, model) == (1, 2):
             stripe_launches = {
                 name: sum(o[0]["launches"][name + "_stripe"] for o in res)
@@ -1878,7 +2003,7 @@ def main(argv=None) -> int:
     # ---- 15. the mesh V-cycle --------------------------------------------
     rows_used += dist_phase(torch, kernels, card,
                             min(args.layers, DIST_LAYERS), omega, delta,
-                            theta)
+                            DIST_THETA)
     log(f"[15] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.hypergraph import (Caps, DeviceHypergraph,
                                          Neighborhoods, PairExpansion, NSENT,
-                                         build_neighbors, build_pairs)
+                                         build_neighbors, build_pairs,
+                                         whole_columns)
 from repro_torch.core.matching import match_pseudoforest
 from repro_torch.utils import segops
 from repro_torch.utils.hashing import pair_noise
@@ -64,7 +65,9 @@ def score_slots(nbrs: Neighborhoods, pairs: PairExpansion, caps: Caps,
     """(eta, inter) ``[NBcap]`` by segment sums over the pair lanes, in lane
     order. On a mesh ``pairs`` is this shard's lane stripe: the integer
     ``inter`` partials psum, and the float ``eta`` lanes are gathered in
-    shard order (the global lane order) and summed as on one device."""
+    shard order (the global lane order) and summed as on one device, or
+    with ``ctx.compensated`` each shard sums its own lanes and the
+    partials combine by ``psum_compensated``."""
     n_safe = pairs.n.clamp(0, caps.n - 1).long()
     lo = nbrs.off[n_safe]
     hi = nbrs.off[(pairs.n.long() + 1).clamp(0, caps.n)]
@@ -72,11 +75,18 @@ def score_slots(nbrs: Neighborhoods, pairs: PairExpansion, caps: Caps,
     slot = segops.searchsorted_segmented(nbrs.ids, lo, hi, pairs.m, iters)
     slot = torch.where(pairs.valid, slot, caps.nbrs)
     w_norm, w_slot = pairs.w_norm, slot
-    if ctx.axis is not None:
-        lanes = ctx.gather(torch.stack([w_norm.view(torch.int32), slot], 1))
-        w_norm = lanes[:, 0].contiguous().view(torch.float32)
-        w_slot = lanes[:, 1]
-    eta = segops.segment_sum(w_norm, w_slot, caps.nbrs)
+    if ctx.compensated:
+        # opt-in: per-shard partials folded by a compensated psum, within
+        # about an ulp of the exact sum but not one device's bits
+        eta = ctx.psum_compensated(segops.segment_sum(w_norm, w_slot,
+                                                      caps.nbrs))
+    else:
+        if ctx.axis is not None:
+            lanes = ctx.gather(torch.stack([w_norm.view(torch.int32), slot],
+                                           1))
+            w_norm = lanes[:, 0].contiguous().view(torch.float32)
+            w_slot = lanes[:, 1]
+        eta = segops.segment_sum(w_norm, w_slot, caps.nbrs)
     inter = ctx.psum(segops.segment_count(pairs.both_dst, slot, caps.nbrs))
     return eta, inter
 
@@ -201,14 +211,21 @@ def coarsen_step_impl(d: DeviceHypergraph, caps: Caps,
     matching. Returns (match[Ncap], n_matched_pairs, proposals); the
     contraction is ``core.contract.contract``. On a mesh (``ctx``) the
     pairs and slot pipelines run on this shard's lane stripes; the
-    isolated-node pairing is node-sized and stays replicated."""
+    isolated-node pairing is node-sized and stays replicated. With striped
+    storage the pair expansion, and B1 under ``use_kernels``, read whole
+    columns (``whole_columns``), rebuilt for this level and freed with
+    it."""
     if ctx.axis is None:
         pairs = build_pairs(d, caps)
+        dw = d
     else:
+        dw = whole_columns(d, caps, ctx, ("edge_pins", "node_edges")
+                           if params.use_kernels else ("edge_pins",))
         pidx, pidx_ok = ctx.lanes(caps.pairs, d.device)
-        pairs = build_pairs(d, caps, idx=pidx, idx_ok=pidx_ok, ctx=ctx)
+        pairs = build_pairs(dw, caps, idx=pidx, idx_ok=pidx_ok)
     nbrs = build_neighbors(pairs, d, caps, ctx)
-    props = propose(d, nbrs, pairs, caps, params, ctx)
+    props = propose(dw, nbrs, pairs, caps, params, ctx)
+    del dw
     match = run_matching_rounds(props, d, caps, params, ctx)
     match = pair_isolated(match, props, d, caps, params)
     ids = torch.arange(caps.n, device=match.device)

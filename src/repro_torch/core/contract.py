@@ -14,8 +14,10 @@ On a mesh (``ctx``) the keys are built on this shard's stripe of pin lanes,
 both sorts are the distributed sample sort (stripes in and out), the rank
 scans carry across stripes, and the dense results combine by integer psums
 of disjoint scatters or by gathers of the sorted stripes: bit for bit one
-device's contraction. The graph is stored replicated; the memory-sharded
-storage of the JAX package waits for ROADMAP.md Queue A item 13b.
+device's contraction. With striped storage (``ctx.graph_striped``) the
+coarse pins arrays are emitted as stripes: the packing scatter is
+reduce-scattered, and each shard keeps its own stripe of the incidence
+sort, so no shard ever holds a whole coarse pins column.
 """
 from __future__ import annotations
 
@@ -86,9 +88,16 @@ def contract_impl(d: DeviceHypergraph, match: torch.Tensor, caps: Caps,
     base = edge_off_new[se_safe]
     pos = torch.where(kept_src, base + src_rank - 1,
                       base + nsrc_new[se_safe] + dst_rank - 1)
-    slot = torch.arange(caps.p, dtype=i32, device=dev)
-    pins_new = torch.where(slot < n_pins_new, ctx.psum(
-        segops.scatter_set(caps.p, pos, sp, keep, 0)), NSENT)
+    if ctx.striped():
+        # this shard's stripe of the packed pins, by a reduce-scatter of
+        # the disjoint integer scatters over the stripe total
+        st = t.shape[0] * ctx.nshards
+        pins_new = torch.where(t < n_pins_new, ctx.psum_stripe(
+            segops.scatter_set(st, pos, sp, keep, 0)), NSENT)
+    else:
+        slot = torch.arange(caps.p, dtype=i32, device=dev)
+        pins_new = torch.where(slot < n_pins_new, ctx.psum(
+            segops.scatter_set(caps.p, pos, sp, keep, 0)), NSENT)
 
     # ---- incidence rebuild (inbound first) -------------------------------
     t2_live = t_in & (t < n_pins_new)
@@ -104,9 +113,15 @@ def contract_impl(d: DeviceHypergraph, match: torch.Tensor, caps: Caps,
                                          striped_out=True)
     node_live = sn2 != IMAX
     node_in = (sin2 == 1) & node_live
-    inc = ctx.unstripe(torch.stack([torch.where(node_live, se2, NSENT),
-                                    node_in.to(i32)], 1))[: caps.p]
-    node_edges_new, node_is_in_new = inc[:, 0].contiguous(), inc[:, 1] != 0
+    ne_stripe = torch.where(node_live, se2, NSENT)
+    if ctx.striped():
+        # the sorted stripes are the coarse incidence's own stripes
+        node_edges_new, node_is_in_new = ne_stripe, node_in
+    else:
+        inc = ctx.unstripe(torch.stack([ne_stripe, node_in.to(i32)],
+                                       1))[: caps.p]
+        node_edges_new = inc[:, 0].contiguous()
+        node_is_in_new = inc[:, 1] != 0
     counts = ctx.psum(torch.stack([
         segops.segment_count(node_live, sn2, caps.n),
         segops.segment_count(node_in, sn2, caps.n)]))

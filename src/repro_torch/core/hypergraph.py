@@ -357,10 +357,18 @@ class DeviceHypergraph:
         return self.edge_off.device
 
 
-def packed_host_arrays(hg: HostHypergraph, caps: Caps) -> dict:
-    """Capacity-padded numpy staging arrays for a device hypergraph."""
+def packed_host_arrays(hg: HostHypergraph, caps: Caps,
+                       pcap: int | None = None) -> dict:
+    """Capacity-padded numpy staging arrays for a device hypergraph.
+
+    ``pcap`` overrides the padded length of the three pins-sized arrays
+    (``edge_pins``, ``node_edges``, ``node_is_in``): ``dist.graph`` pads
+    them to the stripe total, ``ceil(caps.p / shards) * shards``, so the
+    stripes tile the mesh's "model" dim; the extra lanes carry the usual
+    sentinels."""
     node_off, node_edges, node_is_in, node_nin = hg.incidence()
     N, E, P = hg.n_nodes, hg.n_edges, hg.n_pins
+    pcap = caps.p if pcap is None else pcap
 
     def pad(a, cap, fill, dtype):
         out = np.full((cap,), fill, dtype=dtype)
@@ -373,12 +381,12 @@ def packed_host_arrays(hg: HostHypergraph, caps: Caps) -> dict:
     no[: N + 1] = node_off
     return dict(
         edge_off=eo,
-        edge_pins=pad(hg.edge_pins, caps.p, NSENT, np.int32),
+        edge_pins=pad(hg.edge_pins, pcap, NSENT, np.int32),
         edge_nsrc=pad(hg.edge_nsrc, caps.e, 0, np.int32),
         edge_w=pad(hg.edge_w, caps.e, 0.0, np.float32),
         node_off=no,
-        node_edges=pad(node_edges, caps.p, NSENT, np.int32),
-        node_is_in=pad(node_is_in, caps.p, False, bool),
+        node_edges=pad(node_edges, pcap, NSENT, np.int32),
+        node_is_in=pad(node_is_in, pcap, False, bool),
         node_nin=pad(node_nin, caps.n, 0, np.int32),
         node_size=pad(np.ones(N, np.int32), caps.n, 0, np.int32),
         n_nodes=np.int32(N),
@@ -415,6 +423,26 @@ def device_from_host(hg: HostHypergraph, caps: Caps, device) -> DeviceHypergraph
     return device_from_arrays(packed_host_arrays(hg, caps), device)
 
 
+def whole_columns(d: DeviceHypergraph, caps: Caps, ctx,
+                  fields=("edge_pins", "node_edges")) -> DeviceHypergraph:
+    """``d`` for the consumers that read arbitrary rows or slots
+    (``build_pairs``, the kernels B1-B3, the move proposal on node rows).
+    Where ``ctx`` reads striped storage (``ctx.striped()``) that is a
+    transient: the pins-sized ``fields`` rebuilt whole by one ``gfull``
+    (``caps.p`` long) and the pins-sized fields not named left out
+    (``None``), so a reader of one fails loudly. Its columns are read
+    directly, never through ``ctx.gread``. Otherwise ``d`` itself."""
+    if ctx is None or not ctx.striped():
+        return d
+    cols = torch.stack([getattr(d, f).to(torch.int32) for f in fields], 1)
+    cols = ctx.gfull(cols)[: caps.p]
+    out = {f: None for f in ("edge_pins", "node_edges", "node_is_in")}
+    for j, f in enumerate(fields):
+        col = cols[:, j].contiguous()
+        out[f] = col != 0 if f == "node_is_in" else col
+    return dataclasses.replace(d, **out)
+
+
 def host_from_device(d: DeviceHypergraph) -> HostHypergraph:
     """The live prefix of a device hypergraph as a host hypergraph."""
     a = to_arrays(d)
@@ -448,15 +476,15 @@ class PairExpansion:
 
 def build_pairs(d: DeviceHypergraph, caps: Caps,
                 idx: torch.Tensor | None = None,
-                idx_ok: torch.Tensor | None = None,
-                ctx=None) -> PairExpansion:
+                idx_ok: torch.Tensor | None = None) -> PairExpansion:
     """The pair lanes ``idx`` (every lane by default; on a mesh this
     shard's stripe, ``ctx.lanes(caps.pairs)``, with ``idx_ok`` its
-    in-range mask). ``ctx`` reads ``edge_pins`` through ``gfull``: the
-    graph is stored replicated, so that is the array itself."""
+    in-range mask). A pair lane joins two arbitrary pin slots, so ``d``
+    holds the whole ``edge_pins`` column: with striped storage, its
+    ``whole_columns``."""
     L = caps.pairs
     ecap = d.ecap
-    edge_pins = d.edge_pins if ctx is None else ctx.gfull(d.edge_pins)
+    edge_pins = d.edge_pins
     dev = d.device
     card = d.edge_off[1:] - d.edge_off[:-1]
     live_edge = torch.arange(ecap, dtype=torch.int32, device=dev) < d.n_edges

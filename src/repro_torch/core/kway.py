@@ -21,14 +21,14 @@ from repro_torch.core import metrics
 from repro_torch.core.coarsen import CoarsenParams
 from repro_torch.core.hypergraph import (Caps, HostHypergraph,
                                          check_expansion_caps,
-                                         device_from_host, device_pair_count,
+                                         device_pair_count,
                                          host_from_device, host_pair_count)
 from repro_torch.core.partitioner import (PartitionResult, WarmCache,
                                           _extend_parts, _next_pow2,
-                                          apply_deltas, check_ported,
-                                          make_coarsen_fns, make_refine_fn,
-                                          refine_from, run_coarsen_loop,
-                                          run_refine_loop, solve_device,
+                                          apply_deltas, make_coarsen_fns,
+                                          make_refine_fn, refine_from,
+                                          run_coarsen_loop, run_refine_loop,
+                                          solve_device, upload,
                                           warm_storage)
 from repro_torch.core.refine import RefineParams
 from repro_torch.obs import trace as otrace
@@ -86,14 +86,14 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
     """k-way balanced partitioning (CUDA unless ``device`` names another,
     the plan's device with a ``plan``), minimising connectivity; the audit
     adds ``balance_eps``. The signature is the JAX package's: ``race``,
-    ``race_seed`` and ``dist_coarsen`` act only with ``plan``;
-    ``shard_graph`` and ``compensated_psum`` raise
-    ``NotImplementedError``.
+    ``race_seed``, ``dist_coarsen``, ``compensated_psum`` and
+    ``shard_graph`` act only with ``plan``, as in
+    ``partitioner.partition`` (``shard_graph`` without a plan or with
+    ``dist_coarsen=False`` raises ``ValueError``).
     ``collect_stats`` fills the quality side of ``level_stats`` as in
     ``partitioner.partition``; the phase times are a "partition_kway" span
     tree (setup / coarsen / initial_kway / refine / audit), and
     ``timings`` is a view over it."""
-    check_ported(shard_graph, compensated_psum)
     dev = solve_device(device, plan)
     omega = _omega(hg, k, eps)
     with otrace.span("partition_kway", nodes=hg.n_nodes, edges=hg.n_edges,
@@ -102,13 +102,17 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
             caps = Caps.for_host(hg)
             # exact int64 level-0 audit (see partitioner.partition)
             check_expansion_caps(caps, host_pair_count(hg))
-            d = device_from_host(hg, caps, dev)
+            if shard_graph and (plan is None or not dist_coarsen):
+                raise ValueError("shard_graph=True requires a Plan and "
+                                 "dist_coarsen=True")
+            d = upload(hg, caps, dev, plan, shard_graph)
         cparams = CoarsenParams(omega=omega, delta=BIG_DELTA,
                                 n_cands=n_cands, use_kernels=use_kernels)
         if coarse_target is None:
             coarse_target = min(4096, max(4 * k, 64))
         log: list | None = [] if collect_log else None
-        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen)
+        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen,
+                                               compensated_psum)
 
         with otrace.span("coarsen") as sp_coarsen:
             d, caps, levels, gammas, coarsen_hits, coarsen_meta = \
@@ -118,7 +122,11 @@ def partition_kway(hg: HostHypergraph, k: int, eps: float = 0.03,
 
         # initial k-way on the coarsest graph (host; it is small)
         with otrace.span("initial_kway"):
-            coarse_host = host_from_device(d)
+            if shard_graph:   # a collective: every rank gathers
+                from repro_torch.dist.graph import host_from_sharded
+                coarse_host = host_from_sharded(d)
+            else:
+                coarse_host = host_from_device(d)
             coarse_sizes = d.node_size[: coarse_host.n_nodes].cpu().numpy()
             init = greedy_initial_kway(coarse_host, coarse_sizes, k, omega)
             kcap = _next_pow2(k)
@@ -176,8 +184,7 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     falling back to a cold ``partition_kway`` when the drift exceeds the
     threshold or the warm result breaks the size bound. ``n_parts=k`` is
     pinned so empty trailing partitions keep their ids. ``collect_stats``
-    reaches both solves, ``plan`` too."""
-    check_ported(shard_graph, compensated_psum)
+    reaches both solves, ``plan`` (with its arguments) too."""
     dev = solve_device(device, plan)
     apply_deltas(hg, deltas, cache)
     omega = _omega(hg, k, eps)
@@ -189,7 +196,9 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
             coarse_target=coarse_target, use_kernels=use_kernels,
             collect_log=collect_log, max_levels=max_levels,
             collect_stats=collect_stats, plan=plan, race=race,
-            race_seed=race_seed, dist_coarsen=dist_coarsen, device=dev)
+            race_seed=race_seed, dist_coarsen=dist_coarsen,
+            compensated_psum=compensated_psum, shard_graph=shard_graph,
+            device=dev)
         res.mode = mode
         hg.reset_drift()
         if cache is not None:
@@ -199,12 +208,14 @@ def repartition_kway(hg: HostHypergraph, prev_parts, k: int,
     if hg.drift > drift_threshold:
         return _cold("fallback-drift")
 
-    wc = warm_storage(hg, cache, dev)
+    wc = warm_storage(hg, cache, dev, plan=plan,
+                      shard_graph=shard_graph and plan is not None)
     res = refine_from(
         hg, parts0, omega, BIG_DELTA, n_parts=k, theta=theta,
         use_kernels=use_kernels, collect_log=collect_log,
         collect_stats=collect_stats, plan=plan, race=race,
-        race_seed=race_seed, device_graph=wc.d, caps=wc.caps, mode="warm")
+        race_seed=race_seed, shard_graph=shard_graph, device_graph=wc.d,
+        caps=wc.caps, mode="warm")
     res.audit["balance_eps"] = metrics.balance_epsilon(res.parts, k)
     if not res.audit["size_ok"]:
         return _cold("fallback-audit")

@@ -33,7 +33,8 @@ def match_pseudoforest(target: torch.Tensor, score: torch.Tensor,
     the state stays replicated and each wavefront reduces this shard's
     stripe of child lanes: counts psum, the best child by (value, id)
     pmax, and the float ``sum0`` pushes gather their lanes in shard order
-    and sum as on one device."""
+    and sum as on one device (with ``ctx.compensated``, each shard's
+    partial sums combine by ``psum_compensated``)."""
     ncap = target.shape[0]
     dev = target.device
     ids = torch.arange(ncap, dtype=torch.int32, device=dev)
@@ -57,6 +58,8 @@ def match_pseudoforest(target: torch.Tensor, score: torch.Tensor,
         msk = ctx.take(mask, ch, ch_in, False)
         seg = torch.where(msk, tgt_l, ncap)
         val = torch.where(msk, ctx.take(values, ch, ch_in, 0.0), 0.0)
+        if ctx.compensated:
+            return ctx.psum_compensated(segops.segment_sum(val, seg, ncap))
         lanes = ctx.gather(torch.stack([val.view(torch.int32), seg], 1))
         return segops.segment_sum(
             lanes[:, 0].contiguous().view(torch.float32), lanes[:, 1], ncap)

@@ -29,7 +29,10 @@ V-cycle onto a ``("data", "model")`` mesh through ``dist.partition``:
 refinement repetitions race as replicas over "data" (``race=False`` for the
 deterministic mode, bit for bit the single-device result), and the
 pins-sized pipelines shard over "model", coarsening and contraction too
-unless ``dist_coarsen=False``.
+unless ``dist_coarsen=False``. ``shard_graph`` also stripes the graph's
+pins-sized storage over "model" (``dist.graph``) with the same result;
+``compensated_psum`` trades the coarsening's exact float combine for a
+compensated psum.
 """
 from __future__ import annotations
 
@@ -52,7 +55,6 @@ from repro_torch.core.hypergraph import (Caps, CapacityError, GraphDelta,
 from repro_torch.core.refine import RefineParams, refine_level
 from repro_torch.obs import trace as otrace
 from repro_torch.obs import vcycle as ovcycle
-from repro_torch.utils import segops
 from repro_torch.utils.device import resolve_device
 
 
@@ -87,16 +89,33 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, math.ceil(math.log2(max(1, x))))
 
 
-def check_ported(shard_graph: bool = False,
-                 compensated_psum: bool = False) -> None:
-    """Raise ``NotImplementedError`` for an argument of the JAX signature
-    whose path is not ported yet, naming its ROADMAP item."""
-    for name, used in (("shard_graph", shard_graph),
-                       ("compensated_psum", compensated_psum)):
-        if used:
-            raise NotImplementedError(
-                f"{name} is not ported yet: {segops.ITEM_13B} "
-                f"(memory-sharded graph storage, compensated psum)")
+def check_shard_graph(plan, dist_coarsen: bool = True,
+                      bucket: bool = False) -> None:
+    """The JAX package's checks of ``shard_graph=True``: the stripes live
+    on a plan's "model" dim, the single-device coarsening cannot read
+    them, and re-bucketing would re-slice them (``ValueError``)."""
+    if plan is None:
+        raise ValueError("shard_graph=True requires a Plan (mesh): graph "
+                         "stripes live on its 'model' dim")
+    if not dist_coarsen:
+        raise ValueError("shard_graph=True requires dist_coarsen=True: the "
+                         "single-device coarsen path cannot read "
+                         "memory-sharded storage")
+    if bucket:
+        raise ValueError("bucket=True is incompatible with shard_graph=True: "
+                         "capacity re-bucketing would re-slice the fixed "
+                         "stripe layout")
+
+
+def upload(hg: HostHypergraph, caps: Caps, dev, plan=None,
+           shard_graph: bool = False):
+    """The device storage of ``hg``: memory-sharded over the plan's "model"
+    dim (``dist.graph.sharded_from_host``) with ``shard_graph``, else
+    replicated on ``dev``."""
+    if shard_graph:
+        from repro_torch.dist.graph import sharded_from_host
+        return sharded_from_host(hg, caps, plan)
+    return device_from_host(hg, caps, dev)
 
 
 def solve_device(device, plan=None) -> torch.device:
@@ -124,18 +143,20 @@ def _kcap(k: int, kcap_hint: int | None, what: str) -> int:
 
 
 def make_coarsen_fns(cparams: CoarsenParams, plan=None,
-                     dist_coarsen: bool = True):
+                     dist_coarsen: bool = True, compensated: bool = False):
     """Per-level coarsening dispatchers: ``coarsen(d, caps) -> (match,
     n_pairs, (n_pairs_live, n_nbr_entries, kernel_path_taken))`` and
     ``contract(d, match, caps) -> (d2, gamma)``. With a ``plan`` (and
     ``dist_coarsen``) both run sharded on its mesh
     (``dist.partition.coarsen_level`` / ``contract_level``), bit for bit
-    the single-device pair."""
+    the single-device pair unless ``compensated`` (the eta and matching
+    float sums by a compensated psum; without a plan it does nothing)."""
     if plan is not None and dist_coarsen:
         from repro_torch.dist import partition as dist_partition
 
         def _coarsen(d_, caps_):
-            return dist_partition.coarsen_level(d_, caps_, cparams, plan)
+            return dist_partition.coarsen_level(d_, caps_, cparams, plan,
+                                                compensated=compensated)
 
         def _contract(d_, match_, caps_):
             return dist_partition.contract_level(d_, match_, caps_, plan)
@@ -405,10 +426,13 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
     The signature is the JAX package's. ``bucket=True`` re-buckets the
     capacities to powers of two between coarsening levels, with the same
     result. ``plan`` runs the V-cycle on its mesh, on the plan's device
-    (see the module docstring); ``race``, ``race_seed`` and
-    ``dist_coarsen`` only act together with it. ``shard_graph`` and
-    ``compensated_psum`` are not ported yet and raise
-    ``NotImplementedError``.
+    (see the module docstring); ``race``, ``race_seed``, ``dist_coarsen``
+    and ``compensated_psum`` only act together with it.
+    ``compensated_psum`` combines the coarsening's float sums by a
+    compensated psum (the same bits on every rank, not one device's).
+    ``shard_graph`` stores the pins-sized arrays striped over the plan's
+    "model" dim (``dist.graph``), with the same result; it needs a plan and
+    ``dist_coarsen`` and excludes ``bucket`` (``ValueError``).
     ``pair_cap``/``nbr_cap`` override the exact expansion capacities; an
     undersized one raises ``CapacityError``, never truncates.
     ``collect_stats=True`` also fills the quality side of ``level_stats``
@@ -417,7 +441,6 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
     ``timings`` is a view over the span tree ("partition" > setup /
     coarsen / refine / audit), whose spans end after the device finished.
     """
-    check_ported(shard_graph, compensated_psum)
     dev = solve_device(device, plan)
 
     with otrace.span("partition", nodes=hg.n_nodes, edges=hg.n_edges,
@@ -428,12 +451,15 @@ def partition(hg: HostHypergraph, omega: int, delta: int,
             # only shrink under coarsening, so every level's int32 count is
             # then exact
             check_expansion_caps(caps, host_pair_count(hg))
-            d = device_from_host(hg, caps, dev)
+            if shard_graph:
+                check_shard_graph(plan, dist_coarsen, bucket)
+            d = upload(hg, caps, dev, plan, shard_graph)
         cparams = CoarsenParams(omega=omega, delta=delta, n_cands=n_cands,
                                 use_kernels=use_kernels, matching=matching)
         target = max(1, math.ceil(hg.n_nodes / omega))
         log: list | None = [] if collect_log else None
-        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen)
+        _coarsen, _contract = make_coarsen_fns(cparams, plan, dist_coarsen,
+                                               compensated_psum)
 
         with otrace.span("coarsen") as sp_coarsen:
             d, caps, levels, gammas, coarsen_hits, coarsen_meta = \
@@ -505,10 +531,10 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
     ``hg`` (``repartition``'s warm cache) instead of uploading it; the
     solve then runs on that storage's device. Otherwise it runs on CUDA
     unless ``device`` names another. ``collect_stats`` and ``plan`` (with
-    ``race``, ``race_seed``) are as in ``partition``; ``shard_graph``
-    raises ``NotImplementedError``.
+    ``race``, ``race_seed``, ``shard_graph``) are as in ``partition``;
+    ``shard_graph`` acts on the upload, so not with ``device_graph``,
+    which may itself be a ``ShardedHypergraph``.
     """
-    check_ported(shard_graph)
     with otrace.span("partition", nodes=hg.n_nodes, edges=hg.n_edges,
                      pins=hg.n_pins, omega=omega, delta=delta,
                      mode=mode) as sp_total:
@@ -522,7 +548,9 @@ def refine_from(hg: HostHypergraph, parts, omega: int, delta: int,
                 # exact int64 audit before any device work (refinement's
                 # in-sequence gains expand the same pin pairs)
                 check_expansion_caps(caps, host_pair_count(hg))
-                d = device_from_host(hg, caps, dev)
+                if shard_graph:
+                    check_shard_graph(plan)
+                d = upload(hg, caps, dev, plan, shard_graph)
             else:
                 d = device_graph
                 dev = d.device
@@ -599,7 +627,7 @@ class WarmCache:
     pass a fresh one (or None) to start cold."""
 
     caps: Caps | None = None
-    d: object | None = None   # DeviceHypergraph
+    d: object | None = None   # DeviceHypergraph or dist's ShardedHypergraph
 
     def invalidate(self) -> None:
         self.caps = None
@@ -623,14 +651,31 @@ def _extend_parts(prev_parts, n_nodes: int, k: int) -> np.ndarray:
     return out
 
 
-def apply_deltas(hg: HostHypergraph, deltas, cache: WarmCache | None) -> None:
+def apply_deltas(hg: HostHypergraph, deltas, cache: WarmCache | None,
+                 plan=None) -> None:
     """Apply ``deltas`` (one ``GraphDelta`` or a sequence) to ``hg`` in
     place. A valid ``cache`` keeps its caps while the graph still fits them
     and drops its storage, which the warm solve rebuilds; a graph that
-    outgrew the caps invalidates it."""
+    outgrew the caps invalidates it. With a ``plan``, a cache that holds
+    memory-sharded storage takes each delta on the device instead, by
+    stripe-local scatters (``dist.graph.apply_delta_sharded``); its
+    ``CapacityError`` invalidates the cache."""
     if isinstance(deltas, GraphDelta):
         deltas = [deltas]
     for dl in deltas or []:
+        if plan is not None and cache is not None and \
+                cache.caps is not None and cache.d is not None:
+            from repro_torch.dist.graph import (ShardedHypergraph,
+                                                apply_delta_sharded)
+            if isinstance(cache.d, ShardedHypergraph):
+                try:
+                    cache.d = apply_delta_sharded(cache.d, hg, dl,
+                                                  cache.caps, plan)
+                except CapacityError:
+                    # the host mirror took the delta: the warm solve
+                    # uploads it at fresh caps
+                    cache.invalidate()
+                continue
         apply_delta(hg, dl)
         if cache is not None and cache.caps is not None:
             cache.d = None
@@ -642,10 +687,11 @@ def apply_deltas(hg: HostHypergraph, deltas, cache: WarmCache | None) -> None:
 
 def warm_storage(hg: HostHypergraph, cache: WarmCache | None, dev,
                  pair_cap: int | None = None,
-                 nbr_cap: int | None = None) -> WarmCache:
+                 nbr_cap: int | None = None, plan=None,
+                 shard_graph: bool = False) -> WarmCache:
     """``cache`` (or a fresh one) holding caps and device storage for
-    ``hg`` on ``dev``: fresh caps if it has none, a new upload if it has
-    no storage there."""
+    ``hg`` on ``dev``: fresh caps if it has none, a new upload (sharded
+    over the plan with ``shard_graph``) if it has no storage there."""
     wc = cache if cache is not None else WarmCache()
     if wc.caps is None:
         wc.d = None
@@ -654,7 +700,7 @@ def warm_storage(hg: HostHypergraph, cache: WarmCache | None, dev,
     if wc.d is not None and not _same_device(wc.d.device, dev):
         wc.d = None
     if wc.d is None:
-        wc.d = device_from_host(hg, wc.caps, dev)
+        wc.d = upload(hg, wc.caps, dev, plan, shard_graph)
     return wc
 
 
@@ -689,12 +735,15 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
     warm solves keep adding to the drift, so repeated small deltas end in
     one consolidating cold solve. Runs on CUDA unless ``device`` names
     another; ``collect_stats`` and ``plan`` (with ``race``, ``race_seed``,
-    ``dist_coarsen``) are as in ``partition``; ``shard_graph`` and
-    ``compensated_psum`` raise ``NotImplementedError``.
+    ``dist_coarsen``, ``compensated_psum``, ``shard_graph``) are as in
+    ``partition``. With ``shard_graph`` and a plan the cache holds the
+    memory-sharded storage and takes the deltas on the device
+    (``apply_deltas``); a ``CapacityError`` there invalidates it and the
+    solve stays warm at fresh caps.
     """
-    check_ported(shard_graph, compensated_psum)
     dev = solve_device(device, plan)
-    apply_deltas(hg, deltas, cache)
+    use_sharded = shard_graph and plan is not None
+    apply_deltas(hg, deltas, cache, plan if use_sharded else None)
 
     k_prev = (int(np.asarray(prev_parts).max(initial=0)) + 1
               if n_parts is None else int(n_parts))
@@ -708,7 +757,9 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
             kcap_hint=kcap_hint, matching=matching,
             chain_rounds=chain_rounds, pair_cap=pair_cap, nbr_cap=nbr_cap,
             collect_stats=collect_stats, plan=plan, race=race,
-            race_seed=race_seed, dist_coarsen=dist_coarsen, device=dev)
+            race_seed=race_seed, dist_coarsen=dist_coarsen,
+            compensated_psum=compensated_psum, shard_graph=shard_graph,
+            device=dev)
         res.mode = mode
         hg.reset_drift()
         if cache is not None:
@@ -718,13 +769,13 @@ def repartition(hg: HostHypergraph, prev_parts, omega: int, delta: int,
     if hg.drift > drift_threshold:
         return _cold("fallback-drift")
 
-    wc = warm_storage(hg, cache, dev, pair_cap, nbr_cap)
+    wc = warm_storage(hg, cache, dev, pair_cap, nbr_cap, plan, use_sharded)
     res = refine_from(
         hg, parts0, omega, delta, n_parts=n_parts, theta=theta,
         use_kernels=use_kernels, refine_params=refine_params,
         collect_log=collect_log, kcap_hint=kcap_hint,
         chain_rounds=chain_rounds, collect_stats=collect_stats,
-        plan=plan, race=race, race_seed=race_seed,
+        plan=plan, race=race, race_seed=race_seed, shard_graph=shard_graph,
         device_graph=wc.d, caps=wc.caps, mode="warm")
     if not (res.audit["size_ok"] and res.audit["inbound_ok"]):
         return _cold("fallback-audit")

@@ -38,7 +38,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.hypergraph import Caps, DeviceHypergraph, build_pairs
+from repro_torch.core.hypergraph import (Caps, DeviceHypergraph, build_pairs,
+                                         whole_columns)
 from repro_torch.utils import segops
 
 IMAX = 2**31 - 1
@@ -351,16 +352,22 @@ def build_sequence(d: DeviceHypergraph, parts: torch.Tensor,
 def inseq_gains(d: DeviceHypergraph, parts: torch.Tensor, pins: torch.Tensor,
                 move_to: torch.Tensor, gain_iso: torch.Tensor,
                 seq: torch.Tensor, caps: Caps, kcap: int,
-                ctx: segops.ShardCtx = segops.ShardCtx()) -> torch.Tensor:
+                ctx: segops.ShardCtx = segops.ShardCtx(),
+                whole: DeviceHypergraph | None = None) -> torch.Tensor:
     """gain_iso plus the exact in-sequence correction. On a mesh the pair
     lanes are this shard's stripe, the per-slot counts reduce-scatter onto
     the slot-lane stripes, and the f32 adjustments are gathered in shard
-    order and summed as on one device."""
+    order and summed as on one device. The pair expansion reads
+    ``edge_pins`` at arbitrary slots: from ``whole``, ``d``'s
+    ``whole_columns``, which are rebuilt here unless the caller holds
+    them."""
     if ctx.axis is None:
         pairs = build_pairs(d, caps)
     else:
+        if whole is None:
+            whole = whole_columns(d, caps, ctx, ("edge_pins",))
         pidx, p_ok = ctx.lanes(caps.pairs, d.device)
-        pairs = build_pairs(d, caps, idx=pidx, idx_ok=p_ok, ctx=ctx)
+        pairs = build_pairs(whole, caps, idx=pidx, idx_ok=p_ok)
     n = pairs.n.clamp(0, caps.n - 1).long()
     m = pairs.m.clamp(0, caps.n - 1).long()
     mv_n = move_to[n]
@@ -547,27 +554,37 @@ def events_validity(d: DeviceHypergraph, parts: torch.Tensor,
 def refine_step(d: DeviceHypergraph, parts: torch.Tensor, n_parts: int,
                 caps: Caps, kcap: int, params: RefineParams,
                 enforce_size: bool, tie_rank: torch.Tensor | None = None,
-                ctx: segops.ShardCtx = segops.ShardCtx()):
+                ctx: segops.ShardCtx = segops.ShardCtx(),
+                whole: DeviceHypergraph | None = None):
     """One repetition (pins -> proposal -> chains -> in-sequence gains ->
     events), the JAX package's ``refine_step_impl``. Returns (parts,
-    applied_gain, n_applied, gains_kernel_taken, pins_kernel_taken)."""
+    applied_gain, n_applied, gains_kernel_taken, pins_kernel_taken).
+
+    With striped storage (``ctx.striped()``) the lane stages read ``d``'s
+    stripes, while the stages that read rows or arbitrary slots (the
+    pins_count and gains kernels, the move proposal on node rows, the pair
+    expansion) read ``whole``, ``d``'s ``whole_columns``: rebuilt here for
+    this repetition unless the caller holds them (``dist.partition``
+    rebuilds them once a level)."""
+    if whole is None:
+        whole = whole_columns(d, caps, ctx)
     pins_taken = 0
     if params.use_kernels:
         from repro_torch.kernels.pins_count import ops as pc_ops
         if pc_ops.fits_kernel(d, caps):
-            pins, pins_in = pc_ops.pins_matrix_kernel(d, parts, caps, kcap,
-                                                      ctx)
+            pins, pins_in = pc_ops.pins_matrix_kernel(whole, parts, caps,
+                                                      kcap, ctx)
             pins_taken = 1
         else:
             pins, pins_in = pins_matrix(d, parts, caps, kcap, ctx)
     else:
         pins, pins_in = pins_matrix(d, parts, caps, kcap, ctx)
     move_to, gain_iso, _, kernel_taken = propose_moves(
-        d, parts, pins, caps, kcap, params, enforce_size, n_parts, ctx)
+        whole, parts, pins, caps, kcap, params, enforce_size, n_parts, ctx)
     seq, _ = build_sequence(d, parts, move_to, gain_iso, caps, kcap, params,
                             tie_rank=tie_rank)
     gain_seq = inseq_gains(d, parts, pins, move_to, gain_iso, seq, caps,
-                           kcap, ctx)
+                           kcap, ctx, whole=whole)
     apply_mask, applied_gain = events_validity(
         d, parts, pins_in, move_to, seq, gain_seq, caps, kcap, params, ctx)
     parts_new = torch.where(apply_mask & (move_to >= 0), move_to, parts)

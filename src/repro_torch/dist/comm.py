@@ -1,7 +1,8 @@
 """The collectives of the mesh path, over one process group.
 
-`Comm` wraps the four collectives the sharded V-cycle uses (``all_reduce``,
-``all_gather``, ``all_to_all`` and ``broadcast``) for one group. Its
+`Comm` wraps the collectives the sharded V-cycle uses (``all_reduce``,
+``all_gather``, ``all_to_all``, ``reduce_scatter`` over ``all_to_all`` and
+``broadcast``) for one group. Its
 transport is fixed when it is built, never chosen by catching an error:
 
 * ``"nccl"``: tensors on the ranks' CUDA devices pass through unchanged;
@@ -115,6 +116,24 @@ class Comm:
             dist.all_to_all_single(out, y, output_split_sizes=recv,
                                    input_split_sizes=send, group=self.group)
             return self._back(out, x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's stripe of the elementwise sum over the group of
+        ``x`` (integers; its dim 0 a multiple of the group size): an
+        ``all_to_all`` of the stripes, then their sum in rank order, on
+        every transport (gloo has no reduce-scatter of its own)."""
+        if x.is_floating_point():
+            raise TypeError("reduce_scatter takes integer partials")
+        if x.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter of {x.shape[0]} rows over "
+                             f"{self.size} ranks")
+        per = x.shape[0] // self.size
+        got = self.all_to_all(x, [per] * self.size, [per] * self.size)
+        got = got.reshape((self.size, per) + tuple(x.shape[1:]))
+        out = got[0].clone()
+        for r in range(1, self.size):
+            out += got[r]
+        return out
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """``x`` of group rank ``src`` on every rank."""

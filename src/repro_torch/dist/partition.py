@@ -48,9 +48,35 @@ a collective, so all ranks of a group call the same collectives in the
 same order; the one "data" collective of a repetition sits after the
 repetition, outside any loop whose trip count depends on the tie-break.
 
-The graph is stored replicated. The memory-sharded storage
-(``shard_graph``, ``dist/graph.py``) and the compensated float psum wait
-for ROADMAP.md Queue A item 13b.
+**Graph storage.** The drivers take a replicated ``DeviceHypergraph`` or a
+memory-sharded ``dist.graph.ShardedHypergraph`` (``shard_graph``), whose
+three pins-sized arrays hold only this rank's lane stripe over "model"
+(racing replicas over "data" hold the same stripe). Striping is pure
+layout: the lane stages read their stripe (``ShardCtx.gread``), and
+contraction emits the coarse pins arrays as stripes (a reduce-scatter of
+the packing scatter, the incidence sort's own stripes), so the retained
+levels stay striped end to end and every result above holds bit for bit.
+The stages that read rows, not lanes, take **documented transients**:
+whole ``edge_pins`` and ``node_edges`` columns that ``ShardCtx.gfull``
+rebuilds (``core.hypergraph.whole_columns``, one gather of both), for
+``build_pairs`` (two arbitrary pin slots a pair lane), B1-B3 (they walk
+both CSRs from a row range) and the move proposal on node rows. A level's
+coarsening rebuilds them once (``node_edges`` only under
+``use_kernels``, for B1); refinement rebuilds them once a level, not once
+a repetition (which ``refine_step`` alone does): the same peak, 8 bytes a
+pin alive while the level refines, for 1/Theta of the gathers. Measured
+by ``tools/time_shard_transient.py`` on level 0 of a 16,384-node graph,
+Theta 16, two ranks on one NVIDIA H100 80GB HBM3 (700.00 W) over gloo:
+once a level 2.10 s, 610 host-staged copies, 165.2 MB; once a
+repetition 2.40 s, 640 copies, 190.3 MB; the peak 140.9 MB above the
+stored graph either way. ``node_is_in`` is never rebuilt. No stage reads
+a rebuilt column through ``gread``, which fails on anything but a
+stripe.
+
+``compensated``: the coarsening's eta and the matching's ``sum0`` combine
+per-shard f32 partials by ``ShardCtx.psum_compensated`` (a Neumaier fold
+in shard order) instead of gathering their lane columns: less traffic,
+the same bits on every rank, but not one device's bits.
 """
 from __future__ import annotations
 
@@ -60,10 +86,20 @@ import torch
 
 from repro_torch.core.coarsen import CoarsenParams, coarsen_step_impl
 from repro_torch.core.contract import contract_impl
-from repro_torch.core.hypergraph import Caps
+from repro_torch.core.hypergraph import Caps, whole_columns
 from repro_torch.core.refine import RefineParams, refine_step
+from repro_torch.dist.graph import ShardedHypergraph
 from repro_torch.dist.sharding import Plan
 from repro_torch.utils import segops
+
+
+def _graph_arg(d):
+    """(the inner ``DeviceHypergraph``, storage striped?): the drivers take
+    replicated and memory-sharded graphs alike; the wrapper is the
+    marker."""
+    if isinstance(d, ShardedHypergraph):
+        return d.g, d.nshards > 1
+    return d, False
 
 
 def plan_axes(plan: Plan) -> tuple[str | None, str | None, int]:
@@ -75,13 +111,16 @@ def plan_axes(plan: Plan) -> tuple[str | None, str | None, int]:
     return data_axis, model_axis, shape["model"] if model_axis else 1
 
 
-def shard_ctx(plan: Plan) -> segops.ShardCtx:
-    """This rank's ``ShardCtx`` of the plan's "model" dim."""
+def shard_ctx(plan: Plan, striped: bool = False,
+              compensated: bool = False) -> segops.ShardCtx:
+    """This rank's ``ShardCtx`` of the plan's "model" dim; ``striped``: the
+    graph's pins arrays are this rank's stripes."""
     _, model_axis, nshards = plan_axes(plan)
     if model_axis is None:
         return segops.ShardCtx()
     return segops.ShardCtx(axis=model_axis, nshards=nshards,
-                           comm=plan.model)
+                           comm=plan.model, compensated=compensated,
+                           graph_striped=striped)
 
 
 def replica_tie_rank(n: int, seed: int, rep: int, replica: int,
@@ -104,9 +143,13 @@ def refine_level(d, parts, n_parts: int, caps: Caps, kcap: int,
     replica race (R = the "data" size) over pipelines sharded M-way (M =
     the "model" size). ``race=False`` gives every replica the identity.
     Returns ``(parts, (gains_kernel_reps, pins_kernel_reps))``; the kernel
-    branch is mesh-independent, so the counts are the single device's."""
+    branch is mesh-independent, so the counts are the single device's.
+    ``d`` may be a ``ShardedHypergraph``: its whole columns are rebuilt
+    once for the level's repetitions (see the module docstring)."""
+    d, striped = _graph_arg(d)
     data_axis, _, _ = plan_axes(plan)
-    ctx = shard_ctx(plan)
+    ctx = shard_ctx(plan, striped)
+    whole = whole_columns(d, caps, ctx)
     replica = plan.data.rank if data_axis else 0
     raced = bool(race) and data_axis is not None
     hits = phits = 0
@@ -116,7 +159,7 @@ def refine_level(d, parts, n_parts: int, caps: Caps, kcap: int,
                                      parts.device) if raced else None)
         parts_new, g, nmv, kt, pt = refine_step(
             d, parts, n_parts, caps, kcap, params, enforce,
-            tie_rank=tie_rank, ctx=ctx)
+            tie_rank=tie_rank, ctx=ctx, whole=whole)
         if data_axis is None:
             parts = parts_new
         else:
@@ -141,21 +184,26 @@ def refine_level(d, parts, n_parts: int, caps: Caps, kcap: int,
 def coarsen_level(d, caps: Caps, cparams: CoarsenParams, plan: Plan,
                   compensated: bool = False):
     """``core.coarsen.coarsen_step`` on a mesh, never raced and bit for bit
-    the single-device level. Returns ``(match, n_matched_pairs,
-    (n_pairs_live, n_nbr_entries, kernel_path_taken))``."""
-    if compensated:
-        raise NotImplementedError(
-            f"compensated_psum is not ported yet: {segops.ITEM_13B}")
-    match, n_pairs, props = coarsen_step_impl(d, caps, cparams,
-                                              shard_ctx(plan))
+    the single-device level (``compensated``: the same bits on every rank,
+    not one device's). Returns ``(match, n_matched_pairs, (n_pairs_live,
+    n_nbr_entries, kernel_path_taken))``."""
+    d, striped = _graph_arg(d)
+    match, n_pairs, props = coarsen_step_impl(
+        d, caps, cparams, shard_ctx(plan, striped, compensated))
     return match, n_pairs, (props.n_pairs_live, props.n_nbr_entries,
                             props.kernel_path_taken)
 
 
 def contract_level(d, match, caps: Caps, plan: Plan):
     """``core.contract.contract`` on a mesh: an integer pipeline, bit for
-    bit the single-device contraction. Returns (d_coarse, gamma)."""
-    return contract_impl(d, match, caps, shard_ctx(plan))
+    bit the single-device contraction. Returns (d_coarse, gamma); a
+    ``ShardedHypergraph`` in gives one out, its stripes emitted as such."""
+    g, striped = _graph_arg(d)
+    d2, gamma = contract_impl(g, match, caps, shard_ctx(plan, striped))
+    if isinstance(d, ShardedHypergraph):
+        d2 = ShardedHypergraph(g=d2, nshards=d.nshards, caps=caps,
+                               comm=d.comm)
+    return d2, gamma
 
 
 def partition(hg, omega: int, delta: int, plan: Plan, *, race: bool = True,

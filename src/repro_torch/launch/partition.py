@@ -8,7 +8,7 @@ or on a mesh of ranks.
 
   PYTHONPATH=src torchrun --nproc-per-node W -m repro_torch.launch.partition \
       --mesh host --replicas R [--no-race] [--single-coarsen] \
-      [--race-seed S] ...
+      [--race-seed S] [--shard-graph] [--compensated-psum] ...
 
 The flags of ``repro.launch.partition``. ``--repartition-from prev.json``
 warm-starts from an earlier run's ``--json`` dump (refinement only;
@@ -23,8 +23,11 @@ unless ``--single-coarsen``. Under ``torchrun`` (or any launcher that sets
 the ``env://`` variables) the process group starts here: gloo when the
 ranks share one card (their collectives staged through the host) or run
 on the CPU, NCCL when each rank has a card (``cuda:LOCAL_RANK``). Rank 0
-prints and writes ``--json``. ``--shard-graph`` and ``--compensated-psum``
-wait for ROADMAP.md Queue A item 13b.
+prints and writes ``--json``. ``--shard-graph`` stores the graph's
+pins-sized arrays striped over the mesh's model dim (``dist.graph``, the
+same result); ``--compensated-psum`` combines the coarsening's float sums
+by a compensated psum (the same result on every rank, not always the
+single device's).
 """
 from __future__ import annotations
 
@@ -95,11 +98,13 @@ def main(argv=None):
                          "runs on the mesh)")
     ap.add_argument("--race-seed", type=int, default=0)
     ap.add_argument("--shard-graph", action="store_true",
-                    help="memory-sharded graph storage: not ported yet "
-                         "(ROADMAP.md Queue A item 13b)")
+                    help="memory-sharded graph storage: the pins-sized "
+                         "arrays striped over the mesh's model dim (needs "
+                         "--mesh host)")
     ap.add_argument("--compensated-psum", action="store_true",
-                    help="compensated float psum: not ported yet "
-                         "(ROADMAP.md Queue A item 13b)")
+                    help="combine the coarsening's float sums by a "
+                         "Neumaier-compensated psum of per-shard partials "
+                         "(less traffic; not the single device's bits)")
     ap.add_argument("--repartition-from", default=None, metavar="PREV.json",
                     help="warm-start from a previous --json dump: skip "
                          "coarsening and re-refine from its parts vector "
@@ -118,9 +123,9 @@ def main(argv=None):
                          "warm --repartition-from solve falls back to the "
                          "cold V-cycle")
     args = ap.parse_args(argv)
-    if args.shard_graph or args.compensated_psum:
-        raise SystemExit("--shard-graph / --compensated-psum are not ported "
-                         "yet: ROADMAP.md Queue A item 13b")
+    if args.shard_graph and args.mesh != "host":
+        raise SystemExit("--shard-graph requires --mesh host (graph stripes "
+                         "live on the mesh's model dim)")
     plan = None
     if args.mesh == "host":
         import torch.distributed as dist
@@ -152,7 +157,9 @@ def main(argv=None):
                                              seed=args.perturb_seed))
     common = dict(theta=args.theta, use_kernels=args.use_kernels,
                   device=args.device, plan=plan, race=not args.no_race,
-                  race_seed=args.race_seed)
+                  race_seed=args.race_seed,
+                  compensated_psum=args.compensated_psum,
+                  shard_graph=args.shard_graph)
     if args.repartition_from:
         with open(args.repartition_from) as f:
             prev = json.load(f)

@@ -1,10 +1,14 @@
 """Multi-tenant partition service CLI on one device (CUDA unless
-``--device`` names another).
+``--device`` names another) or on a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.partition_service \
       --requests 16 --nodes 48 --edges 64 --pins 4 --omega 16 --delta 256 \
       [--mixed] [--route-threshold 2048] [--device cpu] [--json out.json] \
       [--metrics-json m.json [--metrics-interval N]]
+
+  PYTHONPATH=src torchrun --nproc-per-node W \
+      -m repro_torch.launch.partition_service --mesh host --replicas R \
+      [--no-race] ...
 
 Feeds a flood of generated requests through `serve.PartitionService`, as
 ``repro.launch.partition_service`` does: small and medium graphs batch into
@@ -15,8 +19,12 @@ capacity buckets (one batch solve per bucket batch), anything above
 ``--metrics-json PATH`` writes the telemetry document (registry snapshot
 and the aggregated span tree) on exit; ``--metrics-interval N`` also
 rewrites it every N seconds while the flood drains (a `PeriodicDumper`).
-The mesh flags (``--mesh host``, ``--replicas``, ``--no-race``) wait for
-the service's mesh lane (ROADMAP.md Queue A item 13b).
+``--mesh host`` gives the service the ``(R, W // R)`` mesh of the W ranks
+(``launch.partition.build_plan``: gloo when the ranks share a card or run
+on the CPU, NCCL with a card a rank): every rank runs the same flood, the
+routed and warm solves run on the mesh with the graph memory-sharded and
+racing unless ``--no-race``, the bucket lane on each rank's device. Rank 0
+prints and writes the dumps.
 """
 from __future__ import annotations
 
@@ -45,8 +53,10 @@ def main(argv=None):
                     help="make every 4th request over-threshold so the "
                          "routed V-cycle lane runs too")
     ap.add_argument("--mesh", choices=["none", "host"], default="none")
-    ap.add_argument("--replicas", type=int, default=None)
-    ap.add_argument("--no-race", action="store_true")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="racing replicas along the mesh's data dim")
+    ap.add_argument("--no-race", action="store_true",
+                    help="every replica takes the identity tie-break")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; no CUDA device and no "
@@ -61,10 +71,14 @@ def main(argv=None):
     ap.add_argument("--collect-stats", action="store_true",
                     help="collect per-level LevelStats on the routed lane")
     args = ap.parse_args(argv)
-    if args.mesh != "none" or args.replicas is not None or args.no_race:
-        raise NotImplementedError(
-            "--mesh / --replicas / --no-race are not ported yet: ROADMAP.md "
-            "Queue A item 13b (the service's mesh lane)")
+    plan = None
+    if args.mesh == "host":
+        import torch.distributed as dist
+
+        from repro_torch.launch.partition import build_plan
+        owned = not dist.is_initialized()   # this run starts the group
+        plan = build_plan(args.replicas, args.device)
+    lead = plan is None or plan.mesh.get_rank() == 0
 
     from repro_torch import obs
     from repro_torch.core.generate import random_kuniform
@@ -77,9 +91,9 @@ def main(argv=None):
         bucket_base=args.bucket_base, route_threshold=args.route_threshold,
         deadline_s=args.deadline, max_restarts=args.max_restarts,
         registry=obs.metrics.REGISTRY, collect_stats=args.collect_stats,
-        device=args.device)
+        plan=plan, race=not args.no_race, device=args.device)
     dumper = None
-    if args.metrics_json and args.metrics_interval > 0:
+    if lead and args.metrics_json and args.metrics_interval > 0:
         dumper = obs.PeriodicDumper(args.metrics_json,
                                     args.metrics_interval)
 
@@ -101,7 +115,7 @@ def main(argv=None):
     svc.close()
     if dumper is not None:
         dumper.stop()          # writes the final dump
-    elif args.metrics_json:
+    elif lead and args.metrics_json:
         obs.dump_json(args.metrics_json)
 
     if sorted(res) != sorted(rids):
@@ -120,13 +134,16 @@ def main(argv=None):
         / len(res),
         mean_solve_s=sum(r.solve_s for r in res.values()) / len(res),
         stats=svc.stats,
-        mesh=None,
+        mesh=None if plan is None else plan.shape(),
         device=str(svc.device),
     )
-    print(json.dumps(out, indent=2))
-    if args.json:
+    if lead:
+        print(json.dumps(out, indent=2))
+    if lead and args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
+    if plan is not None and owned:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -60,12 +60,20 @@ QUALITY_KEYS = ("connectivity", "cut_net", "max_size", "size_slack",
                 "max_inbound", "inbound_slack")
 
 
-def quality_scalars(d, parts, caps, kcap: int, omega, delta) -> dict:
+def quality_scalars(d, parts, caps, kcap: int, omega,
+                    delta) -> dict | None:
     """Quality stats of ``parts`` on level graph ``d``: a dict of six 0-d
     tensors on ``d``'s device, which the caller reads back with every other
     level's in one host read. The float sums are ``torch.sum`` over one
-    1-D tensor, a fixed order with no float atomics."""
+    1-D tensor, a fixed order with no float atomics. ``None`` for
+    memory-sharded storage (``dist.graph.ShardedHypergraph``), as in the
+    JAX package: its stripes are read only by the solver's collectives,
+    and the stats are not worth more of them."""
+    from repro_torch.core.hypergraph import DeviceHypergraph
     from repro_torch.core.refine import partition_sizes, pins_matrix
+
+    if not isinstance(d, DeviceHypergraph):
+        return None
 
     dev = d.device
     pins, pins_in = pins_matrix(d, parts, caps, kcap)
@@ -88,13 +96,14 @@ def quality_scalars(d, parts, caps, kcap: int, omega, delta) -> dict:
 def read_quality(quality_dev: dict) -> dict:
     """``{level: {key: tensor}}`` to ``{level: {key: number}}`` in one host
     read: every scalar is stacked as float64, which holds the f32 sums and
-    the int32 counts exactly."""
-    if not quality_dev:
-        return {}
-    lvls = sorted(quality_dev)
+    the int32 counts exactly. A level whose stats are ``None`` stays
+    ``None``."""
+    out = {lvl: None for lvl, q in quality_dev.items() if q is None}
+    lvls = sorted(lvl for lvl, q in quality_dev.items() if q is not None)
+    if not lvls:
+        return out
     flat = torch.stack([quality_dev[lvl][k].to(torch.float64)
                         for lvl in lvls for k in QUALITY_KEYS]).cpu().tolist()
-    out = {}
     for i, lvl in enumerate(lvls):
         vals = flat[i * len(QUALITY_KEYS): (i + 1) * len(QUALITY_KEYS)]
         out[lvl] = {k: (v if k in ("connectivity", "cut_net") else int(v))

@@ -21,7 +21,12 @@ Three lanes:
   is not padded.
 * **Routed V-cycle.** Graphs above `route_threshold` nodes, or too big for
   any bucket, take the host-driven multilevel solve
-  (`core.partitioner.partition`).
+  (`core.partitioner.partition`), on a mesh when the service has a `Plan`
+  (``plan=``, the "vcycle-sharded" route): the ranks of the plan each run
+  the same service on the same requests, the routed and warm solves go
+  through the mesh with the graph memory-sharded (``shard_graph=True`` by
+  default) and racing as ``race`` says, and the bucket lane stays on
+  each rank's device, as in the JAX package.
 * **Warm repartition.** A `submit(..., key=...)` request caches its
   solution; `resubmit(key, deltas=...)` applies the `GraphDelta` batch to
   the cached graph at once (so a requeue never applies it twice) and
@@ -42,8 +47,8 @@ Telemetry goes to a `repro_torch.obs.metrics.Registry` (a private one per
 instance by default; the CLI passes the process-global one so one
 ``--metrics-json`` dump carries the service, span and watchdog series).
 The ``stats`` counter dict is a read-only view over the registry. Every
-solve runs on CUDA unless the service is given another device; the mesh
-lane (``plan=``) waits for ROADMAP.md Queue A item 13b.
+solve runs on CUDA unless the service is given another device, or on the
+plan's device with a plan.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import math
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core import metrics
 from repro_torch.core.hypergraph import (Caps, CapacityError,
@@ -68,11 +74,6 @@ from repro_torch.dist.ft import StepWatchdog
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as otrace
 from repro_torch.utils.device import resolve_device
-
-
-# the routed lane's name (the JAX package's mesh lane, "vcycle-sharded",
-# waits for ROADMAP.md Queue A item 13b)
-ROUTED = "vcycle"
 
 
 def stack_device_batch(hgs: list[HostHypergraph], caps: Caps,
@@ -158,9 +159,8 @@ class PartitionService:
         up to `route_threshold`.
     route_threshold : graphs with more nodes (or that fit no bucket) take
         the host-driven V-cycle.
-    plan, shard_graph, race : the JAX signature's mesh lane. A ``plan``
-        raises ``NotImplementedError`` (ROADMAP.md Queue A item 13b);
-        ``shard_graph`` and ``race`` act only with one.
+    plan, shard_graph, race : the mesh lane: forwarded to the routed and
+        warm solves (``shard_graph`` and ``race`` act only with a plan).
     deadline_s : `StepWatchdog` deadline per solve.
     max_restarts : per-request budget of failed or stalled solves before
         the failure re-raises.
@@ -174,7 +174,7 @@ class PartitionService:
         to join the process-global dump (the CLI does).
     collect_stats : forwarded to the routed and warm solves.
     device : where every solve runs; CUDA unless another is named, and
-        ``RuntimeError`` without one.
+        ``RuntimeError`` without one; the plan's device with a plan.
     """
 
     def __init__(self, theta: int = 16, n_cands: int = 4,
@@ -185,15 +185,17 @@ class PartitionService:
                  requeue_on_stall: bool = True, fault_hook=None,
                  registry: obs_metrics.Registry | None = None,
                  collect_stats: bool = False, device=None):
-        if plan is not None:
-            raise NotImplementedError(
-                "the service's mesh lane (plan, shard_graph) is not ported "
-                "yet: ROADMAP.md Queue A item 13b")
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if bucket_base < 2:
             raise ValueError(f"bucket_base must be >= 2, got {bucket_base}")
-        self.device = resolve_device(device)
+        # with a plan the solves run on its device: the mesh solves check
+        # that a named device agrees, when the plan is first used
+        self.device = resolve_device(plan.device if plan is not None
+                                     and device is None else device)
+        self.plan = plan
+        self.shard_graph = shard_graph
+        self.race = race
         self.theta = theta
         self.n_cands = n_cands
         self.chain_rounds = chain_rounds
@@ -227,7 +229,7 @@ class PartitionService:
         # pre-register the zero-valued series so a dump taken before the
         # first event still carries the whole catalogue
         r = self.registry
-        for route in ("bucket", ROUTED, "warm"):
+        for route in ("bucket", self._routed_route(), "warm"):
             r.counter("service.submitted", 0, route=route)
             r.counter("service.solves", 0, route=route)
             r.counter("service.requeues", 0, route=route)
@@ -239,6 +241,16 @@ class PartitionService:
             r.counter("repartition.solves", 0, mode=mode)
         r.histogram("repartition.solve_latency.s")
 
+    def _routed_route(self) -> str:
+        return "vcycle" if self.plan is None else "vcycle-sharded"
+
+    def _mesh_kwargs(self) -> dict:
+        """The mesh arguments of the routed and warm solves."""
+        if self.plan is None:
+            return dict(device=self.device)
+        return dict(plan=self.plan, shard_graph=self.shard_graph,
+                    race=self.race)
+
     @property
     def stats(self) -> dict:
         """Legacy counter-dict view (read-only) over the registry."""
@@ -246,7 +258,7 @@ class PartitionService:
         return dict(
             batch_solves=int(r.value("service.solves", route="bucket")),
             routed_solves=int(r.value("service.solves",
-                                      route=ROUTED)),
+                                      route=self._routed_route())),
             restarts=int(r.total("service.requeues")),
             stalls=int(r.total("service.stalls")),
             bumps=int(r.total("service.bumps")))
@@ -309,7 +321,7 @@ class PartitionService:
         self._next_order += 1
         self.registry.counter(
             "service.submitted",
-            route="bucket" if bucket_i is not None else ROUTED)
+            route="bucket" if bucket_i is not None else self._routed_route())
         self._enqueue(req)
         return rid
 
@@ -435,7 +447,7 @@ class PartitionService:
             self._requeue_or_raise(route, reqs, e)
             return None
         self._account_solve(route, reqs, time.monotonic() - t0)
-        if step_no in wd.fired_steps:
+        if self._stalled(step_no in wd.fired_steps):
             self.registry.counter("service.stalls", route=route)
             if (self.requeue_on_stall
                     and all(r.restarts < self.max_restarts for r in reqs)):
@@ -443,6 +455,18 @@ class PartitionService:
                 self._requeue_or_raise(route, reqs)
                 return None
         return out
+
+    def _stalled(self, fired: bool) -> bool:
+        """Whether the watchdog fired on this solve. On a mesh every rank
+        runs the same queue, so the ranks agree on it (a max over both
+        dims of the plan): a stall seen by one rank requeues the request
+        on all of them, and their collectives stay in step."""
+        if self.plan is None:
+            return fired
+        flag = torch.tensor([int(fired)], dtype=torch.int32,
+                            device=self.plan.device)
+        flag = self.plan.model.all_reduce(flag, "max")
+        return bool(self.plan.data.all_reduce(flag, "max")[0])
 
     def _account_solve(self, route: str, reqs: list[_Request],
                        elapsed: float) -> None:
@@ -542,12 +566,12 @@ class PartitionService:
         return finished
 
     def _solve_routed(self, req: _Request) -> list[int]:
-        route = ROUTED
+        route = self._routed_route()
         with otrace.span("service.solve", route=route):
             res = self._attempt(route, [req], lambda: partition(
                 req.hg, omega=req.omega, delta=req.delta, theta=self.theta,
                 n_cands=self.n_cands, chain_rounds=self.chain_rounds,
-                collect_stats=self.collect_stats, device=self.device))
+                collect_stats=self.collect_stats, **self._mesh_kwargs()))
         if res is None:
             return []
         self.registry.counter("service.solves", route=route)
@@ -584,7 +608,7 @@ class PartitionService:
                 cache=st.cache, theta=self.theta, n_cands=self.n_cands,
                 chain_rounds=self.chain_rounds,
                 collect_stats=self.collect_stats,
-                drift_threshold=self.drift_threshold, device=self.device))
+                drift_threshold=self.drift_threshold, **self._mesh_kwargs()))
         if res is None:
             return []
         r = self.registry

@@ -291,9 +291,6 @@ def searchsorted_segmented(sorted_vals: torch.Tensor, seg_off_lo: torch.Tensor,
 # --------------------------------------------------------------------------
 # Sharded pipelines: ShardCtx and the cross-shard scan
 # --------------------------------------------------------------------------
-ITEM_13B = "ROADMAP.md Queue A item 13b"
-
-
 def scan_combine(a, b):
     """Monoid of segmented prefix sums over (start-flag, value) pairs,
     identity (0, 0): the fold of the shards' summaries in
@@ -350,12 +347,17 @@ class ShardCtx:
     and ``segmented_scan`` has a zero carry. Otherwise ``comm`` (a
     ``repro_torch.dist.comm.Comm``) holds the group, this process's index
     in it and the transport. Integers combine by ``psum`` (an
-    ``all_reduce`` sum), (value, id) claims by ``pmax_pair`` (maxima, exact
-    in any order), and float sums never travel as partial sums: their lane
-    columns, or the rows of disjoint row stripes, are gathered in shard
-    order and reduced as one device would. The graph is stored replicated;
-    the memory-sharded storage (``graph_striped``) and the compensated
-    float psum (``compensated``) are not ported."""
+    ``all_reduce`` sum) or ``psum_stripe`` (a reduce-scatter), (value, id)
+    claims by ``pmax_pair`` (maxima, exact in any order), and float sums
+    never travel as partial sums: their lane columns, or the rows of
+    disjoint row stripes, are gathered in shard order and reduced as one
+    device would. ``compensated`` opts the coarsening's eta and matching
+    sums into ``psum_compensated`` instead (per-shard partials, a
+    Neumaier fold in shard order). ``graph_striped``: the three pins-sized
+    arrays of the graph arrive as this shard's stripe
+    (``dist.graph.ShardedHypergraph``): ``gread`` reads the stripe itself
+    and ``gfull`` rebuilds a whole column, the documented transient of
+    the consumers that read rows."""
 
     axis: str | None = None
     nshards: int = 1
@@ -364,15 +366,12 @@ class ShardCtx:
     graph_striped: bool = False
 
     def __post_init__(self):
-        if self.compensated:
-            raise NotImplementedError(
-                f"compensated_psum is not ported yet: {ITEM_13B}")
-        if self.graph_striped:
-            raise NotImplementedError(
-                f"memory-sharded graph storage (shard_graph) is not ported "
-                f"yet: {ITEM_13B}")
         if self.axis is not None and self.comm is None:
             raise ValueError("a sharded ShardCtx needs its comm")
+
+    def striped(self) -> bool:
+        """The graph's pins-sized arrays are this shard's stripes."""
+        return self.graph_striped and self.axis is not None
 
     def index(self) -> int:
         return 0 if self.axis is None else self.comm.rank
@@ -418,12 +417,24 @@ class ShardCtx:
 
     def gread(self, arr: torch.Tensor, t: torch.Tensor, ok: torch.Tensor,
               fill) -> torch.Tensor:
-        """This shard's lanes of a pins-sized graph array (stored
-        replicated)."""
+        """This shard's lanes ``t, ok = self.lanes(total)`` of a pins-sized
+        graph array: with striped storage ``arr`` is the stripe itself (a
+        whole column handed in instead fails here), else the gather from
+        the replicated array."""
+        if self.striped():
+            if arr.shape[0] != t.shape[0]:
+                raise ValueError(
+                    f"a striped ShardCtx reads this shard's stripe of "
+                    f"{t.shape[0]} lanes, not an array of {arr.shape[0]}")
+            return torch.where(ok, arr, fill)
         return self.take(arr, t, ok, fill)
 
     def gfull(self, arr: torch.Tensor) -> torch.Tensor:
-        """The whole pins-sized graph array (stored replicated)."""
+        """The whole pins-sized graph array: with striped storage the
+        stripes gathered in shard order (every bit as stored, the stripe
+        total long), else ``arr`` itself."""
+        if self.striped():
+            return self.unstripe(arr)
         return arr
 
     def rows(self, offsets: torch.Tensor, t: torch.Tensor, total: int,
@@ -438,10 +449,28 @@ class ShardCtx:
 
     def psum_stripe(self, x: torch.Tensor) -> torch.Tensor:
         """This shard's stripe of the sum over the shards of a dense
-        per-lane vector (integers)."""
+        per-lane array (integers, dim 0 the stripe total): a
+        reduce-scatter, so no shard holds the whole sum."""
         if self.axis is None:
             return x
-        return self.stripe(self.psum(x))
+        return self.comm.reduce_scatter(x)
+
+    def psum_compensated(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the shards of per-shard float32 partials, gathered and
+        folded by Neumaier's compensated two-sum in shard order: the same
+        bits on every shard and run, within about an ulp of the exact sum,
+        but not one device's lane-order bits."""
+        if self.axis is None:
+            return x
+        parts = self.comm.all_gather(x.to(torch.float32))
+        s = torch.zeros_like(parts[0])
+        c = torch.zeros_like(parts[0])
+        for v in parts:
+            t = s + v
+            c = c + torch.where(s.abs() >= v.abs(), (s - t) + v,
+                                (v - t) + s)
+            s = t
+        return s + c
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's ``x`` concatenated in shard order along dim 0."""

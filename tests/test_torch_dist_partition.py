@@ -137,6 +137,12 @@ def _mesh_job(rank, data, model, jobs, level):
               "--delta", "64", "--theta", "2", "--device", "cpu", "--mesh",
               "host", "--replicas", str(data), "--no-race", "--json",
               jobs["cli"]])
+    for flag, path in jobs.get("cli_flags", {}).items():
+        from repro_torch.launch.partition import main
+        main(["--graph", "smallworld", "--nodes", "120", "--omega", "16",
+              "--delta", "64", "--theta", "2", "--device", "cpu", "--mesh",
+              "host", "--replicas", str(data), "--no-race", flag, "--json",
+              path])
     return out
 
 
@@ -158,10 +164,18 @@ def jax_solves():
                            collect_stats=True) for uk in (False, True)}
 
 
+CLI_FLAGS = ["--shard-graph", "--compensated-psum"]
+
+
 @pytest.fixture(scope="module")
 def mesh_1x2(tmp_path_factory):
-    return _spawn(tmp_path_factory, 1, 2,
-                  {"partition": 1, "kway": 1, "warm": 1})
+    cli = tmp_path_factory.mktemp("cli")
+    out = _spawn(tmp_path_factory, 1, 2, {
+        "partition": 1, "kway": 1, "warm": 1,
+        "cli_flags": {f: str(cli / f"{f[2:]}.json") for f in CLI_FLAGS}})
+    out["cli_flags"] = {f: json.loads((cli / f"{f[2:]}.json").read_text())
+                        for f in CLI_FLAGS}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -401,8 +415,23 @@ def test_cli_on_a_mesh_equals_one_device(race_2x1, tmp_path):
         (want["n_levels"], want["connectivity"])
 
 
-@pytest.mark.parametrize("flag", ["--shard-graph", "--compensated-psum"])
-def test_cli_unported_mesh_flags_name_13b(flag):
+@pytest.mark.parametrize("flag", CLI_FLAGS)
+def test_cli_unported_mesh_flags_name_13b(flag, mesh_1x2, tmp_path):
+    """The CLI on a (1, 2) gloo mesh with each flag: ``--shard-graph``
+    gives the single-device result, ``--compensated-psum`` a valid one
+    (on this graph the single device's too: no eta bit flips a match);
+    ``--shard-graph`` without ``--mesh host`` exits, as the JAX CLI
+    does."""
     from repro_torch.launch.partition import main
-    with pytest.raises(SystemExit, match="item 13b"):
-        main(["--device", "cpu", "--mesh", "host", flag])
+    one = tmp_path / "one.json"
+    main(["--graph", "smallworld", "--nodes", "120", "--omega", "16",
+          "--delta", "64", "--theta", "2", "--device", "cpu", "--json",
+          str(one)])
+    got, want = mesh_1x2["cli_flags"][flag], json.loads(one.read_text())
+    assert got["size_ok"] and got["inbound_ok"]
+    assert got["parts"] == want["parts"]
+    assert (got["n_levels"], got["connectivity"]) == \
+        (want["n_levels"], want["connectivity"])
+    if flag == "--shard-graph":
+        with pytest.raises(SystemExit, match="--mesh host"):
+            main(["--device", "cpu", flag])

@@ -102,6 +102,23 @@ def _rank_job(rank, n_ranks, cases):
                            ).numpy()
     with pytest.raises(TypeError):
         ctx.psum(torch.ones(2))
+    # reduce-scatter: this rank's stripe of the integer sum
+    rs = torch.arange(4 * n_ranks, dtype=torch.int32).reshape(
+        2 * n_ranks, 2) * (rank + 1)
+    out["psum_stripe"] = ctx.gather(ctx.psum_stripe(rs)).numpy()
+    with pytest.raises(TypeError):
+        ctx.comm.reduce_scatter(torch.ones(n_ranks))
+    # striped graph storage: gread reads the stripe itself (and refuses a
+    # whole column), gfull gathers the stripes in shard order
+    sctx = dp.shard_ctx(plan, striped=True)
+    col = torch.arange(10 * n_ranks, dtype=torch.int32) * 3
+    lt, lok = sctx.lanes(10 * n_ranks - 1, "cpu")
+    out["gread"] = sctx.gather(sctx.gread(sctx.stripe(col), lt, lok,
+                                          -1)).numpy()
+    with pytest.raises(ValueError, match="stripe"):
+        sctx.gread(col, lt, lok, -1)
+    out["gfull"] = sctx.gfull(sctx.stripe(col)).numpy()
+    out["gread_replicated"] = ctx.gather(ctx.gread(col, lt, lok, -1)).numpy()
     out["broadcast"] = ctx.comm.broadcast(
         torch.tensor([10 * rank, 1], dtype=torch.int32), src=1).numpy()
     out["stripe_start"] = ctx.stripe_start(64 * n_ranks)
@@ -232,12 +249,43 @@ def test_cpu_groups_stage_nothing(runs):
 
 
 def test_unported_shard_ctx_options_name_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tseg.ShardCtx(compensated=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tseg.ShardCtx(graph_striped=True)
+    """``compensated`` and ``graph_striped`` construct as in the JAX
+    ``ShardCtx``; on one device (no axis) they change nothing: the
+    compensated psum and ``gfull`` return their input, ``gread`` gathers
+    from the whole array. A sharded ctx still needs its comm."""
+    x = np.array([1.5, -2.0, 3e-8], np.float32)
+    got = tseg.ShardCtx(compensated=True).psum_compensated(
+        torch.from_numpy(x))
+    want = jseg.ShardCtx(compensated=True).psum_compensated(jnp.asarray(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    g = tseg.ShardCtx(graph_striped=True)
+    assert not g.striped()
+    col = torch.arange(8, dtype=torch.int32)
+    t, ok = g.lanes(6, "cpu")
+    jt, jok = jseg.ShardCtx(graph_striped=True).lanes(6)
+    np.testing.assert_array_equal(
+        g.gread(col[:6], t, ok, -1).numpy(),
+        np.asarray(jseg.ShardCtx(graph_striped=True).gread(
+            jnp.asarray(col[:6].numpy()), jt, jok, -1)))
+    assert g.gfull(col) is col
     with pytest.raises(ValueError, match="comm"):
         tseg.ShardCtx(axis="model", nshards=2)
+
+
+def test_reduce_scatter_and_striped_reads(runs):
+    """``psum_stripe`` is a reduce-scatter: the stripes gathered equal the
+    whole integer sum; ``gread`` of a striped ctx returns the stripe's own
+    lanes, masked as the replicated gather masks them; ``gfull`` rebuilds
+    the column."""
+    w, _, out = runs
+    base = np.arange(4 * w, dtype=np.int32).reshape(2 * w, 2)
+    np.testing.assert_array_equal(out["psum_stripe"],
+                                  base * (w * (w + 1) // 2))
+    col = np.arange(10 * w, dtype=np.int32) * 3
+    want = np.where(np.arange(10 * w) < 10 * w - 1, col, -1)
+    np.testing.assert_array_equal(out["gread"], want)
+    np.testing.assert_array_equal(out["gread_replicated"], want)
+    np.testing.assert_array_equal(out["gfull"], col)
 
 
 def _fails_on_rank_1(rank):

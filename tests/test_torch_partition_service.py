@@ -21,7 +21,9 @@ from repro.serve import PartitionService as JService
 from repro_torch.core import generate as tgen
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import partitioner as tpart
+from repro_torch.dist.spawn import run_ranks
 from repro_torch.serve import PartitionService, stack_device_batch
+from test_torch_partitioner import assert_same_outcome
 
 OMEGA, DELTA, THETA = 16, 256, 4
 
@@ -278,8 +280,22 @@ def test_service_bucket_bump_and_routing():
 
 
 def test_service_device_rule_and_unported_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PartitionService(plan=object(), device="cpu")
+    """A ``plan`` is taken as the JAX service takes it: kept at
+    construction and forwarded to the routed solve, so an object that is
+    no plan fails that solve as it fails there, once the restart budget
+    is spent. The mesh lane itself runs in tests/test_torch_dist_graph.py;
+    ``shard_graph`` and ``race`` act only with a plan."""
+    def routed(cls, gen, **kw):
+        svc = cls(theta=1, route_threshold=16, max_restarts=0,
+                  plan=object(), **kw)
+        svc.submit(gen.random_kuniform(40, 60, 4, seed=1), omega=16,
+                   delta=64)
+        return svc.drain()
+
+    assert assert_same_outcome(lambda: routed(PartitionService, tgen,
+                                              device="cpu"),
+                               lambda: routed(JService, jgen)) is \
+        AttributeError
     assert _svc(shard_graph=True).device == torch.device("cpu")
     if torch.cuda.is_available():
         return
@@ -288,6 +304,11 @@ def test_service_device_rule_and_unported_mesh():
     from repro_torch.launch.partition_service import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--requests", "1"])
+
+
+def _service_cli_rank(rank, argv):
+    from repro_torch.launch.partition_service import main
+    main(argv)
 
 
 def test_cli_runs_on_cpu(tmp_path, capsys):
@@ -301,6 +322,21 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert '"req_per_s"' in capsys.readouterr().out
     doc = json.loads(dump.read_text())
     assert "service.solve" in {s["name"] for s in doc["spans"]}
-    for flags in (["--mesh", "host"], ["--replicas", "2"], ["--no-race"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            main(["--device", "cpu", *flags])
+    # without --mesh the mesh flags change nothing, as in the JAX CLI
+    base = ["--device", "cpu", "--requests", "3", "--theta", "2"]
+    for flags in (["--replicas", "2"], ["--no-race"]):
+        again = tmp_path / "again.json"
+        main([*base, "--json", str(again), *flags])
+        got = json.loads(again.read_text())
+        assert (got["routes"], got["mean_connectivity"], got["mesh"]) == \
+            (res["routes"], res["mean_connectivity"], None)
+    # --mesh host: the same flood on a one-rank mesh (its group started
+    # by a spawned rank), with the single device's result
+    mesh = tmp_path / "mesh.json"
+    run_ranks(_service_cli_rank, 1, [*base, "--mesh", "host", "--json",
+                                     str(mesh)], timeout=120.0,
+              tmpdir=tmp_path)
+    got = json.loads(mesh.read_text())
+    assert got["mesh"] == {"data": 1, "model": 1}
+    assert (got["routes"], got["mean_connectivity"]) == \
+        (res["routes"], res["mean_connectivity"])

@@ -145,14 +145,70 @@ def test_partition_needs_a_device_without_cuda():
         tpartition(hg, omega=10, delta=40, theta=1)
 
 
+def outcome(call):
+    """``call()``'s result, or the type of what it raised."""
+    try:
+        return call()
+    except Exception as e:  # noqa: BLE001 - the type is the outcome
+        return type(e)
+
+
+def assert_same_outcome(tcall, jcall, check=None):
+    """The port's call raises what the JAX package's raises, or both
+    return, and ``check(port result, JAX result)`` holds (by default the
+    parts, levels and audit are equal)."""
+    want, got = outcome(jcall), outcome(tcall)
+    if isinstance(want, type):
+        assert got is want, (got, want)
+        return want
+    assert not isinstance(got, type), got
+    if check is None:
+        np.testing.assert_array_equal(got.parts, want.parts)
+        assert (got.n_levels, got.audit) == (want.n_levels, want.audit)
+    else:
+        check(got, want)
+    return want
+
+
 @pytest.mark.parametrize("kw", [dict(plan=object(), shard_graph=True,
                                      race=False), dict(shard_graph=True),
                                 dict(compensated_psum=True),
                                 dict(plan=object(), shard_graph=True)])
 def test_unported_arguments_raise(kw):
-    hg = tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpartition(hg, omega=10, delta=40, theta=1, device="cpu", **kw)
+    """The mesh arguments without a mesh, as the JAX package takes them:
+    ``shard_graph`` without a plan raises ``ValueError``, an object that
+    is no plan fails as it does there, and ``compensated_psum`` without a
+    plan leaves the solve as it is. The mesh runs themselves are in
+    tests/test_torch_dist_graph.py."""
+    args = dict(omega=10, delta=40, theta=1, **kw)
+    want = assert_same_outcome(
+        lambda: tpartition(tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1),
+                           device="cpu", **args),
+        lambda: jpartition(jgen.snn_smallworld(n_nodes=40, fanout=4, seed=1),
+                           **args))
+    assert (want is ValueError) == (kw == dict(shard_graph=True))
+    assert isinstance(want, type) != (kw == dict(compensated_psum=True))
+    if want is ValueError:
+        with pytest.raises(ValueError, match="requires a Plan"):
+            tpartition(tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1),
+                       device="cpu", **args)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(dist_coarsen=False), "dist_coarsen"),
+    (dict(bucket=True), "bucket")])
+def test_shard_graph_argument_checks(kw, match):
+    """``shard_graph`` with ``dist_coarsen=False`` or ``bucket`` raises
+    ``ValueError`` before any device work, as in the JAX package (the
+    checks run before the plan is read, so a stand-in plan does)."""
+    plan = type("P", (), {"device": torch.device("cpu")})()
+    args = dict(omega=10, delta=40, theta=1, shard_graph=True, **kw)
+    with pytest.raises(ValueError, match=match):
+        tpartition(tgen.snn_smallworld(n_nodes=40, fanout=4, seed=1),
+                   plan=plan, **args)
+    with pytest.raises(ValueError, match=match):
+        jpartition(jgen.snn_smallworld(n_nodes=40, fanout=4, seed=1),
+                   plan=object(), **args)
 
 
 def test_kcap_hint_and_capacity_checks():

@@ -20,6 +20,7 @@ from repro_torch.core import hypergraph as thg
 from repro_torch.core import kway as tkway
 from repro_torch.core import partitioner as tpart
 from repro_torch.obs import trace as otrace
+from test_torch_partitioner import assert_same_outcome
 
 _GRAPH = dict(n_layers=4, width=24, fanout=6, seed=3)
 _C = dict(omega=16, delta=64, theta=4)
@@ -358,6 +359,15 @@ ENTRY_POINTS = {
     "repartition_kway": lambda th, **kw: tkway.repartition_kway(
         th, np.zeros(th.n_nodes, np.int64), k=2, device="cpu", **kw),
 }
+JAX_ENTRY_POINTS = {
+    "refine_from": lambda jh, **kw: jpart.refine_from(
+        jh, np.zeros(jh.n_nodes, np.int64), 16, 64, **kw),
+    "repartition": lambda jh, **kw: jpart.repartition(
+        jh, np.zeros(jh.n_nodes, np.int64), 16, 64, **kw),
+    "partition_kway": lambda jh, **kw: jkway.partition_kway(jh, k=2, **kw),
+    "repartition_kway": lambda jh, **kw: jkway.repartition_kway(
+        jh, np.zeros(jh.n_nodes, np.int64), k=2, **kw),
+}
 
 
 UNPORTED = [dict(plan=object(), shard_graph=True, race=False),
@@ -371,12 +381,22 @@ UNPORTED = [dict(plan=object(), shard_graph=True, race=False),
     # refine_from has no compensated_psum argument, as in the JAX package
     if not (entry == "refine_from" and "compensated_psum" in kw)])
 def test_unported_arguments_raise(entry, kw):
-    _, th = _graphs()
+    """Each entry point takes the mesh arguments without a mesh as the JAX
+    package does: it raises the same exception type (``shard_graph``
+    without a plan where the JAX function uploads, an object that is no
+    plan), before touching the graph, or it gives the JAX result (a warm
+    solve reuses no sharded storage without a plan, and
+    ``compensated_psum`` acts only with one). The mesh runs are in
+    tests/test_torch_dist_graph.py."""
+    jh, th = _graphs()
     before = _host_fields(th)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ENTRY_POINTS[entry](th, **kw)
-    for name, v in before.items():   # raised before touching the graph
-        np.testing.assert_array_equal(getattr(th, name), v)
+    kw = dict(theta=2, **kw)
+    want = assert_same_outcome(lambda: ENTRY_POINTS[entry](th, **kw),
+                               lambda: JAX_ENTRY_POINTS[entry](jh, **kw))
+    if isinstance(want, type):
+        for name, v in before.items():   # raised before touching the graph
+            np.testing.assert_array_equal(getattr(th, name), v)
+    assert_hosts_equal(th, jh)
 
 
 def test_refine_from_argument_checks(cold_parts):
