@@ -130,10 +130,29 @@ policy, 4 slots, page size 16. Phases, each fatal on failure:
      JSON carry the replicated (1, 2) solve's stripe launches over both
      ranks.
 
+ 16. training (``repro_torch.train.loop.train``) of qwen2-1.5b at full
+     width and depth (28 layers, d_model 1536, vocab 151,936, untied
+     embeddings; seeded random weights; bf16 compute params, f32 master
+     and moments, remat), ``TRAIN_STEPS`` steps of global batch
+     ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: every loss finite, the first
+     beside ln(vocab), a second run of the first two steps from the same
+     seed gives the same two losses bit for bit, no kernel launch (the
+     training forward's attention is the chunked plain version, as the
+     JAX package's train mode calls no Pallas kernel); the step time (the
+     median of steps 2 on), tokens/s, peak device memory and the
+     TrainState's bytes. Then, on the smoke config: ``TRAIN_CKPT_STEPS``
+     (8) straight steps and 4 + resume 4 from a checkpoint end on the
+     same loss bit for bit, ``train_supervised``
+     with an injected failure restarts once and ends on it too, and 30
+     steps from the CPU's seed-0 weights (a step-0 checkpoint resumed)
+     lower the loss by more than 0.1 on the card, each loss within 2^-8
+     of the same run's on the CPU.
+
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 15 run under
-``torch.use_deterministic_algorithms(True)``, in every rank too. Phases
+the same parts. Phases 3 to 5 and 9 to 16 run under
+``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
+with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
 ``timings``.
 Float matmuls run in full f32 (TF32 off). The second-to-last line is the
@@ -148,12 +167,18 @@ import collections
 import copy
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+# deterministic cuBLAS (phase 16's matmuls under
+# torch.use_deterministic_algorithms); read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -189,6 +214,14 @@ DIST_THETA = 4
 # five to 168 s, over its budget of about 150 s)
 SERVICE_RUNGS = ((224, 256), (896, 1024), (1792, 2048))
 SERVICE_PER_RUNG = 4
+# phase 16: training at qwen2-1.5b's full width and depth, uncut
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
+# phase 16's checkpoint, resume and supervision checks: TRAIN_CKPT_STEPS
+# straight steps against half of them + a resume, on the smoke config,
+# not the full width: a full-width TrainState is about 24.9 GB of npz (14 B
+# a parameter), too large to write and read back in the phase's 120 s
+TRAIN_CKPT_STEPS = 8
 
 
 def log(*a):
@@ -1620,6 +1653,123 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
     return rows
 
 
+def train_phase(torch, kernels, card) -> None:
+    """Phase 16: ``train`` at full width twice (4 steps, then the first
+    2 again), then the smoke config's resume, supervision and loss
+    decrease. Runs under ``torch.use_deterministic_algorithms(True)``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import param_count
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    n_params = param_count(T.lm_shapes(cfg))
+    # one LR schedule for both runs (the default depends on the steps)
+    ocfg = opt.OptConfig(total_steps=TRAIN_STEPS,
+                         warmup=max(TRAIN_STEPS // 5, 1))
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
+              seed=0, ocfg=ocfg, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = loop.train(cfg, steps=TRAIN_STEPS, **kw)
+    launched = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in res.losses]
+    need(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+         f"[16] {TRAIN_STEPS} finite losses: {losses}")
+    need(not any(launched.values()),
+         f"[16] training launches no kernel: {launched}")
+    step_s = statistics.median(res.step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[16] {TRAIN_ARCH}: {cfg.n_layers} layers x d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters, "
+        f"TrainState {14 * n_params} B (14 B a parameter: bf16 params, f32 "
+        f"master, mu, nu); batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_STEPS} steps in {res.wall_s:.3f} s")
+    log(f"[16] losses {json.dumps(losses)}; first {losses[0]:.4f} beside "
+        f"ln(vocab) {math.log(cfg.vocab):.4f}")
+    log(f"[16] step seconds {json.dumps([round(t, 4) for t in res.step_s])}"
+        f"; median of steps 2-{TRAIN_STEPS} {step_s:.4f} s, "
+        f"{tokens / step_s:.1f} tokens/s, peak device memory "
+        f"{peak / 2**30:.3f} GiB ({peak} B), launches {launched}, on "
+        f"{card}")
+    again = loop.train(cfg, steps=2, **kw)
+    need([l for _, l in again.losses] == losses[:2],
+         f"[16] the first two losses again bit for bit: "
+         f"{again.losses} against {losses[:2]}")
+    log(f"[16] second run of 2 steps from seed 0: the same losses bit for "
+        f"bit")
+
+    small, n, half = cfg.smoke(), TRAIN_CKPT_STEPS, TRAIN_CKPT_STEPS // 2
+    kw = dict(global_batch=4, seq_len=32, log_every=1, seed=3,
+              ocfg=opt.OptConfig(total_steps=n, warmup=2), device="cuda")
+    real_step = loop.make_train_step
+    fails = [1]
+
+    def failing_step(*a, **k):
+        step_fn = real_step(*a, **k)
+
+        def step(state, batch):
+            if state.step == half + 1 and fails[0]:
+                fails[0] -= 1
+                raise RuntimeError(f"injected failure at step {half + 1}")
+            return step_fn(state, batch)
+        return step
+
+    with tempfile.TemporaryDirectory() as d:
+        straight = loop.train(small, steps=n, ckpt_dir=f"{d}/a",
+                              ckpt_every=half, deadline_s=60.0, **kw)
+        loop.train(small, steps=half, ckpt_dir=f"{d}/b", ckpt_every=half,
+                   **kw)
+        resumed = loop.train(small, steps=n, ckpt_dir=f"{d}/b",
+                             ckpt_every=half, resume=True, **kw)
+        loop.make_train_step = failing_step
+        try:
+            sup = loop.train_supervised(small, max_restarts=2, steps=n,
+                                        ckpt_dir=f"{d}/c", ckpt_every=half,
+                                        **kw)
+        finally:
+            loop.make_train_step = real_step
+    last = straight.losses[-1]
+    need(resumed.losses[-1] == last,
+         f"[16] {half} + resume {half} ends on the straight run's loss: "
+         f"{resumed.losses[-1]} against {last}")
+    need(sup.restarts == 1 and sup.losses[-1] == last,
+         f"[16] supervised: one restart ({sup.restarts}), ends on "
+         f"{sup.losses[-1]} against {last}")
+    # 30 steps from the CPU's seed-0 weights, the run tests/
+    # test_torch_train.py holds on the CPU: resumed from a step-0
+    # checkpoint, on the card and on the CPU
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(d).save(0, opt.init_state(
+            T.materialize_lm(small, 0, "cpu")))
+        runs = {dev: [l for _, l in loop.train(
+            small, steps=30, global_batch=8, seq_len=64, log_every=1,
+            seed=0, ckpt_dir=d, resume=True, device=dev).losses]
+            for dev in ("cuda", "cpu")}
+    first = statistics.mean(runs["cuda"][:3])
+    end = statistics.mean(runs["cuda"][-3:])
+    need(end < first - 0.1, f"[16] 30 steps lower the loss by more than "
+         f"0.1: {first:.4f} to {end:.4f}")
+    # bf16 logits carry 8 significant bits: the two devices' losses agree
+    # within 2^-8 of their value (tests/test_torch_train.py's bound)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"],
+                                                  runs["cpu"]))
+    need(gap <= 2 ** -8, f"[16] card losses within 2^-8 of the CPU's: "
+         f"{gap:.3g}")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[16] smoke config: {n} straight steps, {half} + resume {half} "
+        f"and supervised (1 restart) all end on loss {last[1]:.6f} at step "
+        f"{last[0]}; 30 steps {first:.4f} -> {end:.4f} on the card (CPU "
+        f"{statistics.mean(runs['cpu'][:3]):.4f} -> "
+        f"{statistics.mean(runs['cpu'][-3:]):.4f}, largest relative gap "
+        f"{gap:.3g}); phase {t_phase:.1f} s on {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=16,
@@ -2005,6 +2155,10 @@ def main(argv=None) -> int:
                             min(args.layers, DIST_LAYERS), omega, delta,
                             DIST_THETA)
     log(f"[15] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 16. training --------------------------------------------------
+    train_phase(torch, kernels, card)
+    log(f"[16] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

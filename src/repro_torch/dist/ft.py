@@ -1,12 +1,12 @@
 """Fault-tolerant supervision of the port (``repro.dist.ft``): the step
-watchdog.
+watchdog and the restartable train driver.
 
 A host that *stalls* (a hung device, a hung collective) raises nothing; it
 goes silent. `StepWatchdog` is a timer thread armed around each blocking
 unit of work that fires a callback with the stuck step number, so the
 driver can alert, abort or requeue (the partition service requeues).
-The restartable train driver (``TrainSupervisor``) waits for ROADMAP.md
-Queue A item 14b.
+`TrainSupervisor` is the other half: a step that *raises* restarts from
+the last checkpoint.
 """
 from __future__ import annotations
 
@@ -134,3 +134,53 @@ class StepWatchdog:
             if self.registry is not None:
                 self.registry.counter("watchdog.stalls")
             self.on_stall(fire_step)
+
+
+class TrainSupervisor:
+    """Restarts a step loop from the last checkpoint on failure.
+
+    init_fn   — () -> initial state (used when no checkpoint exists yet);
+    save      — (step, state) -> None, called every `ckpt_every` steps;
+    restore   — () -> (step, state) of the newest checkpoint;
+    max_restarts — give up (re-raise) after this many restarts.
+
+    `run(step_fn, n_steps, ckpt_every)` drives `state = step_fn(state, step)`
+    for step in [0, n_steps). On an exception it restores and resumes from
+    the checkpointed step; steps after the checkpoint are re-executed
+    against the restored state, so each step's effect is applied exactly
+    once relative to it. Exposes `restarts` for telemetry.
+    """
+
+    def __init__(self, init_fn: Callable[[], Any],
+                 save: Callable[[int, Any], None],
+                 restore: Callable[[], tuple[int, Any]],
+                 max_restarts: int = 3):
+        self.init_fn = init_fn
+        self.save = save
+        self.restore = restore
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.failures: list[tuple[int, str]] = []
+
+    def run(self, step_fn: Callable[[Any, int], Any], n_steps: int,
+            ckpt_every: int = 0) -> tuple[int, Any]:
+        step = 0
+        state = self.init_fn()
+        while step < n_steps:
+            try:
+                state = step_fn(state, step)
+            except Exception as e:  # noqa: BLE001 — any step failure restarts
+                self.failures.append((step, repr(e)))
+                if self.restarts >= self.max_restarts:
+                    raise
+                self.restarts += 1
+                try:
+                    step, state = self.restore()
+                except Exception:
+                    # no checkpoint yet: restart the run from scratch
+                    step, state = 0, self.init_fn()
+                continue
+            step += 1
+            if ckpt_every and step % ckpt_every == 0:
+                self.save(step, state)
+        return step, state

@@ -157,3 +157,20 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Mean token CE; logits [..., V] f32-upcast; labels int (-1 = pad).
+
+    The label logit is a gather where the JAX package sums a one-hot mask:
+    the mask's sum adds exact zeros to the one logit, so both give its
+    bits, and the gather's gradient lands on the same one entry."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = labels.long().clamp(min=0)[..., None]
+    ll = torch.gather(logits, -1, idx)[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    mask = labels >= 0
+    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1)

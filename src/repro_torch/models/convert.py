@@ -6,8 +6,16 @@ layer of a pattern slot along a leading "layers" axis
 holds one ``Block`` per layer, layer ``sb * len(pattern) + i``. Weights
 keep the JAX ``[in, out]`` layout, so nothing is transposed.
 
+The mapping between the two is ``jax_path`` (a port parameter name to its
+JAX tree path and superblock) and ``leaf_groups`` (the JAX leaves in
+``jax.tree`` order, sorted keys, each with the port names that hold it);
+the optimizer's ``global_norm``, the checkpoint keys and
+``state_from_jax`` / ``state_to_jax`` all go through them.
+
 The JAX side is numpy only (``jax.tree.map(np.asarray, params)``, made by
-the caller): this module imports nothing of JAX.
+the caller): this module imports nothing of JAX. bf16 arrays may arrive as
+numpy arrays of ``ml_dtypes``' bfloat16, which this module reads through a
+``uint16`` view without importing ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -25,21 +33,105 @@ def _flat(tree, prefix: str = ""):
         yield from _flat(v, f"{prefix}.{k}" if prefix else k)
 
 
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of a numpy array (bf16 too) or a tensor as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # torch.from_numpy does not take it
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def jax_path(cfg: ArchConfig, name: str) -> tuple[tuple[str, ...], int]:
+    """The JAX parameter-tree path of the port's parameter ``name`` and its
+    superblock along the stacked layers axis (0 for unstacked leaves)."""
+    parts = tuple(name.split("."))
+    if parts[0] != "layers":
+        return parts, 0
+    sb, slot = divmod(int(parts[1]), len(cfg.pattern))
+    return ("stack", f"slot{slot}") + parts[2:], sb
+
+
+def leaf_groups(cfg: ArchConfig, names) -> list[tuple[tuple[str, ...],
+                                                      list[str]]]:
+    """The JAX tree's leaves in ``jax.tree`` flatten order (keys sorted at
+    every level), each with the port names that hold it: one name, or a
+    stacked leaf's per-layer names in superblock order."""
+    groups: dict[tuple[str, ...], list] = {}
+    for n in names:
+        path, sb = jax_path(cfg, n)
+        groups.setdefault(path, []).append((sb, n))
+    return [(path, [n for _, n in sorted(v)])
+            for path, v in sorted(groups.items())]
+
+
 def params_from_jax(cfg: ArchConfig, tree: dict) -> dict[str, torch.Tensor]:
     """A state dict for ``models.transformer.LM`` from the JAX parameter
-    tree as numpy arrays, with the layers axis unstacked."""
+    tree as numpy arrays (or tensors), with the layers axis unstacked."""
     n_slot = len(cfg.pattern)
     state = {}
     for name, arr in _flat({k: v for k, v in tree.items() if k != "stack"}):
-        state[name] = torch.from_numpy(np.array(arr))
+        state[name] = _tensor(arr)
     for slot, sub in tree["stack"].items():
         i = int(slot.removeprefix("slot"))
         for name, arr in _flat(sub):
-            arr = np.asarray(arr)
-            for sb in range(arr.shape[0]):
-                state[f"layers.{sb * n_slot + i}.{name}"] = \
-                    torch.from_numpy(np.array(arr[sb]))
+            t = _tensor(arr)
+            for sb in range(t.shape[0]):
+                state[f"layers.{sb * n_slot + i}.{name}"] = t[sb].clone()
     return state
+
+
+def tree_from_flat(cfg: ArchConfig, flat: dict) -> dict:
+    """The JAX-layout tree of tensors keyed by the port's parameter names:
+    nested dicts, each stacked leaf one ``[n_superblocks, ...]`` tensor
+    on the CPU."""
+    tree: dict = {}
+    for path, names in leaf_groups(cfg, flat):
+        ts = [flat[n].detach().cpu() for n in names]
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.stack(ts) if path[0] == "stack" else ts[0]
+    return tree
+
+
+def state_from_jax(cfg: ArchConfig, state, device="cpu"):
+    """The port's ``train.optimizer.TrainState`` from a JAX one as numpy
+    arrays (``jax.tree.map(np.asarray, state)``) or from a mapping with
+    the keys params, master, mu, nu and step: the compute params an
+    ``LM`` in their dtype with gradients on, the f32 trees keyed by the
+    port's parameter names."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.optimizer import TrainState
+
+    def get(k):
+        return state[k] if isinstance(state, dict) else getattr(state, k)
+
+    sd = params_from_jax(cfg, get("params"))
+    model = LM(cfg, device=device, dtype=next(iter(sd.values())).dtype)
+    model.load_state_dict(sd)
+    model.requires_grad_(True)
+
+    def f32(k):
+        return {n: t.to(device) for n, t in
+                params_from_jax(cfg, get(k)).items()}
+
+    return TrainState(params=model, master=f32("master"), mu=f32("mu"),
+                      nu=f32("nu"), step=int(np.asarray(get("step"))))
+
+
+def state_to_jax(state) -> dict:
+    """A port ``TrainState`` in the JAX layout: {"params", "master", "mu",
+    "nu": trees of CPU tensors with stacked layer leaves, "step": int32}."""
+    cfg = state.params.cfg
+    return {"params": tree_from_flat(cfg, dict(
+                state.params.named_parameters())),
+            "master": tree_from_flat(cfg, state.master),
+            "mu": tree_from_flat(cfg, state.mu),
+            "nu": tree_from_flat(cfg, state.nu),
+            "step": np.asarray(state.step, np.int32)}
 
 
 def cache_to_arrays(cache) -> dict:

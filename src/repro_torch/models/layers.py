@@ -5,7 +5,11 @@ attention, SwiGLU MLP and embedding parts of ``repro.models.layers``.
 keep its ``[in, out]`` layout); the functions take a mapping of parameters
 (a ``SpecModule`` or a dict) and compute. Prefill attention runs on the
 flash kernel (``kernels/flash_attn``); decode attention stays plain torch,
-as the JAX package computes it outside any Pallas kernel.
+as the JAX package computes it outside any Pallas kernel. Training
+attention is ``chunked_attention``, the JAX package's chunked
+online-softmax ``flash_attention`` in plain tensor ops, so autograd
+differentiates it as ``jax.grad`` differentiates the JAX one (the flash
+kernel has no backward).
 
 MLA, MoE and the sequence-sharded decode wait for later slices (ROADMAP.md
 Queue A item 14).
@@ -60,6 +64,57 @@ def flash_attention(q, k, v, *, causal: bool = True,
     tensors run the Hopper kernel, CPU tensors its plain version; the
     JAX package's query/key chunking is the kernel's tiling here."""
     return flash_ops.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
+                      k_chunk: int = 1024):
+    """Chunked attention with online softmax, the JAX package's
+    ``layers.flash_attention`` in plain tensor ops (the training path).
+
+    q [B,Sq,H,Dh], k/v [B,Sk,KV,Dh], query head h reads KV head
+    ``h // (H/KV)``. Query chunks of ``q_chunk`` are one batched dim; key
+    chunks of ``k_chunk`` stream through a loop carrying the running max,
+    sum and f32 accumulator. Scores and both products take f32 operands
+    (the JAX einsums' ``preferred_element_type=F32``: a product of two bf16
+    values is exact in f32), and the result has q's dtype.
+    """
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    Dv = v.shape[-1]
+    g = H // KV
+    qc = math.gcd(min(q_chunk, Sq), Sq)
+    kc = math.gcd(min(k_chunk, Sk), Sk)
+    nq, nk = Sq // qc, Sk // kc
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+
+    qr = q.reshape(B, nq, qc, KV, g, Dh).float()
+    kr = k.reshape(B, nk, kc, KV, Dh)
+    vr = v.reshape(B, nk, kc, KV, Dh)
+    ik = torch.arange(kc, device=dev)
+    qpos = ((torch.arange(nq, device=dev) * qc)[:, None]
+            + torch.arange(qc, device=dev)[None, :])          # [nq,qc]
+
+    m = torch.full((B, nq, KV, g, qc), float("-inf"), dtype=F32, device=dev)
+    l = torch.zeros((B, nq, KV, g, qc), dtype=F32, device=dev)
+    acc = torch.zeros((B, nq, KV, g, qc, Dv), dtype=F32, device=dev)
+    for ki in range(nk):
+        s = torch.einsum("bnqkgd,bckd->bnkgqc", qr,
+                         kr[:, ki].float()) * scale
+        if causal:
+            kpos = ki * kc + ik
+            mask = qpos[:, :, None] >= kpos[None, None, :]   # [nq,qc,kc]
+            s = torch.where(mask[None, :, None, None], s, float("-inf"))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bnkgqc,bckd->bnkgqd", p, vr[:, ki].float())
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    # [B,nq,KV,g,qc,Dv] -> [B,nq,qc,KV,g,Dv] -> [B,Sq,H,Dv]
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sq, H, Dv)
 
 
 def decode_attention(q, kcache, vcache, length=None):
@@ -128,7 +183,11 @@ def embed_shapes(cfg: ArchConfig) -> dict:
 
 
 def embed_apply(p, tokens, cfg: ArchConfig, positions=None):
-    x = p["tok"][tokens]
+    # a gather whose gradient is the embedding backward: it sums a token's
+    # rows by sorting the ids, with no float atomics on the card (the
+    # backward of indexing, ``index_put_(accumulate=True)``, walks each run
+    # of equal ids serially)
+    x = nn.functional.embedding(tokens, p["tok"])
     if cfg.pos == "learned":
         assert positions is not None
         x = x + p["pos"][positions]

@@ -9,23 +9,30 @@ and its stacked ``[n_superblocks, ...]`` leaves, so they compare leaf by
 leaf with ``cache_shapes``; ``prefill`` and ``decode_step`` update them in
 place (the JAX engine donates them instead).
 
-Two modes: ``prefill`` (causal over the prompt, fills the cache; attention
-on the flash kernel) and ``decode`` (one token a row against the dense or
-paged cache, per-row positions). Training, other mixers, MoE,
-encoder-decoder and vision models raise ``NotImplementedError``.
+Three modes: ``train`` (full causal, no cache, chunked attention in plain
+tensor ops that autograd differentiates, each block recomputed in the
+backward under ``remat``), ``prefill`` (causal over the prompt, fills the
+cache; attention on the flash kernel) and ``decode`` (one token a row
+against the dense or paged cache, per-row positions). ``loss_fn`` is the
+training loss: ``chunked_ce_loss`` over the final hidden states, which
+never holds ``[B, S, V]`` logits. Other mixers, MoE, encoder-decoder and
+vision models raise ``NotImplementedError``, in every mode.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import (Spec, SpecModule, apply_rope,
                                        init_params_, layer_norm, rms_norm,
-                                       stack_specs)
+                                       softmax_cross_entropy, stack_specs)
 
 F32 = torch.float32
 
@@ -197,6 +204,10 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if mode == "train":
+        o = L.chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                k_chunk=cfg.k_chunk)
+        return _attn_out(p, o), None
     if mode == "prefill":
         o = L.flash_attention(q, k, v, causal=True)
         S = x.shape[1]
@@ -252,31 +263,91 @@ def _layer_cache(cache, cfg: ArchConfig, layer: int) -> dict:
     return {k: t[sb] for k, t in cache["stack"][f"slot{slot}"].items()}
 
 
-@torch.no_grad()
+def _train_block(block, x, cfg, positions):
+    return _apply_layer(block, x, cfg, "train", positions, None, None)[0]
+
+
 def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
-            cache=None, pos=None, page_table=None, page_size: int = 0):
+            cache=None, pos=None, page_table=None, page_size: int = 0,
+            remat: bool = True):
     """Returns (hidden [B,S,D], cache). ``pos`` may be a scalar
     (synchronized decode) or a [B] vector of per-slot positions; with
     ``page_table`` [B, P] (+ ``page_size``) the decode-mode KV updates go
     through the paged block-table layout instead of the dense [B, S] one.
-    The cache is updated in place and returned."""
-    if mode not in ("prefill", "decode"):
-        _unported(f"mode {mode!r}", "14 (training forward and loss)")
+    The cache is updated in place and returned.
+
+    ``mode="train"`` takes no cache and returns (hidden, None) with
+    autograd recording; under ``remat`` each block is recomputed in the
+    backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of
+    the scanned layer body), which gives the same bits as keeping its
+    activations. Prefill and decode record no gradient."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     B, S = tokens.shape
     dev = tokens.device
     pages = (page_table, page_size) if page_table is not None else None
     positions = _positions(pos, S, dev)
-    x = L.embed_apply(model.embed, tokens, cfg,
-                      positions=positions if cfg.pos == "learned" else None)
-    for i, block in enumerate(model.layers):
-        x, _ = block(x, cfg, mode, positions, _layer_cache(cache, cfg, i),
-                     pos, pages)
-    return _norm(model.final_norm, x, cfg), cache
+    train = mode == "train"
+    with contextlib.nullcontext() if train else torch.no_grad():
+        x = L.embed_apply(model.embed, tokens, cfg,
+                          positions=positions if cfg.pos == "learned"
+                          else None)
+        for i, block in enumerate(model.layers):
+            if not train:
+                x, _ = block(x, cfg, mode, positions,
+                             _layer_cache(cache, cfg, i), pos, pages)
+            elif remat:
+                x = checkpoint(_train_block, block, x, cfg, positions,
+                               use_reentrant=False)
+            else:
+                x = _train_block(block, x, cfg, positions)
+        return _norm(model.final_norm, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+def _ce_chunk(w, xc, lc, z_loss: float):
+    """One chunk's summed CE: the chunk's mean times its label count."""
+    logits = xc @ w
+    n = torch.clamp((lc >= 0).sum(), min=1)
+    return softmax_cross_entropy(logits, lc, z_loss) * n
+
+
+def chunked_ce_loss(x, embed, labels, cfg: ArchConfig, chunk: int = 512,
+                    z_loss: float = 1e-4):
+    """CE over sequence chunks of the hidden states x [B, S, D] against
+    ``embed``'s head: never holds ``[B, S, V]`` logits. Each chunk's
+    logits are recomputed in the backward rather than kept (at vocab
+    151,936 a 512-token chunk of 4 rows is 1.24 GB of f32 logits)."""
+    S = x.shape[1]
+    chunk = math.gcd(min(chunk, S), S)
+    w = embed["tok"].T if cfg.tie_embeddings else embed["unembed"]
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for xc, lc in zip(x.split(chunk, dim=1), labels.split(chunk, dim=1)):
+        tot = tot + checkpoint(_ce_chunk, w, xc, lc, z_loss,
+                               use_reentrant=False)
+        cnt = cnt + (lc >= 0).sum()
+    return tot / torch.clamp(cnt, min=1)
+
+
+def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
+            remat: bool = True):
+    """batch: dict(tokens [B,S], labels [B,S]). Returns
+    (ce + aux, {"ce", "aux"}); aux, the MoE balance loss, is 0 on the
+    dense configs the port runs."""
+    if plan is not None:
+        _unported("the training loss on a mesh (plan=)",
+                  "14i (training on a mesh)")
+    if expert_perm is not None:
+        _unported("expert_perm", "14c (MoE)")
+    x, _ = forward(model, batch["tokens"], cfg, mode="train", remat=remat)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    ce = chunked_ce_loss(x, model.embed, batch["labels"], cfg)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def prefill(model: LM, tokens, cache, cfg: ArchConfig):
     """Fills ``cache`` (dense, cache_len >= S) in place; returns
     (last_logits [B, V], cache)."""

@@ -15,6 +15,7 @@ from repro_torch import baselines as tbl
 from repro_torch.core import generate as tgen
 from repro_torch.core import metrics as tmet
 from repro_torch.core.partitioner import partition
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -19,6 +19,7 @@ from repro_torch.core import coarsen as tco
 from repro_torch.core import contract as tct
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import matching as tma
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 GRAPHS = [
     ("snn_smallworld", dict(n_nodes=90, fanout=5, seed=11), 12, 40),

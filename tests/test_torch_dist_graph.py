@@ -34,6 +34,7 @@ from repro_torch.core import partitioner as tpart
 from repro_torch.dist import graph as tdg
 from repro_torch.dist.spawn import run_ranks
 from test_torch_partitioner import assert_level_stats_equal
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")

@@ -41,6 +41,7 @@ from repro_torch.dist import partition as tdp
 from repro_torch.dist.spawn import run_ranks
 from test_torch_partitioner import assert_level_stats_equal
 from test_torch_refine import _exact
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 # tests/test_dist_partition.py:28-29
 GRAPH = dict(n_layers=4, width=24, fanout=6, window=8, seed=3)

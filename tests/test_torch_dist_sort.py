@@ -18,6 +18,7 @@ from repro.utils import segops as jseg
 from repro_torch.dist import comm as tcomm
 from repro_torch.dist.spawn import run_ranks
 from repro_torch.utils import segops as tseg
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 RANKS = [2, 4]
 TIMEOUT = 120.0

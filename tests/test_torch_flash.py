@@ -19,6 +19,7 @@ from repro_torch import kernels as tkernels
 from repro_torch.kernels.flash_attn import ops as tops
 from repro_torch.kernels.flash_attn import ref as tref
 from repro_torch.models import layers as TL
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -14,6 +14,7 @@ from repro_torch.core import contract as tct
 from repro_torch.core import generate as tgen
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import metrics as tmet
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.mark.parametrize("scale", [0.25, 1.0])

@@ -13,6 +13,7 @@ from repro.core import metrics as jmet
 from repro_torch.core import generate as tgen
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import metrics as tmet
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 GRAPHS = [
     ("snn_layered", dict(n_layers=4, width=48, fanout=6, window=12, seed=2)),

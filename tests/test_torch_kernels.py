@@ -36,6 +36,7 @@ from repro_torch.kernels.pair_scores import ref as tps_ref
 from repro_torch.kernels.pins_count import ops as tpc_ops
 from repro_torch.kernels.pins_count import ref as tpc_ref
 from repro_torch.utils import segops as tsegops
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -16,6 +16,7 @@ from repro_torch.core import generate as tgen
 from repro_torch.core import kway as tkway
 from repro_torch.core import metrics as tmet
 from test_torch_partitioner import assert_level_stats_equal
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

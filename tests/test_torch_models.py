@@ -3,7 +3,11 @@ spec trees, and ``prefill``/``decode_step`` of the JAX ``transformer``
 against the port's on the same weights (carried across with
 ``params_from_jax``), for the smoke configs of qwen2-1.5b (GQA, QKV bias)
 and phi4-mini-3.8b. Logits within 1e-4 (atol and rtol), caches within
-1e-5."""
+1e-5. The training forward: train-mode hidden states within 1e-4 (remat
+off and on), the chunked attention within 1e-5, the CE losses within
+1e-6, and ``loss_fn`` at f32 params against ``jax.value_and_grad``: the
+loss within 1e-5, every gradient leaf within atol 1e-5 / rtol 1e-4; the
+port's remat on and off bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import cache_to_arrays, params_from_jax
 from repro_torch.serve import paging as tpaging
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 ARCHS = ["qwen2-1.5b", "phi4-mini-3.8b"]
 B, S, CL, PS = 2, 13, 24, 8
@@ -137,11 +142,18 @@ def test_unported_models_raise(name):
 
 
 def test_train_mode_raises():
+    """Train mode runs on one device; what it does not run yet raises and
+    names its ROADMAP item, and an unknown mode raises."""
     cfg = tget("qwen2-1.5b").smoke()
     model = TT.materialize_lm(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.forward(model, torch.zeros((1, 4), dtype=torch.long), cfg,
-                   mode="train")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    batch = {"tokens": toks, "labels": toks}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
+        TT.loss_fn(model, batch, cfg, plan=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14c"):
+        TT.loss_fn(model, batch, cfg, expert_perm=torch.arange(4))
+    with pytest.raises(ValueError, match="mode"):
+        TT.forward(model, toks, cfg, mode="training")
 
 
 def test_init_scales_follow_materialize():
@@ -258,3 +270,124 @@ def test_scalar_decode_position_matches_jax():
                            jcache, jcfg)
     tl, _ = TT.decode_step(model, _t(tok[:, None]).long(), 6, tcache, cfg)
     _assert_logits(tl, jl)
+
+
+# ------------------------------------------------------- training forward
+S_TRAIN = 64   # two query and two key chunks of the smoke configs' 32
+
+
+def _train_batch(cfg, seed=5, B=2, S=S_TRAIN):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)],
+                            axis=1)
+    labels[0, :7] = -1   # padded labels inside a chunk too
+    return toks, labels
+
+
+def test_chunked_attention_matches_jax_flash_attention():
+    rng = np.random.default_rng(8)
+    B, S, H, KV, Dh = 2, 48, 4, 2, 16
+    q = rng.normal(size=(B, S, H, Dh)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, Dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, Dh)).astype(np.float32)
+    for causal in (True, False):
+        want = JL.flash_attention(q, k, v, causal=causal, q_chunk=16,
+                                  k_chunk=16)
+        got = TL.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                   q_chunk=16, k_chunk=16)
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5,
+                                   rtol=1e-5)
+    qb = jnp.asarray(q, jnp.bfloat16)
+    kb = jnp.asarray(k, jnp.bfloat16)
+    vb = jnp.asarray(v, jnp.bfloat16)
+    want = JL.flash_attention(qb, kb, vb, q_chunk=16, k_chunk=16)
+    tb = [_t(np.asarray(a, np.float32)).to(torch.bfloat16)
+          for a in (qb, kb, vb)]
+    got = TL.chunked_attention(*tb, q_chunk=16, k_chunk=16)
+    assert got.dtype == torch.bfloat16
+    # f32 inside, one bf16 rounding of the output (8 significant bits):
+    # within one bf16 ulp, 2^-7 of the value
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=0,
+                               rtol=2 ** -7)
+
+
+def test_softmax_cross_entropy_matches_jax():
+    rng = np.random.default_rng(9)
+    logits = (3 * rng.normal(size=(3, 11, 40))).astype(np.float32)
+    labels = rng.integers(0, 40, size=(3, 11)).astype(np.int32)
+    labels[1, 3:] = -1
+    for z in (0.0, 1e-4):
+        want = JC.softmax_cross_entropy(jnp.asarray(logits),
+                                        jnp.asarray(labels), z)
+        got = TC.softmax_cross_entropy(_t(logits), _t(labels), z)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    none = np.full_like(labels, -1)
+    assert float(TC.softmax_cross_entropy(_t(logits), _t(none))) == 0.0
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_chunked_ce_loss_matches_jax(name):
+    jcfg, cfg, jp, model = _models(name)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, 48, cfg.d_model)).astype(np.float32)
+    _, labels = _train_batch(cfg, seed=11, S=48)
+    for chunk in (16, 48, 512):
+        want = JT.chunked_ce_loss(jnp.asarray(x), jp, jnp.asarray(labels),
+                                  jcfg, chunk=chunk)
+        got = TT.chunked_ce_loss(_t(x), model.embed, _t(labels), cfg,
+                                 chunk=chunk)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_forward_matches_jax(name):
+    jcfg, cfg, jp, model = _models(name)
+    toks, _ = _train_batch(cfg)
+    jf = jax.jit(lambda p, t, r: JT.forward(p, t, jcfg, mode="train",
+                                            remat=r)[0],
+                 static_argnums=2)
+    for remat in (False, True):
+        want = jf(jp, jnp.asarray(toks), remat)
+        got, cache = TT.forward(model, _t(toks), cfg, mode="train",
+                                remat=remat)
+        assert cache is None
+        np.testing.assert_allclose(got.detach().numpy(), _np(want),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _port_loss_and_grads(model, cfg, toks, labels, remat):
+    model.requires_grad_(True)
+    names, params = zip(*model.named_parameters())
+    loss, m = TT.loss_fn(model, {"tokens": _t(toks), "labels": _t(labels)},
+                         cfg, remat=remat)
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), {k: v.detach() for k, v in m.items()}, \
+        dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_loss_and_grads_match_jax(name):
+    jcfg, cfg, jp, model = _models(name)
+    toks, labels = _train_batch(cfg)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    (jloss, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jbatch, jcfg), has_aux=True))(jp)
+    loss, m, grads = _port_loss_and_grads(model, cfg, toks, labels, True)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["ce"]), float(jm["ce"]), rtol=1e-5)
+    assert float(m["aux"]) == float(jm["aux"]) == 0.0
+    want = params_from_jax(cfg, jax.tree.map(np.asarray, jg))
+    assert sorted(grads) == sorted(want)
+    for n, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[n].numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=n)
+
+
+def test_remat_gives_the_same_bits():
+    _, cfg, _, model = _models("qwen2-1.5b")
+    toks, labels = _train_batch(cfg)
+    l0, _, g0 = _port_loss_and_grads(model, cfg, toks, labels, False)
+    l1, _, g1 = _port_loss_and_grads(model, cfg, toks, labels, True)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)

@@ -28,6 +28,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as otrace
 from repro_torch.obs import vcycle as tvcycle
 from test_torch_partitioner import assert_level_stats_equal
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 

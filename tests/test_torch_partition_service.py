@@ -24,6 +24,7 @@ from repro_torch.core import partitioner as tpart
 from repro_torch.dist.spawn import run_ranks
 from repro_torch.serve import PartitionService, stack_device_batch
 from test_torch_partitioner import assert_same_outcome
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 OMEGA, DELTA, THETA = 16, 256, 4
 

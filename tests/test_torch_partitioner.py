@@ -19,6 +19,7 @@ from repro.core.partitioner import partition as jpartition
 from repro_torch.core import generate as tgen
 from repro_torch.core.hypergraph import CapacityError
 from repro_torch.core.partitioner import partition as tpartition
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -15,6 +15,7 @@ from repro.configs import get_config as jget
 from repro.core import planner as jpl
 from repro_torch.configs import get_config as tget
 from repro_torch.core import planner as tpl
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -19,6 +19,7 @@ from repro.core import refine as jre
 from repro.utils import segops as jseg
 from repro_torch.core import hypergraph as thg
 from repro_torch.core import refine as tre
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 # (graph, kwargs, omega, delta, coarsening levels before the refined level)
 CASES = [

@@ -21,6 +21,7 @@ from repro_torch.core import kway as tkway
 from repro_torch.core import partitioner as tpart
 from repro_torch.obs import trace as otrace
 from test_torch_partitioner import assert_same_outcome
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 _GRAPH = dict(n_layers=4, width=24, fanout=6, seed=3)
 _C = dict(omega=16, delta=64, theta=4)

@@ -10,6 +10,7 @@ from repro.utils import hashing as jhash
 from repro.utils import segops as jseg
 from repro_torch.utils import hashing as thash
 from repro_torch.utils import segops as tseg
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

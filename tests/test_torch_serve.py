@@ -28,6 +28,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import (OutOfPagesError, PageManager, PagingSpec,
                                ServeEngine)
 from repro_torch.serve.paging import make_insert
+from _jax_caches import fresh_jax_caches  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 NAME = "qwen2-1.5b"
