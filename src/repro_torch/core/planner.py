@@ -203,9 +203,10 @@ def replan_expert_placement(cfg: ArchConfig, prev: dict, n_shards: int,
 def layer_hypergraph(cfg: ArchConfig) -> tuple[HostHypergraph, np.ndarray]:
     """Residual-stream chain + periodic skip fan-ins over layers; returns
     the graph and each layer's size in MB-ish units. Runs on the configs
-    the port's ``lm_shapes`` covers: dense attention + MLP stacks. MoE,
-    MLA, SSM and encoder-decoder configs raise ``NotImplementedError``
-    until ROADMAP.md Queue A item 14 ports their layers."""
+    the port's ``lm_shapes`` covers: attention with MLP or MoE layers.
+    MLA, SSM, encoder-decoder and vision configs raise
+    ``NotImplementedError`` until ROADMAP.md Queue A items 14d-14f port
+    their layers."""
     from repro_torch.models import transformer as T
     from repro_torch.models.common import param_count
     L = cfg.n_layers
@@ -229,8 +230,7 @@ def plan_stage_assignment(cfg: ArchConfig, n_stages: int,
                           theta: int = 8, device=None) -> dict:
     """Layer -> pipeline stage by a k-way cut (eps 0.10) of
     ``layer_hypergraph(cfg)`` on ``device`` (CUDA unless another is named).
-    Dense configs only until ROADMAP.md Queue A item 14 (see
-    ``layer_hypergraph``)."""
+    The configs of ``layer_hypergraph``."""
     hg, _ = layer_hypergraph(cfg)
     res = partition_kway(hg, k=n_stages, eps=0.10, theta=theta,
                          coarse_target=max(4 * n_stages, 16), device=device)

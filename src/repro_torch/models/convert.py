@@ -3,8 +3,11 @@
 The only place a layout may change. The JAX parameter tree stacks every
 layer of a pattern slot along a leading "layers" axis
 (``params["stack"]["slot{i}"][...]`` is ``[n_superblocks, ...]``); the port
-holds one ``Block`` per layer, layer ``sb * len(pattern) + i``. Weights
-keep the JAX ``[in, out]`` layout, so nothing is transposed.
+holds one ``Block`` per layer, layer ``sb * len(pattern) + i``. The
+``first_k_dense`` leading layers are top-level ``dense{k}`` keys of the
+JAX tree and modules of that name in the port, unstacked in both. Weights
+keep the JAX ``[in, out]`` layout (the MoE experts' ``[E, in, out]``), so
+nothing is transposed.
 
 The mapping between the two is ``jax_path`` (a port parameter name to its
 JAX tree path and superblock) and ``leaf_groups`` (the JAX leaves in
@@ -46,7 +49,8 @@ def _tensor(a) -> torch.Tensor:
 
 def jax_path(cfg: ArchConfig, name: str) -> tuple[tuple[str, ...], int]:
     """The JAX parameter-tree path of the port's parameter ``name`` and its
-    superblock along the stacked layers axis (0 for unstacked leaves)."""
+    superblock along the stacked layers axis (0 for unstacked leaves:
+    ``embed``, ``final_norm`` and ``dense{k}`` keep their paths)."""
     parts = tuple(name.split("."))
     if parts[0] != "layers":
         return parts, 0

@@ -1,5 +1,5 @@
-"""Transformer building blocks of the dense decoder, port of the GQA
-attention, SwiGLU MLP and embedding parts of ``repro.models.layers``.
+"""Transformer building blocks, port of the GQA attention, SwiGLU MLP,
+MoE and embedding parts of ``repro.models.layers``.
 
 ``*_shapes(cfg)`` declares parameter Specs as the JAX package does (weights
 keep its ``[in, out]`` layout); the functions take a mapping of parameters
@@ -11,11 +11,16 @@ online-softmax ``flash_attention`` in plain tensor ops, so autograd
 differentiates it as ``jax.grad`` differentiates the JAX one (the flash
 kernel has no backward).
 
-MLA, MoE and the sequence-sharded decode wait for later slices (ROADMAP.md
-Queue A item 14).
+The MoE layer is the JAX package's sort-based capacity dispatch: its
+routing integers are the JAX ones, and its scatter and combine give every
+lane a row of its own, so the card adds no float atomically.
+``moe_apply_local_dispatch`` (the shard-local dispatch on a mesh) waits
+for ROADMAP.md Queue A item 14i, MLA for 14d and the sequence-sharded
+decode for 14g.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -164,6 +169,131 @@ class MLP(SpecModule):
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
         super().__init__(mlp_shapes(cfg), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def moe_shapes(cfg: ArchConfig) -> dict:
+    mo = cfg.moe
+    D = cfg.d_model
+    s = {
+        "router": Spec((D, mo.n_experts), ("embed", None)),
+        "we_gate": Spec((mo.n_experts, D, mo.d_ff_expert),
+                        ("experts", "embed", "mlp")),
+        "we_up": Spec((mo.n_experts, D, mo.d_ff_expert),
+                      ("experts", "embed", "mlp")),
+        "we_down": Spec((mo.n_experts, mo.d_ff_expert, D),
+                        ("experts", "mlp", "embed")),
+    }
+    if mo.n_shared:
+        s["shared"] = mlp_shapes(cfg, d_ff=mo.n_shared * mo.d_ff_expert)
+    return s
+
+
+class MoE(SpecModule):
+    """Routed experts, router and shared expert parameters
+    (``moe_shapes``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+        super().__init__(moe_shapes(cfg), device, dtype)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One MoE layer's routing of G tokens, K lanes a token (lane
+    ``g * K + k``), in the JAX package's terms: ``gates`` [G, E] f32,
+    ``topv``/``topi`` [G, K] (``topi`` after ``expert_perm``), the lanes
+    sorted stably by expert (``se`` the sorted ids, ``order`` the lane of
+    each sorted entry, JAX's ``payload``), ``pos`` each sorted lane's place
+    in its expert's group and ``keep = pos < cap``."""
+    gates: torch.Tensor
+    topv: torch.Tensor
+    topi: torch.Tensor
+    se: torch.Tensor
+    order: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def moe_route(p, xf, cfg: ArchConfig, expert_perm=None) -> Routing:
+    """Route the tokens xf [G, D]: f32 router logits, softmax, top-k (a
+    stable descending sort, so ties go to the lower expert as in
+    ``jax.lax.top_k``), weights renormalised, ids through
+    ``expert_perm``, then the capacity slots of the sort-based dispatch."""
+    mo = cfg.moe
+    E, K = mo.n_experts, mo.top_k
+    G = xf.shape[0]
+    # the JAX einsum's preferred_element_type=F32: bf16 products are exact
+    # in f32
+    logits = xf.float() @ p["router"].float()
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :K], topi[:, :K]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    if expert_perm is not None:
+        topi = torch.as_tensor(expert_perm, device=topi.device).long()[topi]
+    cap = max(8, int(math.ceil(G * K / E * mo.capacity_factor)))
+    se, order = torch.sort(topi.reshape(G * K), stable=True)
+    # a sorted lane's place in its group: its index less the group's
+    # first, which JAX finds by a max-scan of the group starts
+    counts = torch.bincount(se, minlength=E)
+    pos = torch.arange(G * K, device=xf.device) \
+        - (torch.cumsum(counts, 0) - counts)[se]
+    return Routing(gates=gates, topv=topv, topi=topi, se=se, order=order,
+                   pos=pos, keep=pos < cap, cap=cap)
+
+
+def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
+    """Sort-based capacity dispatch (no [G, E, C] one-hot), port of the
+    JAX ``moe_apply``: tokens sort by chosen expert into ``cap`` slots an
+    expert (lanes past it are dropped), the batched expert products, then
+    each lane's output weighted and summed over its token's K lanes in k
+    order, plus the shared expert. ``expert_perm`` (the placement
+    planner's) maps each chosen expert to its slot on the expert axis.
+    Returns (out [B, S, D], aux), aux the Switch balance loss computed as
+    JAX computes it: the density of ``topi[:, 0]`` after the perm against
+    the mean gates before it.
+
+    Every kept lane writes its own (expert, slot) row and every dropped
+    lane a dump row of its own, and the combine reads the same rows (zero
+    for a dropped lane): no two lanes share a row, so no scatter or
+    gather gradient walks a run of equal indices."""
+    if plan is not None:
+        raise NotImplementedError(
+            "moe_apply on a mesh (plan=, moe_apply_local_dispatch) is not "
+            "ported yet: ROADMAP.md Queue A item 14i (training on a mesh)")
+    mo = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.n_experts, mo.top_k
+    G = B * S
+    xf = x.reshape(G, D)
+    r = moe_route(p, xf, cfg, expert_perm)
+
+    density = torch.bincount(r.topi[:, 0], minlength=E).float() / G
+    aux = torch.sum(density * torch.mean(r.gates, dim=0)) * E \
+        * mo.router_aux_coef
+
+    # each lane's row: (expert, slot) when kept, else a dump row of its own
+    n_rows = E * r.cap
+    srow = torch.where(r.keep, r.se * r.cap + r.pos,
+                       n_rows + torch.arange(G * K, device=x.device))
+    row = torch.empty_like(srow)
+    row[r.order] = srow                                    # lane order
+    lanes = xf[:, None].expand(G, K, D).reshape(G * K, D)
+    xe = x.new_zeros((n_rows + G * K, D))
+    xe[row] = lanes
+    xe = xe[:n_rows].view(E, r.cap, D)
+    h = nn.functional.silu(torch.bmm(xe, p["we_gate"])) * \
+        torch.bmm(xe, p["we_up"])
+    ye = torch.bmm(h, p["we_down"])                        # [E, cap, D]
+    contrib = nn.functional.pad(ye.reshape(n_rows, D), (0, 0, 0, G * K))[row]
+    w = r.topv.reshape(G * K).to(x.dtype)
+    out = (contrib * w[:, None]).view(G, K, D).sum(dim=1).view(B, S, D)
+    if mo.n_shared:
+        out = out + mlp_apply(p["shared"], x)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""Decoder-only LM for layer patterns of ``attn`` + ``mlp``, port of the
-dense path of ``repro.models.transformer``.
+"""Decoder-only LM for layer patterns of ``attn`` + ``mlp`` or ``moe``,
+port of the attention paths of ``repro.models.transformer``.
 
 ``lm_shapes`` and ``cache_shapes`` give the JAX package's spec trees. The
 ``LM`` module holds one ``Block`` per layer in an ``nn.ModuleList`` (layer
 ``l = superblock * len(pattern) + slot``, the JAX stack's order), where the
-JAX package scans over a stacked "layers" axis. Caches keep the JAX tree
-and its stacked ``[n_superblocks, ...]`` leaves, so they compare leaf by
-leaf with ``cache_shapes``; ``prefill`` and ``decode_step`` update them in
-place (the JAX engine donates them instead).
+JAX package scans over a stacked "layers" axis; the ``first_k_dense``
+leading layers (``ffn="mlp"``) are the modules ``dense{k}``, as the JAX
+tree's top-level ``dense{k}`` keys, and run before the stack. Caches keep
+the JAX tree and its stacked ``[n_superblocks, ...]`` leaves, so they
+compare leaf by leaf with ``cache_shapes``; ``prefill`` and
+``decode_step`` update them in place (the JAX engine donates them
+instead).
 
 Three modes: ``train`` (full causal, no cache, chunked attention in plain
 tensor ops that autograd differentiates, each block recomputed in the
@@ -15,12 +18,16 @@ backward under ``remat``), ``prefill`` (causal over the prompt, fills the
 cache; attention on the flash kernel) and ``decode`` (one token a row
 against the dense or paged cache, per-row positions). ``loss_fn`` is the
 training loss: ``chunked_ce_loss`` over the final hidden states, which
-never holds ``[B, S, V]`` logits. Other mixers, MoE, encoder-decoder and
-vision models raise ``NotImplementedError``, in every mode.
+never holds ``[B, S, V]`` logits, plus the MoE layers' balance loss.
+``expert_perm`` (the placement planner's permutation of the expert axis)
+reaches every MoE layer through ``forward``, ``loss_fn``, ``prefill`` and
+``decode_step``. Other mixers, encoder-decoder and vision models raise
+``NotImplementedError``, in every mode.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any
 
@@ -28,7 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
 from repro_torch.models.common import (Spec, SpecModule, apply_rope,
                                        init_params_, layer_norm, rms_norm,
@@ -45,16 +52,14 @@ def _unported(what: str, item: str):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what the port's decoder does not run yet."""
     for spec in cfg.pattern:
+        if spec.mixer == "mla":
+            _unported("mixer 'mla'", "14d (MLA)")
         if spec.mixer != "attn":
-            _unported(f"mixer {spec.mixer!r}", "14 (MLA / SSM and xLSTM)")
-        if spec.ffn != "mlp":
-            _unported(f"ffn {spec.ffn!r}", "14 (MoE)")
-    if cfg.first_k_dense:
-        _unported("first_k_dense layers", "14 (MoE)")
+            _unported(f"mixer {spec.mixer!r}", "14e (SSM and xLSTM)")
     if cfg.encoder_layers:
-        _unported("encoder-decoder models", "14 (encoder-decoder and VLM)")
+        _unported("encoder-decoder models", "14f (encoder-decoder and VLM)")
     if cfg.vision_dim:
-        _unported("vision inputs", "14 (encoder-decoder and VLM)")
+        _unported("vision inputs", "14f (encoder-decoder and VLM)")
 
 
 # ---------------------------------------------------------------------------
@@ -67,9 +72,18 @@ def _norm_shapes(cfg: ArchConfig) -> dict:
             "b": Spec((cfg.d_model,), (None,), init="zeros")}
 
 
-def _layer_shapes(cfg: ArchConfig) -> dict:
+def _ffn_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
+    return L.moe_shapes(cfg) if spec.ffn == "moe" else L.mlp_shapes(cfg)
+
+
+def _layer_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
     return {"norm1": _norm_shapes(cfg), "mixer": L.attn_shapes(cfg),
-            "norm2": _norm_shapes(cfg), "ffn": L.mlp_shapes(cfg)}
+            "norm2": _norm_shapes(cfg), "ffn": _ffn_shapes(spec, cfg)}
+
+
+def _dense_spec(cfg: ArchConfig) -> LayerSpec:
+    """The spec of the ``first_k_dense`` leading layers."""
+    return dataclasses.replace(cfg.pattern[0], ffn="mlp")
 
 
 def lm_shapes(cfg: ArchConfig) -> dict:
@@ -77,9 +91,11 @@ def lm_shapes(cfg: ArchConfig) -> dict:
     s: dict[str, Any] = {"embed": L.embed_shapes(cfg),
                          "final_norm": _norm_shapes(cfg)}
     s["stack"] = {
-        f"slot{i}": stack_specs(_layer_shapes(cfg), cfg.n_superblocks)
-        for i, _ in enumerate(cfg.pattern)
+        f"slot{i}": stack_specs(_layer_shapes(spec, cfg), cfg.n_superblocks)
+        for i, spec in enumerate(cfg.pattern)
     }
+    for k in range(cfg.first_k_dense):
+        s[f"dense{k}"] = _layer_shapes(_dense_spec(cfg), cfg)
     return s
 
 
@@ -101,32 +117,42 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
     switches to the paged ``[n_pages, page_size, ...]`` layout ("kv_pages"
     leading axis)."""
     check_supported(cfg)
-    return {"stack": {
+    c: dict[str, Any] = {"stack": {
         f"slot{i}": stack_specs(_mixer_cache_spec(cfg, batch, cache_len,
                                                   page_size, n_pages),
                                 cfg.n_superblocks)
         for i, _ in enumerate(cfg.pattern)}}
+    for k in range(cfg.first_k_dense):
+        c[f"dense{k}"] = _mixer_cache_spec(cfg, batch, cache_len, page_size,
+                                           n_pages)
+    return c
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 class Block(SpecModule):
-    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+    """One pre-norm decoder layer of ``spec``: attention, then the SwiGLU
+    MLP or the MoE layer."""
 
-    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+    def __init__(self, spec: LayerSpec, cfg: ArchConfig, device=None,
+                 dtype=F32):
         super().__init__({}, device, dtype)
+        self.spec = spec
         self.norm1 = SpecModule(_norm_shapes(cfg), device, dtype)
         self.mixer = L.Attention(cfg, device, dtype)
         self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
-        self.ffn = L.MLP(cfg, device, dtype)
+        self.ffn = (L.MoE if spec.ffn == "moe" else L.MLP)(cfg, device, dtype)
 
-    def forward(self, x, cfg, mode, positions, cache, pos, pages=None):
-        return _apply_layer(self, x, cfg, mode, positions, cache, pos, pages)
+    def forward(self, x, cfg, mode, positions, cache, pos, pages=None,
+                expert_perm=None):
+        return _apply_layer(self.spec, self, x, cfg, mode, positions, cache,
+                            pos, pages, expert_perm)
 
 
 class LM(nn.Module):
-    """Decoder-only LM: embedding, ``n_layers`` blocks, final norm, head.
+    """Decoder-only LM: embedding, the ``first_k_dense`` leading layers
+    ``dense{k}``, the stack's blocks (``layers``), final norm, head.
     Parameters are made on ``device`` (uninitialised until ``init_`` or
     ``load_state_dict``)."""
 
@@ -136,8 +162,21 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = SpecModule(L.embed_shapes(cfg), device, dtype)
         self.final_norm = SpecModule(_norm_shapes(cfg), device, dtype)
-        self.layers = nn.ModuleList(Block(cfg, device, dtype)
-                                    for _ in range(cfg.n_layers))
+        for k in range(cfg.first_k_dense):
+            self.add_module(f"dense{k}", Block(_dense_spec(cfg), cfg, device,
+                                               dtype))
+        self.layers = nn.ModuleList(
+            Block(spec, cfg, device, dtype)
+            for _ in range(cfg.n_superblocks) for spec in cfg.pattern)
+
+    def blocks(self) -> list:
+        """``(key, block)`` in the order the forward runs them: the dense
+        layers keyed ``"dense{k}"``, then the stack keyed by layer index
+        (layer ``sb * len(pattern) + i`` is ``stack.slot{i}``'s superblock
+        ``sb``)."""
+        return [(f"dense{k}", getattr(self, f"dense{k}"))
+                for k in range(self.cfg.first_k_dense)] + \
+            list(enumerate(self.layers))
 
     def init_(self, generator: torch.Generator) -> "LM":
         """Random weights with the JAX ``materialize`` scales."""
@@ -231,13 +270,22 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
     return _attn_out(p, o), {"k": kc, "v": vc}
 
 
-def _apply_layer(p, x, cfg, mode, positions, cache, pos, pages=None):
+def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
+                 pages=None, expert_perm=None):
+    """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
+    zero for other layers)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_attn(p["mixer"], h, cfg, mode, positions, cache,
                                  pos, pages)
     x = x + mix
     h = _norm(p["norm2"], x, cfg)
-    return x + L.mlp_apply(p["ffn"], h), new_cache
+    if spec.ffn == "moe":
+        out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm)
+        aux = aux + a
+    else:
+        out = L.mlp_apply(p["ffn"], h)
+    return x + out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -256,27 +304,35 @@ def _positions(pos, S: int, device):
     return pos[:, None] + ar[None, :]
 
 
-def _layer_cache(cache, cfg: ArchConfig, layer: int) -> dict:
-    """Views of layer ``layer``'s leaves in the stacked cache tree."""
-    n_slot = len(cfg.pattern)
-    sb, slot = divmod(layer, n_slot)
+def _layer_cache(cache, cfg: ArchConfig, key) -> dict:
+    """The cache of the layer ``key`` of ``LM.blocks``: a dense layer's
+    own subtree, or views of a stack layer's leaves in the stacked
+    tree."""
+    if isinstance(key, str):
+        return cache[key]
+    sb, slot = divmod(key, len(cfg.pattern))
     return {k: t[sb] for k, t in cache["stack"][f"slot{slot}"].items()}
 
 
-def _train_block(block, x, cfg, positions):
-    return _apply_layer(block, x, cfg, "train", positions, None, None)[0]
+def _train_block(block, x, cfg, positions, expert_perm):
+    x, _, aux = block(x, cfg, "train", positions, None, None,
+                      expert_perm=expert_perm)
+    return x, aux
 
 
 def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
             cache=None, pos=None, page_table=None, page_size: int = 0,
-            remat: bool = True):
-    """Returns (hidden [B,S,D], cache). ``pos`` may be a scalar
-    (synchronized decode) or a [B] vector of per-slot positions; with
-    ``page_table`` [B, P] (+ ``page_size``) the decode-mode KV updates go
-    through the paged block-table layout instead of the dense [B, S] one.
-    The cache is updated in place and returned.
+            remat: bool = True, expert_perm=None):
+    """Returns (hidden [B,S,D], cache, aux), aux the MoE balance loss
+    summed over the layers in layer order (an f32 zero without MoE).
+    ``pos`` may be a scalar (synchronized decode) or a [B] vector of
+    per-slot positions; with ``page_table`` [B, P] (+ ``page_size``) the
+    decode-mode KV updates go through the paged block-table layout
+    instead of the dense [B, S] one. The cache is updated in place and
+    returned. ``expert_perm`` [n_experts] maps each routed expert to its
+    slot on the MoE layers' expert axis.
 
-    ``mode="train"`` takes no cache and returns (hidden, None) with
+    ``mode="train"`` takes no cache and returns (hidden, None, aux) with
     autograd recording; under ``remat`` each block is recomputed in the
     backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of
     the scanned layer body), which gives the same bits as keeping its
@@ -288,20 +344,25 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     pages = (page_table, page_size) if page_table is not None else None
     positions = _positions(pos, S, dev)
     train = mode == "train"
+    if expert_perm is not None:
+        expert_perm = torch.as_tensor(expert_perm, device=dev).long()
     with contextlib.nullcontext() if train else torch.no_grad():
         x = L.embed_apply(model.embed, tokens, cfg,
                           positions=positions if cfg.pos == "learned"
                           else None)
-        for i, block in enumerate(model.layers):
+        aux = torch.zeros((), dtype=F32, device=dev)
+        for key, block in model.blocks():
             if not train:
-                x, _ = block(x, cfg, mode, positions,
-                             _layer_cache(cache, cfg, i), pos, pages)
+                x, _, a = block(x, cfg, mode, positions,
+                                _layer_cache(cache, cfg, key), pos, pages,
+                                expert_perm)
             elif remat:
-                x = checkpoint(_train_block, block, x, cfg, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(_train_block, block, x, cfg, positions,
+                                  expert_perm, use_reentrant=False)
             else:
-                x = _train_block(block, x, cfg, positions)
-        return _norm(model.final_norm, x, cfg), cache
+                x, a = _train_block(block, x, cfg, positions, expert_perm)
+            aux = aux + a
+        return _norm(model.final_norm, x, cfg), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -335,35 +396,35 @@ def chunked_ce_loss(x, embed, labels, cfg: ArchConfig, chunk: int = 512,
 def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
             remat: bool = True):
     """batch: dict(tokens [B,S], labels [B,S]). Returns
-    (ce + aux, {"ce", "aux"}); aux, the MoE balance loss, is 0 on the
-    dense configs the port runs."""
+    (ce + aux, {"ce", "aux"}); aux is the MoE balance loss (0 without
+    MoE, where ``expert_perm`` changes nothing, as in JAX)."""
     if plan is not None:
         _unported("the training loss on a mesh (plan=)",
                   "14i (training on a mesh)")
-    if expert_perm is not None:
-        _unported("expert_perm", "14c (MoE)")
-    x, _ = forward(model, batch["tokens"], cfg, mode="train", remat=remat)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+    x, _, aux = forward(model, batch["tokens"], cfg, mode="train",
+                        remat=remat, expert_perm=expert_perm)
     ce = chunked_ce_loss(x, model.embed, batch["labels"], cfg)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(model: LM, tokens, cache, cfg: ArchConfig):
+def prefill(model: LM, tokens, cache, cfg: ArchConfig, expert_perm=None):
     """Fills ``cache`` (dense, cache_len >= S) in place; returns
     (last_logits [B, V], cache)."""
-    x, cache = forward(model, tokens, cfg, mode="prefill", cache=cache)
+    x, cache, _ = forward(model, tokens, cfg, mode="prefill", cache=cache,
+                          expert_perm=expert_perm)
     logits = L.unembed_apply(model.embed, x[:, -1:], cfg)
     return logits[:, 0], cache
 
 
 def decode_step(model: LM, token, pos, cache, cfg: ArchConfig,
-                page_table=None, page_size: int = 0):
+                page_table=None, page_size: int = 0, expert_perm=None):
     """token [B,1] int, pos scalar OR per-slot [B] vector (continuous
     batching). With ``page_table`` [B, P] + ``page_size`` the KV caches are
     paged (see ``cache_shapes(page_size=..., n_pages=...)``). Returns
     (logits [B,V], cache), the cache updated in place."""
-    x, cache = forward(model, token, cfg, mode="decode", cache=cache,
-                       pos=pos, page_table=page_table, page_size=page_size)
+    x, cache, _ = forward(model, token, cfg, mode="decode", cache=cache,
+                          pos=pos, page_table=page_table,
+                          page_size=page_size, expert_perm=expert_perm)
     logits = L.unembed_apply(model.embed, x, cfg)
     return logits[:, 0], cache
 

@@ -1,13 +1,14 @@
-"""Port parity for the dense LM: numeric primitives, attention projection,
+"""Port parity for the LM: numeric primitives, attention projection,
 spec trees, and ``prefill``/``decode_step`` of the JAX ``transformer``
 against the port's on the same weights (carried across with
-``params_from_jax``), for the smoke configs of qwen2-1.5b (GQA, QKV bias)
-and phi4-mini-3.8b. Logits within 1e-4 (atol and rtol), caches within
+``params_from_jax``), for the smoke configs of qwen2-1.5b (GQA, QKV bias),
+phi4-mini-3.8b and llama4-scout-17b-16e (MoE: top-1 of 4 experts and a
+shared expert). Logits within 1e-4 (atol and rtol), caches within
 1e-5. The training forward: train-mode hidden states within 1e-4 (remat
 off and on), the chunked attention within 1e-5, the CE losses within
 1e-6, and ``loss_fn`` at f32 params against ``jax.value_and_grad``: the
-loss within 1e-5, every gradient leaf within atol 1e-5 / rtol 1e-4; the
-port's remat on and off bit for bit."""
+loss, its CE and its MoE aux within 1e-5, every gradient leaf within atol
+1e-5 / rtol 1e-4; the port's remat on and off bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +29,7 @@ from repro_torch.models.convert import cache_to_arrays, params_from_jax
 from repro_torch.serve import paging as tpaging
 from _jax_caches import fresh_jax_caches  # noqa: F401
 
-ARCHS = ["qwen2-1.5b", "phi4-mini-3.8b"]
+ARCHS = ["qwen2-1.5b", "phi4-mini-3.8b", "llama4-scout-17b-16e"]
 B, S, CL, PS = 2, 13, 24, 8
 
 
@@ -133,9 +134,21 @@ def test_full_width_qwen2_parameter_count():
     assert TC.param_count(TT.lm_shapes(tget("qwen2-1.5b"))) == 1_777_088_000
 
 
+def test_full_width_llama4_parameter_count():
+    """llama4-scout at full width: 48 layers of 2,202,101,760 parameters
+    (2,013,265,920 of them routed experts), the embeddings and the untied
+    head."""
+    cfg = tget("llama4-scout-17b-16e")
+    assert TC.param_count(TT.lm_shapes(cfg)) == 107_769_861_120
+    layer = TT._layer_shapes(cfg.pattern[0], cfg)
+    assert TC.param_count(layer) == 2_202_101_760
+    assert sum(TC.param_count(layer["ffn"][k])
+               for k in ("we_gate", "we_up", "we_down")) == 2_013_265_920
+
+
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "xlstm-350m",
-                                  "llama4-scout-17b-16e", "whisper-tiny",
-                                  "internvl2-2b", "jamba-v0.1-52b"])
+                                  "whisper-tiny", "internvl2-2b",
+                                  "jamba-v0.1-52b"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TT.LM(tget(name).smoke(), device="cpu")
@@ -143,15 +156,19 @@ def test_unported_models_raise(name):
 
 def test_train_mode_raises():
     """Train mode runs on one device; what it does not run yet raises and
-    names its ROADMAP item, and an unknown mode raises."""
+    names its ROADMAP item, and an unknown mode raises. An
+    ``expert_perm`` on a config without MoE changes nothing, as in
+    JAX."""
     cfg = tget("qwen2-1.5b").smoke()
     model = TT.materialize_lm(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     batch = {"tokens": toks, "labels": toks}
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
         TT.loss_fn(model, batch, cfg, plan=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14c"):
-        TT.loss_fn(model, batch, cfg, expert_perm=torch.arange(4))
+    plain, _ = TT.loss_fn(model, batch, cfg)
+    permuted, m = TT.loss_fn(model, batch, cfg,
+                             expert_perm=torch.arange(4).flip(0))
+    assert torch.equal(plain, permuted) and float(m["aux"]) == 0.0
     with pytest.raises(ValueError, match="mode"):
         TT.forward(model, toks, cfg, mode="training")
 
@@ -167,6 +184,19 @@ def test_init_scales_follow_materialize():
     again = TT.materialize_lm(cfg, seed=0, device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(m.state_dict().values(), again.state_dict().values()))
+    # the MoE leaves: 1/sqrt(fan_in), fan_in the second-to-last dim (the
+    # model width for the router, we_gate and we_up, the expert width for
+    # we_down); the shared expert as an MLP of n_shared * d_ff_expert
+    cfg = tget("llama4-scout-17b-16e").smoke()
+    moe = TT.materialize_lm(cfg, seed=0, device="cpu").layers[0].ffn
+    F, Fs = cfg.moe.d_ff_expert, cfg.moe.n_shared * cfg.moe.d_ff_expert
+    for w, fan_in, tol in ((moe.router, cfg.d_model, 0.1),
+                           (moe.we_gate, cfg.d_model, 0.05),
+                           (moe.we_up, cfg.d_model, 0.05),
+                           (moe.we_down, F, 0.05),
+                           (moe.shared.w_gate, cfg.d_model, 0.05),
+                           (moe.shared.w_down, Fs, 0.05)):
+        assert abs(float(w.std()) * fan_in ** 0.5 - 1.0) < tol, w.shape
 
 
 # ------------------------------------------------------------- the model
@@ -349,8 +379,8 @@ def test_train_forward_matches_jax(name):
                  static_argnums=2)
     for remat in (False, True):
         want = jf(jp, jnp.asarray(toks), remat)
-        got, cache = TT.forward(model, _t(toks), cfg, mode="train",
-                                remat=remat)
+        got, cache, _ = TT.forward(model, _t(toks), cfg, mode="train",
+                                   remat=remat)
         assert cache is None
         np.testing.assert_allclose(got.detach().numpy(), _np(want),
                                    atol=1e-4, rtol=1e-4)
@@ -376,7 +406,12 @@ def test_loss_and_grads_match_jax(name):
     loss, m, grads = _port_loss_and_grads(model, cfg, toks, labels, True)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(m["ce"]), float(jm["ce"]), rtol=1e-5)
-    assert float(m["aux"]) == float(jm["aux"]) == 0.0
+    if jcfg.moe:
+        assert float(m["aux"]) > 0.0
+        np.testing.assert_allclose(float(m["aux"]), float(jm["aux"]),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert float(m["aux"]) == float(jm["aux"]) == 0.0
     want = params_from_jax(cfg, jax.tree.map(np.asarray, jg))
     assert sorted(grads) == sorted(want)
     for n, g in grads.items():

@@ -1,7 +1,9 @@
 """Port parity for the training substrate: the optimizer, the bf16 train
 step, the data pipeline, int8 gradient compression, checkpoints that cross
 between the two packages, the train loop (resume, supervision, the
-watchdog) and its CLI, on the smoke config of qwen2-1.5b.
+watchdog) and its CLI, on the smoke config of qwen2-1.5b; and the bf16
+step, the leaf order and checkpoints of llama4-scout-17b-16e's smoke
+config (MoE leaves, one leading dense layer).
 
 Tolerances, each derived where it is used:
 - optimizer pieces at f32 against JAX on a seeded tree: 1e-6 relative
@@ -13,6 +15,7 @@ Tolerances, each derived where it is used:
   ``U_i`` bounds Adam's step ``|m_hat / sqrt(v_hat)|`` (1 at step 1,
   Cauchy-Schwarz after; see ``_master_bound``).
 """
+import dataclasses
 import json
 import math
 import os
@@ -49,6 +52,7 @@ from repro_torch.train import optimizer as topt
 from _jax_caches import fresh_jax_caches  # noqa: F401
 
 ARCH = "qwen2-1.5b"
+MOE_ARCH = "llama4-scout-17b-16e"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,6 +67,12 @@ def _one_torch_thread():
 
 def _cfgs():
     return jget(ARCH).smoke(), tget(ARCH).smoke()
+
+
+def _moe_cfgs(first_k_dense=0):
+    return tuple(dataclasses.replace(get(MOE_ARCH),
+                                     first_k_dense=first_k_dense).smoke()
+                 for get in (jget, tget))
 
 
 def _bits(x):
@@ -339,6 +349,92 @@ def test_thirty_bf16_steps_match_jax(bf16_runs):
         bound = _master_bound(ocfg, t)
         assert gap <= bound * (1 + 1e-5), (t, gap, bound)
         assert pgap <= bound * (1 + 1e-5), (t, pgap, bound)
+
+
+def test_moe_bf16_train_steps_match_jax():
+    """Four bf16 steps of llama4-scout's smoke config from one JAX state:
+    each loss (CE plus the MoE balance loss, which is positive) within
+    2^-8 of JAX's, and the master weights within the bound of the dense
+    steps above."""
+    jcfg, cfg = _moe_cfgs()
+    ocfg = dict(total_steps=4, warmup=1)
+    js = jopt.init_state(JC.materialize(JT.lm_shapes(jcfg),
+                                        jax.random.PRNGKey(0)))
+    ts = state_from_jax(cfg, _np_state(js))
+    jstep = jax.jit(jmake_train_step(jcfg, None, jopt.OptConfig(**ocfg)))
+    tstep = make_train_step(cfg, None, topt.OptConfig(**ocfg))
+    ds = tpipe.SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=8,
+                           seed=1)
+    for t in range(1, 5):
+        b = ds.batch_at(t - 1)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        ts, tm = tstep(ts, {k: torch.from_numpy(v) for k, v in b.items()})
+        jl, tl = float(jm["loss"]), float(tm["loss"])
+        assert abs(tl - jl) <= 2 ** -8 * abs(jl), (t, tl, jl)
+        assert float(tm["aux"]) > 0.0
+        assert abs(float(tm["aux"]) - float(jm["aux"])) \
+            <= 2 ** -8 * float(jm["aux"]), t
+        want = state_to_jax(state_from_jax(cfg, _np_state(js)))
+        gap = max(jax.tree.leaves(jax.tree.map(
+            lambda a, b: float((a - b).abs().max()),
+            state_to_jax(ts)["master"], want["master"])))
+        bound = _master_bound(topt.OptConfig(**ocfg), t)
+        assert gap <= bound * (1 + 1e-5), (t, gap, bound)
+
+
+def test_moe_leaf_order_is_jax_flatten_order():
+    """``convert.leaf_groups`` gives the JAX tree's leaves in its flatten
+    order on an MoE config with a leading dense layer (``global_norm``
+    sums and the checkpoint keys follow it): ``dense0`` first, and inside
+    ``ffn`` the router, the shared expert, then we_down, we_gate,
+    we_up."""
+    from repro_torch.models import convert
+    jcfg, cfg = _moe_cfgs(first_k_dense=1)
+    want = [tuple(k.key for k in path) for path, _ in
+            jax.tree_util.tree_flatten_with_path(
+                JT.lm_shapes(jcfg), is_leaf=JC.is_spec)[0]]
+    names = [n for n, _ in TT.LM(cfg, device="meta").named_parameters()]
+    got = convert.leaf_groups(cfg, names)
+    assert [path for path, _ in got] == want
+    ffn = [path[-1] if path[-2] == "ffn" else ".".join(path[-2:])
+           for path, _ in got if path[:3] == ("stack", "slot0", "ffn")]
+    assert ffn == ["router", "shared.w_down", "shared.w_gate",
+                   "shared.w_up", "we_down", "we_gate", "we_up"]
+    assert got[0] == (("dense0", "ffn", "w_down"), ["dense0.ffn.w_down"])
+
+
+def test_moe_checkpoints_cross_between_packages(tmp_path):
+    """An MoE TrainState (a leading dense layer too) written by either
+    package restores in the other, every leaf bit for bit."""
+    jcfg, cfg = _moe_cfgs(first_k_dense=1)
+    js = jopt.init_state(JC.materialize(JT.lm_shapes(jcfg),
+                                        jax.random.PRNGKey(3)))
+    rng = np.random.default_rng(6)
+    js = jopt.TrainState(
+        params=js.params, master=js.master,
+        mu=jax.tree.map(lambda a: jnp.asarray(
+            rng.normal(size=a.shape), jnp.float32), js.mu),
+        nu=jax.tree.map(lambda a: jnp.asarray(
+            rng.random(size=a.shape), jnp.float32), js.nu),
+        step=jnp.int32(5))
+    JCheckpointManager(str(tmp_path / "j")).save(5, js)
+    step, ts, _ = CheckpointManager(str(tmp_path / "j")).restore(
+        topt.abstract_state(cfg))
+    assert step == ts.step == 5
+    _assert_trees_equal(state_to_jax(ts), _jax_state_dict(js))
+
+    CheckpointManager(str(tmp_path / "t")).save(5, ts)
+    with open(tmp_path / "t" / "step-00000005" / "manifest.json") as f:
+        man = json.load(f)
+    for key in (".params/stack/slot0/ffn/we_gate",
+                ".params/stack/slot0/ffn/shared/w_down",
+                ".params/dense0/ffn/w_up", ".mu/stack/slot0/ffn/router"):
+        assert key in man["dtypes"], key
+    assert man["dtypes"][".params/stack/slot0/ffn/we_down"] == "bfloat16"
+    jstep, jrest, _ = JCheckpointManager(str(tmp_path / "t")).restore(
+        jopt.abstract_state(JT.lm_shapes(jcfg)))
+    assert jstep == 5
+    _assert_trees_equal(state_to_jax(ts), _jax_state_dict(jrest))
 
 
 # ------------------------------------------------------- grad compression
