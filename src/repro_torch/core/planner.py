@@ -203,9 +203,9 @@ def replan_expert_placement(cfg: ArchConfig, prev: dict, n_shards: int,
 def layer_hypergraph(cfg: ArchConfig) -> tuple[HostHypergraph, np.ndarray]:
     """Residual-stream chain + periodic skip fan-ins over layers; returns
     the graph and each layer's size in MB-ish units. Runs on the configs
-    the port's ``lm_shapes`` covers: attention with MLP or MoE layers.
-    MLA, SSM, encoder-decoder and vision configs raise
-    ``NotImplementedError`` until ROADMAP.md Queue A items 14d-14f port
+    the port's ``lm_shapes`` covers: attention or MLA with MLP or MoE
+    layers. SSM, encoder-decoder and vision configs raise
+    ``NotImplementedError`` until ROADMAP.md Queue A items 14e-14f port
     their layers."""
     from repro_torch.models import transformer as T
     from repro_torch.models.common import param_count

@@ -1,5 +1,5 @@
-"""Transformer building blocks, port of the GQA attention, SwiGLU MLP,
-MoE and embedding parts of ``repro.models.layers``.
+"""Transformer building blocks, port of the GQA attention, MLA, SwiGLU
+MLP, MoE and embedding parts of ``repro.models.layers``.
 
 ``*_shapes(cfg)`` declares parameter Specs as the JAX package does (weights
 keep its ``[in, out]`` layout); the functions take a mapping of parameters
@@ -11,12 +11,19 @@ online-softmax ``flash_attention`` in plain tensor ops, so autograd
 differentiates it as ``jax.grad`` differentiates the JAX one (the flash
 kernel has no backward).
 
+MLA (DeepSeek-V2's multi-head latent attention) is the JAX package's
+absorbed form, ``mla_attention``: the scores ``(W_uk^T q_nope) . c_kv +
+q_rope . k_rope`` over the compressed cache, the values combined in
+latent space and then up-projected, in plain tensor ops in every mode (the
+JAX package computes it outside any Pallas kernel). Its chunked form
+``mla_attention_flash`` (the JAX mesh plan's ``mla_flash`` rule) waits for
+ROADMAP.md Queue A item 14i.
+
 The MoE layer is the JAX package's sort-based capacity dispatch: its
 routing integers are the JAX ones, and its scatter and combine give every
 lane a row of its own, so the card adds no float atomically.
 ``moe_apply_local_dispatch`` (the shard-local dispatch on a mesh) waits
-for ROADMAP.md Queue A item 14i, MLA for 14d and the sequence-sharded
-decode for 14g.
+for ROADMAP.md Queue A item 14i and the sequence-sharded decode for 14g.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn import ops as flash_ops
-from repro_torch.models.common import Spec, SpecModule
+from repro_torch.models.common import Spec, SpecModule, apply_rope, rms_norm
 
 F32 = torch.float32
 
@@ -144,6 +151,97 @@ class Attention(SpecModule):
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
         super().__init__(attn_shapes(cfg), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_shapes(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    H, D = cfg.n_heads, cfg.d_model
+    return {
+        "w_dq": Spec((D, m.q_lora), ("embed", None)),
+        "q_norm": Spec((m.q_lora,), (None,), init="ones"),
+        "w_uq": Spec((m.q_lora, H * (m.d_nope + m.d_rope)), (None, "heads")),
+        "w_dkv": Spec((D, m.kv_lora), ("embed", None)),
+        "kv_norm": Spec((m.kv_lora,), (None,), init="ones"),
+        "w_kr": Spec((D, m.d_rope), ("embed", None)),
+        "w_uk": Spec((m.kv_lora, H * m.d_nope), (None, "heads")),
+        "w_uv": Spec((m.kv_lora, H * m.d_v), (None, "heads")),
+        "wo": Spec((H * m.d_v, D), ("heads", "embed")),
+    }
+
+
+class MLA(SpecModule):
+    """Multi-head latent attention parameters (``mla_shapes``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+        super().__init__(mla_shapes(cfg), device, dtype)
+
+
+def mla_project_q(p, x, cfg: ArchConfig, positions):
+    """Queries through the low-rank ``q_lora`` bottleneck: (q_nope
+    [B,S,H,d_nope], q_rope [B,S,H,d_rope]), RoPE on the second."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+    q = (cq @ p["w_uq"]).reshape(B, S, cfg.n_heads, m.d_nope + m.d_rope)
+    q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_compress_kv(p, x, cfg: ArchConfig, positions):
+    """The compressed cache entries: c_kv [B,S,kv_lora], k_rope
+    [B,S,d_rope] (one RoPE head shared by every query head)."""
+    c = rms_norm(x @ p["w_dkv"], p["kv_norm"])
+    kr = (x @ p["w_kr"])[:, :, None, :]
+    return c, apply_rope(kr, positions, cfg.rope_theta)[:, :, 0, :]
+
+
+def mla_absorb_q(p, q_nope, cfg: ArchConfig):
+    """``W_uk^T q_nope`` a head: [B,S,H,kv_lora] in q_nope's dtype."""
+    m = cfg.mla
+    w_uk = p["w_uk"].reshape(m.kv_lora, cfg.n_heads, m.d_nope)
+    return torch.einsum("bshn,qhn->bshq", q_nope, w_uk)
+
+
+def mla_up_v(p, lat, cfg: ArchConfig):
+    """The latent combine ``lat`` [..., H, kv_lora] up-projected by
+    ``W_uv`` a head: [..., H, d_v]."""
+    m = cfg.mla
+    w_uv = p["w_uv"].reshape(m.kv_lora, cfg.n_heads, m.d_v)
+    return torch.einsum("...hq,qhv->...hv", lat, w_uv)
+
+
+def mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig,
+                  causal: bool, q_offset: int = 0):
+    """Absorbed-matrix MLA attention: scores use q_nope.(W_uk c) folded as
+    (W_uk^T q_nope).c, so only the compressed cache is read; values combine
+    in latent space, then up-project (DeepSeek-V2 Sec. 2.1). Returns
+    [B,Sq,H,d_v]. The two score products take f32 operands (the JAX
+    einsums' ``preferred_element_type=F32``) and are summed before the
+    scale divides them; the softmax is cast to q_nope's dtype before the
+    latent combine, as in JAX. The scale is ``1/sqrt(d_nope + d_rope)``,
+    not ``1/sqrt(d_head)``. Holds ``[B,H,Sq,Sk]`` f32 scores."""
+    Sq, Sk = q_nope.shape[1], c_kv.shape[1]
+    q_eff = mla_absorb_q(p, q_nope, cfg)                     # [B,Sq,H,lora]
+    s = (torch.einsum("bshq,btq->bhst", q_eff.float(), c_kv.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), k_rope.float()))
+    s = s / math.sqrt(cfg.mla.d_nope + cfg.mla.d_rope)
+    if causal:
+        dev = q_nope.device
+        qpos = q_offset + torch.arange(Sq, device=dev)
+        kpos = torch.arange(Sk, device=dev)
+        s = torch.where((qpos[:, None] >= kpos[None, :])[None, None], s,
+                        float("-inf"))
+    a = torch.softmax(s, dim=-1).to(q_nope.dtype)
+    lat = torch.einsum("bhst,btq->bshq", a, c_kv)            # latent combine
+    return mla_up_v(p, lat, cfg)
+
+
+def mla_output(p, o, cfg: ArchConfig):
+    B, S, H, Dv = o.shape
+    return o.reshape(B, S, H * Dv) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

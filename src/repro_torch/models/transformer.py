@@ -1,5 +1,6 @@
-"""Decoder-only LM for layer patterns of ``attn`` + ``mlp`` or ``moe``,
-port of the attention paths of ``repro.models.transformer``.
+"""Decoder-only LM for layer patterns of ``attn`` or ``mla`` mixers with
+``mlp`` or ``moe`` feed-forwards, port of the attention and MLA paths of
+``repro.models.transformer``.
 
 ``lm_shapes`` and ``cache_shapes`` give the JAX package's spec trees. The
 ``LM`` module holds one ``Block`` per layer in an ``nn.ModuleList`` (layer
@@ -16,9 +17,12 @@ Three modes: ``train`` (full causal, no cache, chunked attention in plain
 tensor ops that autograd differentiates, each block recomputed in the
 backward under ``remat``), ``prefill`` (causal over the prompt, fills the
 cache; attention on the flash kernel) and ``decode`` (one token a row
-against the dense or paged cache, per-row positions). ``loss_fn`` is the
-training loss: ``chunked_ce_loss`` over the final hidden states, which
-never holds ``[B, S, V]`` logits, plus the MoE layers' balance loss.
+against the dense or paged cache, per-row positions). MLA layers cache
+the compressed ``c_kv`` and ``k_rope`` and run the absorbed
+``mla_attention`` in plain tensor ops in every mode, as the JAX package
+does without a mesh plan. ``loss_fn`` is the training loss:
+``chunked_ce_loss`` over the final hidden states, which never holds
+``[B, S, V]`` logits, plus the MoE layers' balance loss.
 ``expert_perm`` (the placement planner's permutation of the expert axis)
 reaches every MoE layer through ``forward``, ``loss_fn``, ``prefill`` and
 ``decode_step``. Other mixers, encoder-decoder and vision models raise
@@ -52,9 +56,7 @@ def _unported(what: str, item: str):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what the port's decoder does not run yet."""
     for spec in cfg.pattern:
-        if spec.mixer == "mla":
-            _unported("mixer 'mla'", "14d (MLA)")
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "mla"):
             _unported(f"mixer {spec.mixer!r}", "14e (SSM and xLSTM)")
     if cfg.encoder_layers:
         _unported("encoder-decoder models", "14f (encoder-decoder and VLM)")
@@ -76,13 +78,22 @@ def _ffn_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
     return L.moe_shapes(cfg) if spec.ffn == "moe" else L.mlp_shapes(cfg)
 
 
+def _mixer_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
+    if spec.mixer == "attn":
+        return L.attn_shapes(cfg)
+    if spec.mixer == "mla":
+        return L.mla_shapes(cfg)
+    _unported(f"mixer {spec.mixer!r}", "14e (SSM and xLSTM)")
+
+
 def _layer_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
-    return {"norm1": _norm_shapes(cfg), "mixer": L.attn_shapes(cfg),
+    return {"norm1": _norm_shapes(cfg), "mixer": _mixer_shapes(spec, cfg),
             "norm2": _norm_shapes(cfg), "ffn": _ffn_shapes(spec, cfg)}
 
 
 def _dense_spec(cfg: ArchConfig) -> LayerSpec:
-    """The spec of the ``first_k_dense`` leading layers."""
+    """The spec of the ``first_k_dense`` leading layers: the pattern's
+    first mixer (MLA for deepseek-v2) with an MLP."""
     return dataclasses.replace(cfg.pattern[0], ffn="mlp")
 
 
@@ -99,32 +110,43 @@ def lm_shapes(cfg: ArchConfig) -> dict:
     return s
 
 
-def _mixer_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
-                      page_size: int = 0, n_pages: int = 0) -> dict:
+def _mixer_cache_spec(spec: LayerSpec, cfg: ArchConfig, batch: int,
+                      cache_len: int, page_size: int = 0,
+                      n_pages: int = 0) -> dict:
+    """One layer's cache: attention's ``{"k", "v"}`` ``[.., n_kv,
+    d_head]``, MLA's compressed ``{"c_kv": [.., kv_lora], "k_rope": [..,
+    d_rope]}``; dense ``[batch, cache_len, ...]`` or paged ``[n_pages,
+    page_size, ...]``."""
     if page_size:  # paged: [n_pages, page_size, ...] + per-slot tables
-        shape = (n_pages, page_size, cfg.n_kv, cfg.d_head)
-        axes = ("kv_pages", None, "kv_heads", None)
+        lead, axes = (n_pages, page_size), ("kv_pages", None)
     else:
-        shape = (batch, cache_len, cfg.n_kv, cfg.d_head)
-        axes = ("batch", "kv_seq", "kv_heads", None)
-    return {"k": Spec(shape, axes, init="zeros"),
-            "v": Spec(shape, axes, init="zeros")}
+        lead, axes = (batch, cache_len), ("batch", "kv_seq")
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"c_kv": Spec(lead + (m.kv_lora,), axes + (None,),
+                             init="zeros"),
+                "k_rope": Spec(lead + (m.d_rope,), axes + (None,),
+                               init="zeros")}
+    kv = Spec(lead + (cfg.n_kv, cfg.d_head), axes + ("kv_heads", None),
+              init="zeros")
+    return {"k": kv, "v": kv}
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
                  page_size: int = 0, n_pages: int = 0) -> dict:
-    """Cache spec tree. With ``page_size``/``n_pages`` the attention KV
-    switches to the paged ``[n_pages, page_size, ...]`` layout ("kv_pages"
-    leading axis)."""
+    """Cache spec tree. With ``page_size``/``n_pages`` the per-token
+    caches (attention KV, MLA compressed KV) switch to the paged
+    ``[n_pages, page_size, ...]`` layout ("kv_pages" leading axis)."""
     check_supported(cfg)
     c: dict[str, Any] = {"stack": {
-        f"slot{i}": stack_specs(_mixer_cache_spec(cfg, batch, cache_len,
-                                                  page_size, n_pages),
+        f"slot{i}": stack_specs(_mixer_cache_spec(spec, cfg, batch,
+                                                  cache_len, page_size,
+                                                  n_pages),
                                 cfg.n_superblocks)
-        for i, _ in enumerate(cfg.pattern)}}
+        for i, spec in enumerate(cfg.pattern)}}
     for k in range(cfg.first_k_dense):
-        c[f"dense{k}"] = _mixer_cache_spec(cfg, batch, cache_len, page_size,
-                                           n_pages)
+        c[f"dense{k}"] = _mixer_cache_spec(_dense_spec(cfg), cfg, batch,
+                                           cache_len, page_size, n_pages)
     return c
 
 
@@ -132,15 +154,16 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
 # modules
 # ---------------------------------------------------------------------------
 class Block(SpecModule):
-    """One pre-norm decoder layer of ``spec``: attention, then the SwiGLU
-    MLP or the MoE layer."""
+    """One pre-norm decoder layer of ``spec``: attention or MLA, then the
+    SwiGLU MLP or the MoE layer."""
 
     def __init__(self, spec: LayerSpec, cfg: ArchConfig, device=None,
                  dtype=F32):
         super().__init__({}, device, dtype)
         self.spec = spec
         self.norm1 = SpecModule(_norm_shapes(cfg), device, dtype)
-        self.mixer = L.Attention(cfg, device, dtype)
+        self.mixer = (L.MLA if spec.mixer == "mla" else L.Attention)(
+            cfg, device, dtype)
         self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
         self.ffn = (L.MoE if spec.ffn == "moe" else L.MLP)(cfg, device, dtype)
 
@@ -270,14 +293,89 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
     return _attn_out(p, o), {"k": kc, "v": vc}
 
 
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None):
+    """One MLA mixer. ``cache`` is this layer's ``{"c_kv", "k_rope"}``
+    (views into the stacked cache), updated in place."""
+    q_nope, q_rope = L.mla_project_q(p, x, cfg, positions)
+    c_new, kr_new = L.mla_compress_kv(p, x, cfg, positions)
+    if mode == "train":
+        o = L.mla_attention(p, q_nope, q_rope, c_new, kr_new, cfg,
+                            causal=True)
+        return L.mla_output(p, o, cfg), None
+    if mode == "prefill":
+        o = L.mla_attention(p, q_nope, q_rope, c_new, kr_new, cfg,
+                            causal=True)
+        S = x.shape[1]
+        for name, new in (("c_kv", c_new), ("k_rope", kr_new)):
+            cache[name].zero_()
+            cache[name][:, :S] = new.to(cache[name].dtype)
+        return L.mla_output(p, o, cfg), cache
+    o, cc, krc = _mla_decode_update(p, q_nope, q_rope,
+                                    c_new.to(cache["c_kv"].dtype),
+                                    kr_new.to(cache["k_rope"].dtype),
+                                    cache["c_kv"], cache["k_rope"], pos,
+                                    cfg, pages)
+    return L.mla_output(p, o, cfg), {"c_kv": cc, "k_rope": krc}
+
+
+def _mla_decode_update(p, q_nope, q_rope, c_new, kr_new, c_cache, kr_cache,
+                       pos, cfg, pages=None):
+    """Absorbed-matrix MLA decode over the dense or paged compressed cache,
+    written in place at per-row ``pos`` (scalar or [B]): scores
+    ``q_eff.c + q_rope.k_rope`` times the scale, keys past each row's
+    position masked, the softmax's max, exp and sum as the JAX package
+    writes them, values combined in latent space and up-projected. The
+    sequence-sharded branch of the JAX function (a mesh plan) waits for
+    ROADMAP.md Queue A item 14g."""
+    m = cfg.mla
+    B = q_nope.shape[0]
+    posv = _pos_vec(pos, B, q_nope.device)
+    q_eff = L.mla_absorb_q(p, q_nope, cfg)[:, 0]               # [B,H,lora]
+    qr = q_rope[:, 0]                                           # [B,H,rope]
+    scale = 1.0 / math.sqrt(m.d_nope + m.d_rope)
+    if pages is not None:
+        table, psize = pages
+        cc = _paged_update(c_cache, c_new, posv, table, psize)
+        krc = _paged_update(kr_cache, kr_new, posv, table, psize)
+        c_all, kr_all = _paged_gather(cc, table), _paged_gather(krc, table)
+    else:
+        rows = torch.arange(B, device=q_nope.device)
+        c_cache[rows, posv] = c_new[:, 0]
+        kr_cache[rows, posv] = kr_new[:, 0]
+        cc, krc = c_cache, kr_cache
+        c_all, kr_all = cc, krc
+    gpos = torch.arange(c_all.shape[1], device=q_nope.device)
+    s = (torch.einsum("bhq,btq->bht", q_eff.float(), c_all.float())
+         + torch.einsum("bhr,btr->bht", qr.float(), kr_all.float())) * scale
+    s = torch.where(gpos[None, None, :] <= posv[:, None, None], s,
+                    float("-inf"))
+    pw = torch.exp(s - torch.amax(s, dim=-1)[..., None])
+    l = torch.sum(pw, dim=-1)
+    lat = torch.einsum("bht,btq->bhq", pw.to(c_all.dtype).float(),
+                       c_all.float())
+    lat = lat / torch.clamp(l, min=1e-30)[..., None]
+    o = L.mla_up_v(p, lat.to(q_nope.dtype), cfg)
+    return o[:, None], cc, krc
+
+
+def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
+                 pages=None):
+    if spec.mixer == "mla":
+        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages)
+    return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages)
+
+
 def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  pages=None, expert_perm=None):
     """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
     zero for other layers)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
-    mix, new_cache = _apply_attn(p["mixer"], h, cfg, mode, positions, cache,
-                                 pos, pages)
+    mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
+                                  cache, pos, pages)
     x = x + mix
     h = _norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":

@@ -2,12 +2,14 @@
 ``repro.serve.engine``.
 
 The engine runs a slot scheduler (``submit()`` / ``step()`` / ``drain()``):
-each request is prefilled alone (batch 1, at its exact length, attention on
-the flash kernel) and inserted into a free decode slot; all active slots
-decode together with per-slot positions; a slot that finishes (EOS or its
-own ``max_new``) is freed mid-decode and refilled from the queue.
+each request is prefilled alone (batch 1, at its exact length, attention
+layers on the flash kernel) and inserted into a free decode slot; all
+active slots decode together with per-slot positions; a slot that
+finishes (EOS or its own ``max_new``) is freed mid-decode and refilled
+from the queue.
 
-Per-token KV state lives in a block-table paged pool (``serve/paging.py``),
+Per-token KV state (attention's K and V, MLA's compressed ``c_kv`` and
+``k_rope``) lives in a block-table paged pool (``serve/paging.py``),
 updated in place (the JAX engine donates it to a jitted step instead).
 ``generate()`` is a thin wrapper over the scheduler and keeps the batched
 API; ``policy="static"`` keeps the synchronized static batch over a dense
