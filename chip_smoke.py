@@ -12,8 +12,10 @@ hyperedges), Omega 256, Delta 1024, Theta 16. And LM serving:
 d_model 1536, vocab 151936, f32, seeded random weights), continuous
 policy, 4 slots, page size 16, on llama4-scout-17b-16e (attention +
 MoE) at full width, 4 of its 48 layers (phase 17), and on deepseek-v2-236b
-(MLA + MoE) at full width, 3 of its 60 layers (phase 18). Phases, each
-fatal on failure:
+(MLA + MoE) at full width, 3 of its 60 layers (phase 18), and the
+recurrent mixers on xlstm-350m at full width and depth and jamba-v0.1-52b
+(Mamba + attention + MoE) at full width, 8 of its 32 layers (phase 19).
+Phases, each fatal on failure:
 
   1. the card (``nvidia-smi``) and the kernel build from ``src/``, with
      each kernel's registers and spills as ptxas reports them;
@@ -184,10 +186,31 @@ fatal on failure:
      logits within 1e-5, the same dropped lanes a layer; the smoke
      config's serving tokens identical on the card and the CPU, and four
      bf16 training steps within 2^-8 of the CPU's with aux > 0.
+ 19. the recurrent mixers (``models/ssm.py``, plain tensor ops, as the
+     JAX package computes them outside any Pallas kernel). (a)
+     xlstm-350m at full width and depth (``XLSTM_ARCH``: 24 layers, 7
+     mLSTM : 1 sLSTM, no feed-forward, d_model 1024, 4 heads, vocab
+     50,304; f32, seeded): ``plan_stage_assignment(xlstm-350m, 4)``
+     equal to the CPU's; phase 8's traffic through ``ServeEngine`` twice
+     (every request answered, slots refilled, identical tokens, no
+     flash_attn launch, TTFT, tokens/s, peak memory, a profile), a third
+     run counting the sLSTM's steps (one a token a sLSTM layer) and the
+     device launches of one step. (b) jamba-v0.1-52b at full width
+     (d_model 4096, 32/8 heads x 128, Mamba d_inner 8192 and d_state 16,
+     16 experts of d_ff 14,336, top-2, vocab 65,536) cut to
+     ``JAMBA_LAYERS`` (8) of 32 layers: ``plan_stage_assignment(jamba,
+     4)`` over all 32 layers equal to the CPU's; the same traffic twice
+     (identical tokens, flash_attn launched 8 times a run: one attention
+     layer, 8 prefills); flash_attn at the 32/8 heads against its plain
+     version, f32 causal at S 2048 and the shortest prompt, within 2e-5,
+     and timed beside its bound and SDPA. For both smoke configs: the
+     serving tokens identical on the card and the CPU, and four bf16
+     training steps within 2^-8 of the CPU's (aux > 0 for jamba's MoE,
+     0 for xlstm).
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 18 run under
+the same parts. Phases 3 to 5 and 9 to 19 run under
 ``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
@@ -243,6 +266,16 @@ MOE_SHARDS = 4
 DS_ARCH = "deepseek-v2-236b"
 DS_LAYERS = 3
 DS_SHARDS = 8
+# phase 19: the recurrent mixers. xlstm-350m at full width and depth (24
+# layers, 7 mLSTM : 1 sLSTM, 241,644,628 parameters, 0.97 GB in f32), and
+# jamba-v0.1-52b at full width cut to JAMBA_LAYERS of 32 layers: one
+# superblock, the least depth that holds its attention layer and both
+# feed-forward kinds (7 Mamba + 1 attention, MoE on every other layer:
+# 13,295,235,072 parameters, 53.18 GB in f32; the 32 layers' 51.6 G
+# parameters do not fit one card)
+XLSTM_ARCH = "xlstm-350m"
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
 # phase 13's SNN suite at a quarter scale (the ISPD suite stays whole): at
 # 1.0 the host baselines took 152 s of the phase's 286 s on an H100 80GB
 # HBM3 (700 W), 106 s of it seq-ml and overlap on rand-l alone, and 34 s at
@@ -263,11 +296,11 @@ KWAY_MAX_LEVELS = 16
 # fails the run
 DIST_LAYERS = 2
 DIST_TIMEOUT = 600.0
-# and Theta 4, not 16: on an H100 80GB HBM3 (700 W) the phase took 547 s
-# at Theta 16 and 301 s at Theta 8 (its mesh runs' host-staged collectives
-# grow with the repetitions), and phases 1-14 vary by 150 s from card to
-# card, so at Theta 8 the script ended only 162 s inside its 1200 s limit
-DIST_THETA = 4
+# and Theta 2, not 16: on an H100 80GB HBM3 (700 W) the phase took 547 s
+# at Theta 16, 301 s at Theta 8 and 197-286 s at Theta 4 (its mesh runs'
+# host-staged collectives grow with the repetitions, not with the graph's
+# size); Theta 2 pays for phase 19
+DIST_THETA = 2
 # phase 12's bucket lane: node ranges of three ladder rungs, requests a rung
 # (three, not eight: eight a rung took the phase to 177 s, six to 160 s and
 # five to 168 s, over its budget of about 150 s; four until phase 18 came),
@@ -504,14 +537,16 @@ def profile_steps(torch, engine, n: int):
 
 
 def serve_runs(torch, kernels, cfg, model, prompts, card: str,
-               tag: str, fa_per_request: int) -> int:
+               tag: str, fa_per_request: int,
+               profile_admission: bool = True) -> int:
     """Serve ``prompts`` (one arriving per engine step, greedy,
     ``SERVE_MAX_NEW`` new tokens, ``SERVE_SLOTS`` slots, page size
     ``SERVE_PAGE``) twice through ``ServeEngine``: every request answered,
     slots refilled while others decode, flash_attn launched
     ``fa_per_request`` times a request (once an attention layer; counts
     reset just before, read just after), identical tokens in both runs;
-    then one admission step and four decode-only steps under the
+    then one admission step (under the profiler unless
+    ``profile_admission`` is off) and four decode-only steps under the
     profiler. Returns the flash_attn launches of one run."""
     import numpy as np
     from repro_torch.obs import Registry
@@ -575,8 +610,10 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
     eng = engine()
     for p in prompts[:SERVE_SLOTS]:
         eng.submit(p, max_new)
+    if not profile_admission:
+        eng.step()
     for what, n in (("admission step (4 prefills)", 1),
-                    ("decode-only steps", 4)):
+                    ("decode-only steps", 4))[not profile_admission:]:
         wall, busy, top = profile_steps(torch, eng, n)
         share = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
         log(f"{tag} profile, {what}: {1e3 * wall / n:.2f} ms a step, device "
@@ -1932,19 +1969,10 @@ def moe_serve_phase(torch, kernels, card) -> dict:
          and (np.bincount(place["parts"], minlength=MOE_SHARDS)
               == E // MOE_SHARDS).all(),
          f"[17] perm a permutation with {E // MOE_SHARDS} experts a shard")
-    stage = planner.plan_stage_assignment(full, MOE_SHARDS)
-    stage_cpu = planner.plan_stage_assignment(full, MOE_SHARDS,
-                                              device="cpu")
-    need(np.array_equal(stage["stage_of_layer"], stage_cpu["stage_of_layer"])
-         and stage["report"] == stage_cpu["report"]
-         and len(stage["stage_of_layer"]) == full.n_layers,
-         "[17] plan_stage_assignment: a stage a layer, card equal to CPU")
-    per_stage = np.bincount(stage["stage_of_layer"], minlength=MOE_SHARDS)
     log(f"[17] plan_expert_placement({MOE_ARCH}, {MOE_SHARDS} shards): "
         f"card {t_gpu:.3f} s, perm {perm.tolist()}, a2a_reduction "
-        f"{place['report']['a2a_reduction']:.4f}, equal to the CPU's; "
-        f"plan_stage_assignment: layers a stage {per_stage.tolist()}, "
-        f"equal to the CPU's")
+        f"{place['report']['a2a_reduction']:.4f}, equal to the CPU's")
+    stage_equal(torch, full, "[17]")
 
     # ---- serving at full width, depth cut
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
@@ -2066,10 +2094,10 @@ def perm_prefill_equal(torch, cfg, model, prompt, perm, tag: str) -> None:
 
 
 def smoke_train_equal(torch, small, tag: str) -> None:
-    """Four bf16 training steps of the MoE smoke config ``small`` from the
+    """Four bf16 training steps of the smoke config ``small`` from the
     CPU's seed-0 weights (a step-0 checkpoint restored on each device), on
-    the card and the CPU: every ce + aux within 2^-8 of the CPU's and every
-    aux positive."""
+    the card and the CPU: every ce + aux within 2^-8 of the CPU's, and
+    every aux positive where ``small`` has MoE layers (zero without)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -2094,8 +2122,10 @@ def smoke_train_equal(torch, small, tag: str) -> None:
                 rows[dev].append((float(m["loss"]), float(m["aux"])))
     gap = max(abs(a[0] - b[0]) / abs(b[0])
               for a, b in zip(rows["cuda"], rows["cpu"]))
-    need(all(aux > 0 for _, aux in rows["cuda"] + rows["cpu"]),
-         f"{tag} the MoE balance loss is positive: {rows}")
+    need(all((aux > 0) if small.moe else (aux == 0)
+             for _, aux in rows["cuda"] + rows["cpu"]),
+         f"{tag} the balance loss is positive with MoE, zero without: "
+         f"{rows}")
     need(gap <= 2 ** -8, f"{tag} card losses (ce + aux) within 2^-8 of the "
          f"CPU's: {gap:.3g}")
     log(f"{tag} smoke config, 4 bf16 steps from the CPU's seed-0 weights, "
@@ -2117,7 +2147,6 @@ def ds_serve_phase(torch, kernels, card, perm) -> None:
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core import planner
     from repro_torch.models import transformer as T
     from repro_torch.models.common import param_count
 
@@ -2127,20 +2156,7 @@ def ds_serve_phase(torch, kernels, card, perm) -> None:
     need(sorted(perm.tolist()) == list(range(E)),
          f"[18] phase 14's perm is a permutation of the {E} experts")
 
-    # ---- the stage assignment, card against CPU
-    t0 = time.perf_counter()
-    stage = planner.plan_stage_assignment(full, 4)
-    t_gpu = time.perf_counter() - t0
-    stage_cpu = planner.plan_stage_assignment(full, 4, device="cpu")
-    per_stage = np.bincount(stage["stage_of_layer"], minlength=4)
-    need(np.array_equal(stage["stage_of_layer"], stage_cpu["stage_of_layer"])
-         and stage["report"] == stage_cpu["report"]
-         and len(stage["stage_of_layer"]) == full.n_layers
-         and per_stage.sum() == full.n_layers,
-         "[18] plan_stage_assignment: a stage a layer, card equal to CPU")
-    log(f"[18] plan_stage_assignment({DS_ARCH}, 4): card {t_gpu:.3f} s, "
-        f"layers a stage {per_stage.tolist()}, report "
-        + json.dumps(stage["report"]) + ", equal to the CPU's")
+    stage_equal(torch, full, "[18]")
 
     # ---- serving at full width, depth cut
     cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
@@ -2175,6 +2191,195 @@ def ds_serve_phase(torch, kernels, card, perm) -> None:
     smoke_serving_equal(torch, small, "[18]")
     smoke_train_equal(torch, small, "[18]")
     log(f"[18] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def stage_equal(torch, full, tag: str) -> None:
+    """``plan_stage_assignment(full, 4)`` on the card equal to the CPU's,
+    a stage for each layer."""
+    import numpy as np
+    from repro_torch.core import planner
+
+    t0 = time.perf_counter()
+    stage = planner.plan_stage_assignment(full, 4)
+    t_gpu = time.perf_counter() - t0
+    stage_cpu = planner.plan_stage_assignment(full, 4, device="cpu")
+    per_stage = np.bincount(stage["stage_of_layer"], minlength=4)
+    need(np.array_equal(stage["stage_of_layer"], stage_cpu["stage_of_layer"])
+         and stage["report"] == stage_cpu["report"]
+         and len(stage["stage_of_layer"]) == full.n_layers,
+         f"{tag} plan_stage_assignment({full.name}): a stage a layer, card "
+         f"equal to CPU")
+    log(f"{tag} plan_stage_assignment({full.name}, 4): card {t_gpu:.3f} s, "
+        f"layers a stage {per_stage.tolist()}, report "
+        + json.dumps(stage["report"]) + ", equal to the CPU's")
+
+
+def slstm_steps(torch, cfg, model, prompts, card: str) -> None:
+    """One more run of ``prompts`` through ``ServeEngine`` counting the
+    sLSTM's steps (one a token a sLSTM layer, prefill and decode), and the
+    device launches a step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import Registry
+    from repro_torch.serve import ServeEngine
+
+    real, names = T._RECURRENT["slstm"]
+    seen = []
+
+    def counting(p, x, cfg_, state=None):
+        seen.append(x.shape[1])
+        return real(p, x, cfg_, state=state)
+
+    eng = ServeEngine(cfg, model, cache_len=max(len(p) for p in prompts)
+                      + SERVE_MAX_NEW, n_slots=SERVE_SLOTS,
+                      page_size=SERVE_PAGE, registry=Registry(),
+                      device="cuda")
+    T._RECURRENT["slstm"] = (counting, names)
+    try:
+        t0 = time.perf_counter()
+        serve_run(eng, prompts, SERVE_MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T._RECURRENT["slstm"] = (real, names)
+    n_layers = sum(s.mixer == "slstm" for s in cfg.pattern) * \
+        cfg.n_superblocks
+    need(sum(seen) == n_layers * (sum(len(p) for p in prompts)
+                                  + (len(seen) // n_layers - len(prompts))),
+         "[19] the sLSTM runs one step a token a layer")
+    # launches a step: the device kernels of one 256-token call over its
+    # steps (the profiler of a one-token call recorded 12 kernels in one
+    # run on an H100 and none in the next)
+    blk = next(b for _, b in model.blocks() if b.spec.mixer == "slstm")
+    x = torch.zeros((1, 256, cfg.d_model), device="cuda")
+    with torch.no_grad():
+        ssm.slstm_apply(blk.mixer, x, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ssm.slstm_apply(blk.mixer, x, cfg)
+            torch.cuda.synchronize()
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation)
+    log(f"[19] sLSTM: {sum(seen)} steps a run over {n_layers} layers "
+        f"({len(seen)} calls: {len(prompts)} prefills and "
+        f"{len(seen) // n_layers - len(prompts)} decode steps a layer); a "
+        f"256-token call {n_kernels} device launches "
+        f"({n_kernels / 256:.2f} a step); the run {wall:.3f} s on {card}")
+
+
+def ssm_serve_phase(torch, kernels, card) -> dict:
+    """Phase 19: the recurrent mixers. xlstm-350m (mLSTM and sLSTM, no
+    feed-forward) at full width and depth, and jamba-v0.1-52b (Mamba,
+    attention and MoE) at full width, ``JAMBA_LAYERS`` of its 32 layers:
+    each config's stage assignment on the card against the CPU, phase 8's
+    traffic through ``ServeEngine`` twice, the sLSTM's steps, B4 at
+    jamba's 32/8 heads against its plain version, and each smoke config's
+    serving and four bf16 training steps on the card against the CPU.
+    Runs under ``torch.use_deterministic_algorithms(True)``. Returns B4's
+    kernels-JSON row at jamba's heads."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import param_count
+
+    t_phase = time.perf_counter()
+
+    # ---- (a) xlstm-350m at full width and depth
+    full = get_config(XLSTM_ARCH)
+    stage_equal(torch, full, "[19a]")
+    t0 = time.perf_counter()
+    model = T.materialize_lm(full, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(T.lm_shapes(full))
+    need(sum(p.numel() for p in model.parameters()) == n_params,
+         "[19a] the model holds lm_shapes' parameters")
+    log(f"[19a] {XLSTM_ARCH}: {full.n_layers} layers "
+        f"({[s.mixer for s in full.pattern]} a superblock, no feed-forward) "
+        f"x d_model {full.d_model}, {full.n_heads} heads, vocab "
+        f"{full.vocab}, f32, {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = serve_traffic(full.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+    log(f"[19a] prompt lengths {[len(p) for p in prompts]}")
+    # the admission step is not profiled: its trace of four sLSTM
+    # prefills (about 175,000 launches) took the profiler about 160 s to
+    # process on an H100 80GB HBM3 (700 W)
+    serve_runs(torch, kernels, full, model, prompts, card, "[19a]", 0,
+               profile_admission=False)
+    slstm_steps(torch, full, model, prompts, card)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[19a] {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # ---- (b) jamba-v0.1-52b at full width, depth cut
+    full = get_config(JAMBA_ARCH)
+    stage_equal(torch, full, "[19b]")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    model = T.materialize_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(T.lm_shapes(cfg))
+    need(sum(p.numel() for p in model.parameters()) == n_params,
+         "[19b] the model holds lm_shapes' parameters")
+    mb, mo = cfg.mamba, cfg.moe
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_superblocks
+    log(f"[19b] {JAMBA_ARCH}: {JAMBA_LAYERS} of {full.n_layers} layers "
+        f"({[(s.mixer, s.ffn) for s in cfg.pattern]}) x d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads x {cfg.d_head}, "
+        f"Mamba d_inner {mb.expand * cfg.d_model} d_state {mb.d_state} "
+        f"d_conv {mb.d_conv}, {mo.n_experts} experts of d_ff "
+        f"{mo.d_ff_expert}, top-{mo.top_k}, vocab {cfg.vocab}, f32, "
+        f"{n_params} parameters ({4 * n_params / 1e9:.2f} GB) made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    lens = [len(p) for p in prompts]
+    launches = serve_runs(torch, kernels, cfg, model, prompts, card,
+                          "[19b]", n_attn)
+    need(launches == n_attn * SERVE_REQUESTS,
+         f"[19b] flash_attn launched {launches} times a run")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- B4 at jamba's heads against its plain version, and its times
+    err_fa = 0.0
+    for s_len in (2048, min(lens)):
+        q, k, v = attn_inputs(torch, s_len, cfg.n_heads, cfg.n_kv,
+                              cfg.d_head, torch.float32)
+        got = fa_ops.flash_attention(q, k, v)
+        want = fa_ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        need(err <= 2e-5, f"[19b] flash_attn S={s_len} {cfg.n_heads}/"
+             f"{cfg.n_kv} heads within 2e-5: {err:.3g}")
+        log(f"[19b] flash_attn S={s_len} f32 causal, q [1,{s_len},"
+            f"{cfg.n_heads},{cfg.d_head}], k/v [1,{s_len},{cfg.n_kv},"
+            f"{cfg.d_head}]: max abs err {err:.3g} (tolerance 2e-05)")
+        err_fa = max(err_fa, err)
+    del q, k, v, got, want
+    row = flash_times(torch, fa_ops, fa_ref, 2048, cfg.n_heads, cfg.n_kv,
+                      cfg.d_head)
+    row.pop("fma_bound_ms")
+    row.update(name=f"flash_attn_{cfg.n_heads}x{cfg.n_kv}",
+               kernel="flash_attn", launches=launches, max_abs_err=err_fa)
+    log(f"[19b] flash_attn S=2048 {cfg.n_heads}/{cfg.n_kv} heads: "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, SDPA "
+        f"{row['library_ms']:.4f} ms) on {card}")
+    torch.cuda.empty_cache()
+
+    # ---- the smoke configs: serving and four bf16 steps, card and CPU
+    for arch, tag in ((XLSTM_ARCH, "[19a]"), (JAMBA_ARCH, "[19b]")):
+        small = get_config(arch).smoke()
+        smoke_serving_equal(torch, small, tag)
+        smoke_train_equal(torch, small, tag)
+    log(f"[19] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return row
 
 
 def main(argv=None) -> int:
@@ -2561,6 +2766,10 @@ def main(argv=None) -> int:
     # ---- 18. MLA + MoE serving at full width --------------------------
     ds_serve_phase(torch, kernels, card, ds_perm)
     log(f"[18] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 19. the recurrent mixers: xlstm and jamba ---------------------
+    rows_used.append(ssm_serve_phase(torch, kernels, card))
+    log(f"[19] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

@@ -5,9 +5,11 @@ layer of a pattern slot along a leading "layers" axis
 (``params["stack"]["slot{i}"][...]`` is ``[n_superblocks, ...]``); the port
 holds one ``Block`` per layer, layer ``sb * len(pattern) + i``. The
 ``first_k_dense`` leading layers are top-level ``dense{k}`` keys of the
-JAX tree and modules of that name in the port, unstacked in both. Weights
-keep the JAX ``[in, out]`` layout (the MoE experts' ``[E, in, out]``), so
-nothing is transposed.
+JAX tree and modules of that name in the port, unstacked in both. A layer
+of ``ffn="none"`` (xLSTM) holds no ``norm2`` and no ``ffn`` on either side.
+Weights keep the JAX ``[in, out]`` layout (the MoE experts' ``[E, in,
+out]``, Mamba's ``[d_conv, d_inner]`` conv taps), so nothing is
+transposed.
 
 The mapping between the two is ``jax_path`` (a port parameter name to its
 JAX tree path and superblock) and ``leaf_groups`` (the JAX leaves in

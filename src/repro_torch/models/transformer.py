@@ -1,17 +1,18 @@
-"""Decoder-only LM for layer patterns of ``attn`` or ``mla`` mixers with
-``mlp`` or ``moe`` feed-forwards, port of the attention and MLA paths of
-``repro.models.transformer``.
+"""Decoder-only LM for layer patterns of ``attn``, ``mla``, ``mamba``,
+``mlstm`` or ``slstm`` mixers with ``mlp``, ``moe`` or no (``"none"``)
+feed-forward, port of the decoder paths of ``repro.models.transformer``.
 
 ``lm_shapes`` and ``cache_shapes`` give the JAX package's spec trees. The
 ``LM`` module holds one ``Block`` per layer in an ``nn.ModuleList`` (layer
 ``l = superblock * len(pattern) + slot``, the JAX stack's order), where the
 JAX package scans over a stacked "layers" axis; the ``first_k_dense``
 leading layers (``ffn="mlp"``) are the modules ``dense{k}``, as the JAX
-tree's top-level ``dense{k}`` keys, and run before the stack. Caches keep
-the JAX tree and its stacked ``[n_superblocks, ...]`` leaves, so they
-compare leaf by leaf with ``cache_shapes``; ``prefill`` and
-``decode_step`` update them in place (the JAX engine donates them
-instead).
+tree's top-level ``dense{k}`` keys, and run before the stack. A layer of
+``ffn="none"`` (xLSTM) has no ``norm2`` and no ``ffn``, in the tree and
+the module. Caches keep the JAX tree and its stacked ``[n_superblocks,
+...]`` leaves, so they compare leaf by leaf with ``cache_shapes``;
+``prefill`` and ``decode_step`` update them in place (the JAX engine
+donates them instead).
 
 Three modes: ``train`` (full causal, no cache, chunked attention in plain
 tensor ops that autograd differentiates, each block recomputed in the
@@ -20,12 +21,17 @@ cache; attention on the flash kernel) and ``decode`` (one token a row
 against the dense or paged cache, per-row positions). MLA layers cache
 the compressed ``c_kv`` and ``k_rope`` and run the absorbed
 ``mla_attention`` in plain tensor ops in every mode, as the JAX package
-does without a mesh plan. ``loss_fn`` is the training loss:
+does without a mesh plan. The recurrent mixers (``models/ssm.py``) cache
+their per-slot states ("batch" leaves in the dense and the paged layout:
+Mamba's conv ``tail`` and ``h``, the mLSTM's ``C`` and ``n``, the
+sLSTM's ``c``, ``n``, ``h`` and ``m``): prefill and train start from the
+fresh state, decode reads the cache, and prefill and decode write the new
+state back in the cache's dtype. ``loss_fn`` is the training loss:
 ``chunked_ce_loss`` over the final hidden states, which never holds
 ``[B, S, V]`` logits, plus the MoE layers' balance loss.
 ``expert_perm`` (the placement planner's permutation of the expert axis)
 reaches every MoE layer through ``forward``, ``loss_fn``, ``prefill`` and
-``decode_step``. Other mixers, encoder-decoder and vision models raise
+``decode_step``. Encoder-decoder and vision models raise
 ``NotImplementedError``, in every mode.
 """
 from __future__ import annotations
@@ -41,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.common import (Spec, SpecModule, apply_rope,
                                        init_params_, layer_norm, rms_norm,
                                        softmax_cross_entropy, stack_specs)
@@ -55,9 +62,6 @@ def _unported(what: str, item: str):
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what the port's decoder does not run yet."""
-    for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "mla"):
-            _unported(f"mixer {spec.mixer!r}", "14e (SSM and xLSTM)")
     if cfg.encoder_layers:
         _unported("encoder-decoder models", "14f (encoder-decoder and VLM)")
     if cfg.vision_dim:
@@ -74,21 +78,24 @@ def _norm_shapes(cfg: ArchConfig) -> dict:
             "b": Spec((cfg.d_model,), (None,), init="zeros")}
 
 
+_MIXERS = {"attn": (L.attn_shapes, L.Attention),
+           "mla": (L.mla_shapes, L.MLA),
+           "mamba": (ssm.mamba_shapes, ssm.Mamba),
+           "mlstm": (ssm.mlstm_shapes, ssm.MLSTM),
+           "slstm": (ssm.slstm_shapes, ssm.SLSTM)}
+
+
 def _ffn_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
     return L.moe_shapes(cfg) if spec.ffn == "moe" else L.mlp_shapes(cfg)
 
 
-def _mixer_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
-    if spec.mixer == "attn":
-        return L.attn_shapes(cfg)
-    if spec.mixer == "mla":
-        return L.mla_shapes(cfg)
-    _unported(f"mixer {spec.mixer!r}", "14e (SSM and xLSTM)")
-
-
 def _layer_shapes(spec: LayerSpec, cfg: ArchConfig) -> dict:
-    return {"norm1": _norm_shapes(cfg), "mixer": _mixer_shapes(spec, cfg),
-            "norm2": _norm_shapes(cfg), "ffn": _ffn_shapes(spec, cfg)}
+    s = {"norm1": _norm_shapes(cfg),
+         "mixer": _MIXERS[spec.mixer][0](cfg)}
+    if spec.ffn != "none":
+        s["norm2"] = _norm_shapes(cfg)
+        s["ffn"] = _ffn_shapes(spec, cfg)
+    return s
 
 
 def _dense_spec(cfg: ArchConfig) -> LayerSpec:
@@ -116,7 +123,24 @@ def _mixer_cache_spec(spec: LayerSpec, cfg: ArchConfig, batch: int,
     """One layer's cache: attention's ``{"k", "v"}`` ``[.., n_kv,
     d_head]``, MLA's compressed ``{"c_kv": [.., kv_lora], "k_rope": [..,
     d_rope]}``; dense ``[batch, cache_len, ...]`` or paged ``[n_pages,
-    page_size, ...]``."""
+    page_size, ...]``. The recurrent mixers' states are ``[batch, ...]``
+    in both layouts."""
+    B = batch
+    if spec.mixer == "mamba":
+        mb = cfg.mamba
+        di = mb.expand * cfg.d_model
+        return {"tail": Spec((B, mb.d_conv - 1, di), ("batch", None, "mlp"),
+                             init="zeros"),
+                "h": Spec((B, di, mb.d_state), ("batch", "mlp", None),
+                          init="zeros")}
+    if spec.mixer == "mlstm":
+        H, DH = cfg.n_heads, cfg.d_model // cfg.n_heads
+        return {"C": Spec((B, H, DH, DH), ("batch", "heads", None, None),
+                          init="zeros"),
+                "n": Spec((B, H, DH), ("batch", "heads", None), init="zeros")}
+    if spec.mixer == "slstm":
+        z = Spec((B, cfg.d_model), ("batch", None), init="zeros")
+        return {"c": z, "n": z, "h": z, "m": z}
     if page_size:  # paged: [n_pages, page_size, ...] + per-slot tables
         lead, axes = (n_pages, page_size), ("kv_pages", None)
     else:
@@ -136,7 +160,8 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
                  page_size: int = 0, n_pages: int = 0) -> dict:
     """Cache spec tree. With ``page_size``/``n_pages`` the per-token
     caches (attention KV, MLA compressed KV) switch to the paged
-    ``[n_pages, page_size, ...]`` layout ("kv_pages" leading axis)."""
+    ``[n_pages, page_size, ...]`` layout ("kv_pages" leading axis); the
+    per-slot recurrent states keep their ``[batch, ...]`` slot layout."""
     check_supported(cfg)
     c: dict[str, Any] = {"stack": {
         f"slot{i}": stack_specs(_mixer_cache_spec(spec, cfg, batch,
@@ -154,18 +179,20 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
 # modules
 # ---------------------------------------------------------------------------
 class Block(SpecModule):
-    """One pre-norm decoder layer of ``spec``: attention or MLA, then the
-    SwiGLU MLP or the MoE layer."""
+    """One pre-norm decoder layer of ``spec``: attention, MLA, Mamba, mLSTM
+    or sLSTM, then the SwiGLU MLP, the MoE layer or (``ffn="none"``)
+    nothing."""
 
     def __init__(self, spec: LayerSpec, cfg: ArchConfig, device=None,
                  dtype=F32):
         super().__init__({}, device, dtype)
         self.spec = spec
         self.norm1 = SpecModule(_norm_shapes(cfg), device, dtype)
-        self.mixer = (L.MLA if spec.mixer == "mla" else L.Attention)(
-            cfg, device, dtype)
-        self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
-        self.ffn = (L.MoE if spec.ffn == "moe" else L.MLP)(cfg, device, dtype)
+        self.mixer = _MIXERS[spec.mixer][1](cfg, device, dtype)
+        if spec.ffn != "none":
+            self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
+            self.ffn = (L.MoE if spec.ffn == "moe" else L.MLP)(cfg, device,
+                                                               dtype)
 
     def forward(self, x, cfg, mode, positions, cache, pos, pages=None,
                 expert_perm=None):
@@ -361,8 +388,33 @@ def _mla_decode_update(p, q_nope, q_rope, c_new, kr_new, c_cache, kr_cache,
     return o[:, None], cc, krc
 
 
+# ---------------------------------------------------------------------------
+# recurrent mixers
+# ---------------------------------------------------------------------------
+_RECURRENT = {"mamba": (ssm.mamba_apply, ("tail", "h")),
+              "mlstm": (ssm.mlstm_apply, ("C", "n")),
+              "slstm": (ssm.slstm_apply, ("c", "n", "h", "m"))}
+
+
+def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache):
+    """One Mamba, mLSTM or sLSTM mixer. ``cache`` is this layer's state
+    (views into the stacked cache): train and prefill start from the fresh
+    state, decode from the cache's; prefill and decode write the new state
+    back in place, in the cache's dtype. Train returns no cache."""
+    fn, names = _RECURRENT[spec.mixer]
+    state = tuple(cache[k] for k in names) if mode == "decode" else None
+    out, new = fn(p, x, cfg, state=state)
+    if mode == "train":
+        return out, None
+    for k, t in zip(names, new):
+        cache[k].copy_(t)
+    return out, cache
+
+
 def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  pages=None):
+    if spec.mixer in _RECURRENT:
+        return _apply_recurrent(spec, p, x, cfg, mode, cache)
     if spec.mixer == "mla":
         return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages)
     return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages)
@@ -377,6 +429,8 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
                                   cache, pos, pages)
     x = x + mix
+    if spec.ffn == "none":
+        return x, new_cache, aux
     h = _norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":
         out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm)

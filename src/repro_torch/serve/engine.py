@@ -10,7 +10,9 @@ from the queue.
 
 Per-token KV state (attention's K and V, MLA's compressed ``c_kv`` and
 ``k_rope``) lives in a block-table paged pool (``serve/paging.py``),
-updated in place (the JAX engine donates it to a jitted step instead).
+updated in place (the JAX engine donates it to a jitted step instead);
+the recurrent mixers' per-slot states (Mamba, mLSTM, sLSTM) live in the
+slot's row, which a prefill's insert overwrites.
 ``generate()`` is a thin wrapper over the scheduler and keeps the batched
 API; ``policy="static"`` keeps the synchronized static batch over a dense
 cache. Under greedy sampling a prompt decoded inside a mixed-length batch

@@ -146,10 +146,9 @@ def test_full_width_llama4_parameter_count():
                for k in ("we_gate", "we_up", "we_down")) == 2_013_265_920
 
 
-@pytest.mark.parametrize("name", ["xlstm-350m", "whisper-tiny",
-                                  "internvl2-2b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-2b"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14f"):
         TT.LM(tget(name).smoke(), device="cpu")
 
 
