@@ -14,8 +14,9 @@ policy, 4 slots, page size 16, on llama4-scout-17b-16e (attention +
 MoE) at full width, 4 of its 48 layers (phase 17), and on deepseek-v2-236b
 (MLA + MoE) at full width, 3 of its 60 layers (phase 18), and the
 recurrent mixers on xlstm-350m at full width and depth and jamba-v0.1-52b
-(Mamba + attention + MoE) at full width, 8 of its 32 layers (phase 19).
-Phases, each fatal on failure:
+(Mamba + attention + MoE) at full width, 8 of its 32 layers (phase 19),
+and the encoder-decoder whisper-tiny and the vision-token internvl2-2b at
+full width and depth (phase 20). Phases, each fatal on failure:
 
   1. the card (``nvidia-smi``) and the kernel build from ``src/``, with
      each kernel's registers and spills as ptxas reports them;
@@ -193,9 +194,9 @@ Phases, each fatal on failure:
      50,304; f32, seeded): ``plan_stage_assignment(xlstm-350m, 4)``
      equal to the CPU's; phase 8's traffic through ``ServeEngine`` twice
      (every request answered, slots refilled, identical tokens, no
-     flash_attn launch, TTFT, tokens/s, peak memory, a profile), a third
-     run counting the sLSTM's steps (one a token a sLSTM layer) and the
-     device launches of one step. (b) jamba-v0.1-52b at full width
+     flash_attn launch, TTFT, tokens/s, peak memory, a profile), the
+     second run counting the sLSTM's steps (one a token a sLSTM layer),
+     and the device launches of one step. (b) jamba-v0.1-52b at full width
      (d_model 4096, 32/8 heads x 128, Mamba d_inner 8192 and d_state 16,
      16 experts of d_ff 14,336, top-2, vocab 65,536) cut to
      ``JAMBA_LAYERS`` (8) of 32 layers: ``plan_stage_assignment(jamba,
@@ -207,10 +208,36 @@ Phases, each fatal on failure:
      serving tokens identical on the card and the CPU, and four bf16
      training steps within 2^-8 of the CPU's (aux > 0 for jamba's MoE,
      0 for xlstm).
+ 20. encoder-decoder and vision tokens, both configs uncut, f32, seeded.
+     First B4 against its plain version at the shapes no earlier phase
+     ran, f32, within 2e-5: non-causal at whisper's encoder (S
+     ``WHISPER_FRAMES`` 1,500, 6/6 heads x 64, a GQA group of 1), causal
+     at whisper's longest and shortest decoder prompt, and causal at
+     internvl's 16/8 x 128 at its longest and shortest prefill (prompt +
+     256 vision positions). (a) whisper-tiny (``WHISPER_ARCH``: 4 encoder
+     and 4 decoder layers, d_model 384, LayerNorm, learned positions,
+     tied vocab 51,865): ``plan_stage_assignment(whisper-tiny, 4)`` equal
+     to the CPU's; 8 requests of 4-224 prompt tokens through
+     ``ServeEngine`` twice with a cache of 1,500 positions (every
+     request's encoder over the engine's 1,500 zero frames, counted in
+     the second run; identical tokens; flash_attn 8 times a request, 4
+     encoder and 4 decoder layers, none for cross-attention; TTFT,
+     tokens/s, peak memory; no profile), then the cross blocks' share of
+     a 4-row decode step (CUDA events). (b) internvl2-2b (``VLM_ARCH``:
+     24 layers, d_model 2048, 16/8 heads x 128, 256 vision tokens of
+     width 1,024 through ``vis_proj``): its stage assignment equal to the
+     CPU's; phase 8's traffic twice behind the engine's zero vision
+     embeddings (identical tokens, flash_attn 24 times a request, vision
+     positions counted apart from prompt tokens, a profile). B4 timed at
+     whisper's encoder shape (non-causal) and at internvl's heads (S
+     2048, causal) beside its bound and SDPA. For both smoke configs: the
+     serving tokens identical on the card and the CPU, and four bf16
+     training steps (whisper's batch with ``enc_frames``, internvl's with
+     ``vision``) within 2^-8 of the CPU's.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 19 run under
+the same parts. Phases 3 to 5 and 9 to 20 run under
 ``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
@@ -224,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -276,6 +304,14 @@ DS_SHARDS = 8
 XLSTM_ARCH = "xlstm-350m"
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 8
+# phase 20: whisper-tiny (4 encoder + 4 decoder layers, 243,069,312
+# parameters, 0.97 GB in f32, 201,326,592 of them the decoder's learned
+# positions) and internvl2-2b (24 layers, 256 vision tokens, 1,891,244,032
+# parameters, 7.56 GB), both uncut; whisper's cache holds the 1,500 frames
+# of a 30 s window, so every request's encoder runs over all of them
+WHISPER_ARCH = "whisper-tiny"
+VLM_ARCH = "internvl2-2b"
+WHISPER_FRAMES = 1500
 # phase 13's SNN suite at a quarter scale (the ISPD suite stays whole): at
 # 1.0 the host baselines took 152 s of the phase's 286 s on an H100 80GB
 # HBM3 (700 W), 106 s of it seq-ml and overlap on rand-l alone, and 34 s at
@@ -296,11 +332,12 @@ KWAY_MAX_LEVELS = 16
 # fails the run
 DIST_LAYERS = 2
 DIST_TIMEOUT = 600.0
-# and Theta 2, not 16: on an H100 80GB HBM3 (700 W) the phase took 547 s
-# at Theta 16, 301 s at Theta 8 and 197-286 s at Theta 4 (its mesh runs'
-# host-staged collectives grow with the repetitions, not with the graph's
-# size); Theta 2 pays for phase 19
-DIST_THETA = 2
+# and Theta 1, not 16: on an H100 80GB HBM3 (700 W) the phase took 547 s
+# at Theta 16, 301 s at Theta 8, 197-286 s at Theta 4 and 181-236 s at
+# Theta 2 (its mesh runs' host-staged collectives grow with the
+# repetitions, not with the graph's size); Theta 2 paid for phase 19,
+# Theta 1 for phase 20
+DIST_THETA = 1
 # phase 12's bucket lane: node ranges of three ladder rungs, requests a rung
 # (three, not eight: eight a rung took the phase to 177 s, six to 160 s and
 # five to 168 s, over its budget of about 150 s; four until phase 18 came),
@@ -417,24 +454,62 @@ def gains_library_ms(torch, g_ref, d, pins, caps, h: int) -> float:
     return cuda_ms(torch, lambda: torch.sparse.mm(a_sp, b_dense), 10)
 
 
-def flash_times(torch, fa_ops, fa_ref, s_len, heads, kv_heads, dh) -> dict:
-    """B4 at one f32 causal prefill shape: the kernel's, its plain
-    version's and SDPA's ms, and its bound: q/k/v/o read or written once;
-    the two products over the causal triangle's S(S+1)/2 (query, key)
-    pairs, 2 operations a multiply-add, per head, each run as three TF32
-    tensor-core products (the 3xTF32 split)."""
+def flash_times(torch, fa_ops, fa_ref, s_len, heads, kv_heads, dh,
+                causal: bool = True) -> dict:
+    """B4 at one f32 prefill shape: the kernel's, its plain version's and
+    SDPA's ms, and its bound: q/k/v/o read or written once; the two
+    products over the (query, key) pairs (the causal triangle's
+    S(S+1)/2, or all S^2 without the mask), 2 operations a multiply-add,
+    per head, each run as three TF32 tensor-core products (the 3xTF32
+    split)."""
     q, k, v = attn_inputs(torch, s_len, heads, kv_heads, dh, torch.float32)
     fa_bytes = 4.0 * (2 * s_len * heads * dh + 2 * s_len * kv_heads * dh)
-    fa_ops_n = 2.0 * 2 * (s_len * (s_len + 1) / 2) * dh * heads
-    ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 20)
-    plain = cuda_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v), 5)
+    pairs = s_len * (s_len + 1) / 2 if causal else float(s_len * s_len)
+    fa_ops_n = 2.0 * 2 * pairs * dh * heads
+    ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v,
+                                                       causal=causal), 20)
+    plain = cuda_ms(torch, lambda: fa_ref.flash_attention_ref(
+        q, k, v, causal=causal), 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+    lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
                                       enable_gqa=True), 20)
     b, by = bound(fa_bytes, 3 * fa_ops_n, TF32_OPS_PER_S)
     return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 library_ms=lib, fma_bound_ms=bound(fa_bytes, fa_ops_n)[0])
+
+
+def flash_check(torch, fa_ops, fa_ref, tag, s_len, heads, kv_heads, dh,
+                causal: bool) -> float:
+    """B4 against its plain version at one f32 shape, within 2e-5;
+    returns the max abs error."""
+    q, k, v = attn_inputs(torch, s_len, heads, kv_heads, dh, torch.float32)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    need(err <= 2e-5, f"{tag} flash_attn S={s_len} {heads}/{kv_heads} x {dh} "
+         f"causal={causal} within 2e-5: {err:.3g}")
+    log(f"{tag} flash_attn S={s_len} f32 causal={causal}, q [1,{s_len},"
+        f"{heads},{dh}], k/v [1,{s_len},{kv_heads},{dh}]: max abs err "
+        f"{err:.3g} (tolerance 2e-05)")
+    return err
+
+
+def flash_row(torch, fa_ops, fa_ref, tag, card, cfg, s_len, causal, name,
+              launches, err) -> dict:
+    """B4's kernels-JSON row at ``cfg``'s heads: timed at ``s_len``
+    beside its bound and SDPA."""
+    row = flash_times(torch, fa_ops, fa_ref, s_len, cfg.n_heads, cfg.n_kv,
+                      cfg.d_head, causal=causal)
+    row.pop("fma_bound_ms")
+    row.update(name=name, kernel="flash_attn", launches=launches,
+               max_abs_err=err)
+    log(f"{tag} flash_attn S={s_len} {cfg.n_heads}/{cfg.n_kv} heads x "
+        f"{cfg.d_head} causal={causal}: {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}, SDPA {row['library_ms']:.4f} ms) on {card}")
+    return row
 
 
 def attn_inputs(torch, s_len, heads, kv_heads, dh, dtype):
@@ -538,22 +613,27 @@ def profile_steps(torch, engine, n: int):
 
 def serve_runs(torch, kernels, cfg, model, prompts, card: str,
                tag: str, fa_per_request: int,
-               profile_admission: bool = True) -> int:
+               profile_admission: bool = True, profile_decode: bool = True,
+               cache_len: int | None = None, second_run=None) -> int:
     """Serve ``prompts`` (one arriving per engine step, greedy,
     ``SERVE_MAX_NEW`` new tokens, ``SERVE_SLOTS`` slots, page size
-    ``SERVE_PAGE``) twice through ``ServeEngine``: every request answered,
-    slots refilled while others decode, flash_attn launched
-    ``fa_per_request`` times a request (once an attention layer; counts
-    reset just before, read just after), identical tokens in both runs;
-    then one admission step (under the profiler unless
-    ``profile_admission`` is off) and four decode-only steps under the
-    profiler. Returns the flash_attn launches of one run."""
+    ``SERVE_PAGE``, a cache of ``cache_len`` positions, by default the
+    longest prompt and the new tokens) twice through ``ServeEngine``:
+    every request answered, slots refilled while others decode,
+    flash_attn launched ``fa_per_request`` times a request (once an
+    attention layer; counts reset just before, read just after),
+    identical tokens in both runs (the second inside the context manager
+    ``second_run`` where one is given); then one admission step and four
+    decode-only steps, each under the profiler unless
+    ``profile_admission`` / ``profile_decode`` is off. Returns the
+    flash_attn launches of one run."""
     import numpy as np
     from repro_torch.obs import Registry
     from repro_torch.serve import ServeEngine
 
     n_req, max_new = len(prompts), SERVE_MAX_NEW
-    cache_len = max(len(p) for p in prompts) + max_new
+    if cache_len is None:
+        cache_len = max(len(p) for p in prompts) + max_new
     engine = lambda: ServeEngine(cfg, model, cache_len=cache_len,
                                  n_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
                                  registry=Registry(), device="cuda")
@@ -564,7 +644,9 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        res, rids, refills = serve_run(eng, prompts, max_new)
+        with second_run if run and second_run is not None \
+                else contextlib.nullcontext():
+            res, rids, refills = serve_run(eng, prompts, max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.LAUNCHES["flash_attn"]
@@ -583,6 +665,7 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
         cache_b = sum(t.numel() * t.element_size() for t in
                       _tensors(eng._cache))
         pf_tok = reg.total("engine.prefill_tokens")
+        pf_vis = reg.total("engine.prefill_vision_positions")
         pf_s = reg.total("engine.prefill.s")
         dc_tok = reg.total("engine.decode_tokens")
         dc_s = reg.total("engine.decode.s")
@@ -592,8 +675,12 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
             f"decoding, flash_attn launches {launches} on {card}")
         log(f"{tag} run {run}: time to first token (s) per request "
             + json.dumps([round(t, 4) for t in ttft]))
-        log(f"{tag} run {run}: prefill {pf_tok:.0f} tokens in {pf_s:.3f} s "
-            f"({pf_tok / pf_s:.1f} tokens/s), decode {dc_tok:.0f} tokens "
+        vis = (f" and {pf_vis:.0f} vision positions ("
+               f"{(pf_tok + pf_vis) / pf_s:.1f} positions/s)"
+               if pf_vis else "")
+        log(f"{tag} run {run}: prefill {pf_tok:.0f} tokens{vis} in "
+            f"{pf_s:.3f} s ({pf_tok / pf_s:.1f} prompt tokens/s), decode "
+            f"{dc_tok:.0f} tokens "
             f"in {dc_s:.3f} s ({dc_tok / dc_s:.1f} tokens/s), peak memory "
             f"{peak / 2**30:.3f} GiB, paged cache pool {cache_b} B on "
             f"{card}")
@@ -607,13 +694,16 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
     # where the time goes, under the profiler (which slows the host): one
     # step that admits 4 requests (4 prefills + a decode), then 4
     # decode-only steps of 4 slots
+    if not (profile_admission or profile_decode):
+        return launches
     eng = engine()
     for p in prompts[:SERVE_SLOTS]:
         eng.submit(p, max_new)
     if not profile_admission:
         eng.step()
     for what, n in (("admission step (4 prefills)", 1),
-                    ("decode-only steps", 4))[not profile_admission:]:
+                    ("decode-only steps", 4))[not profile_admission:
+                                               1 + profile_decode]:
         wall, busy, top = profile_steps(torch, eng, n)
         share = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
         log(f"{tag} profile, {what}: {1e3 * wall / n:.2f} ms a step, device "
@@ -632,7 +722,8 @@ def _tensors(tree):
 
 def smoke_serving_equal(torch, small, tag: str) -> None:
     """The smoke config's seeded weights and traffic (8 requests of 4-40
-    tokens, 16 new) on the card and the CPU: identical tokens."""
+    tokens, 16 new, behind the vision tokens where it has them) on the
+    card and the CPU: identical tokens."""
     import numpy as np
     from repro_torch.models import transformer as T
     from repro_torch.obs import Registry
@@ -642,11 +733,12 @@ def smoke_serving_equal(torch, small, tag: str) -> None:
     gpu_model = T.LM(small, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
     sp = serve_traffic(small.vocab, SERVE_REQUESTS, 4, 40, seed=1)
+    off = small.vision_tokens if small.vision_dim else 0
     toks = {}
     for name, m in (("cpu", cpu_model), ("cuda", gpu_model)):
-        eng = ServeEngine(small, m, cache_len=40 + 16, n_slots=SERVE_SLOTS,
-                          page_size=SERVE_PAGE, registry=Registry(),
-                          device=name)
+        eng = ServeEngine(small, m, cache_len=40 + off + 16,
+                          n_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                          registry=Registry(), device=name)
         res, rids, _ = serve_run(eng, sp, 16)
         toks[name] = [res[r] for r in rids]
     need(all(np.array_equal(a, b) for a, b in zip(toks["cpu"],
@@ -1997,30 +2089,12 @@ def moe_serve_phase(torch, kernels, card) -> dict:
          f"[17] flash_attn launched {launches} times a run")
 
     # ---- B4 at these heads against its plain version, and its times
-    err_fa = 0.0
-    for s_len in (2048, min(lens)):
-        q, k, v = attn_inputs(torch, s_len, cfg.n_heads, cfg.n_kv,
-                              cfg.d_head, torch.float32)
-        got = fa_ops.flash_attention(q, k, v)
-        want = fa_ref.flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        need(err <= 2e-5, f"[17] flash_attn S={s_len} {cfg.n_heads}/"
-             f"{cfg.n_kv} heads within 2e-5: {err:.3g}")
-        log(f"[17] flash_attn S={s_len} f32 causal, q [1,{s_len},"
-            f"{cfg.n_heads},{cfg.d_head}], k/v [1,{s_len},{cfg.n_kv},"
-            f"{cfg.d_head}]: max abs err {err:.3g} (tolerance 2e-05)")
-        err_fa = max(err_fa, err)
-    del q, k, v, got, want
-    row = flash_times(torch, fa_ops, fa_ref, 2048, cfg.n_heads, cfg.n_kv,
-                      cfg.d_head)
-    row.pop("fma_bound_ms")
-    row.update(name=f"flash_attn_{cfg.n_heads}x{cfg.n_kv}",
-               kernel="flash_attn", launches=launches, max_abs_err=err_fa)
-    log(f"[17] flash_attn S=2048 {cfg.n_heads}/{cfg.n_kv} heads: "
-        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, SDPA "
-        f"{row['library_ms']:.4f} ms) on {card}")
+    err_fa = max(flash_check(torch, fa_ops, fa_ref, "[17]", s_len,
+                             cfg.n_heads, cfg.n_kv, cfg.d_head, causal=True)
+                 for s_len in (2048, min(lens)))
+    row = flash_row(torch, fa_ops, fa_ref, "[17]", card, cfg, 2048, True,
+                    f"flash_attn_{cfg.n_heads}x{cfg.n_kv}", launches,
+                    err_fa)
 
     # ---- the perm: expert e's weights in slot perm[e], with expert_perm
     # = perm, give the unpermuted prefill
@@ -2097,7 +2171,11 @@ def smoke_train_equal(torch, small, tag: str) -> None:
     """Four bf16 training steps of the smoke config ``small`` from the
     CPU's seed-0 weights (a step-0 checkpoint restored on each device), on
     the card and the CPU: every ce + aux within 2^-8 of the CPU's, and
-    every aux positive where ``small`` has MoE layers (zero without)."""
+    every aux positive where ``small`` has MoE layers (zero without). An
+    encoder-decoder config's batch carries ``enc_frames`` (``ones([8, 16,
+    d_model]) * 0.01``, tests/test_models.py's) and a vision config's
+    ``vision`` (``ones([8, vision_tokens, vision_dim]) * 0.01``), so the
+    encoder and ``vis_proj`` train too."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -2107,6 +2185,12 @@ def smoke_train_equal(torch, small, tag: str) -> None:
     ocfg = opt.OptConfig(total_steps=4, warmup=1)
     step_fn = make_train_step(small, None, ocfg)
     data = SyntheticLM(vocab=small.vocab, seq_len=64, global_batch=8, seed=1)
+    extras = {}
+    if small.encoder_layers:
+        extras["enc_frames"] = torch.ones((8, 16, small.d_model)) * 0.01
+    if small.vision_dim:
+        extras["vision"] = torch.ones((8, small.vision_tokens,
+                                       small.vision_dim)) * 0.01
     rows = {}
     with tempfile.TemporaryDirectory() as d:
         CheckpointManager(d).save(0, opt.init_state(
@@ -2116,8 +2200,8 @@ def smoke_train_equal(torch, small, tag: str) -> None:
                 opt.abstract_state(small), device=dev)
             rows[dev] = []
             for t in range(4):
-                batch = {k: torch.from_numpy(v).to(dev)
-                         for k, v in data.batch_at(t).items()}
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in
+                         {**data.batch_at(t), **extras}.items()}
                 state, m = step_fn(state, batch)
                 rows[dev].append((float(m["loss"]), float(m["aux"])))
     gap = max(abs(a[0] - b[0]) / abs(b[0])
@@ -2214,36 +2298,30 @@ def stage_equal(torch, full, tag: str) -> None:
         + json.dumps(stage["report"]) + ", equal to the CPU's")
 
 
-def slstm_steps(torch, cfg, model, prompts, card: str) -> None:
-    """One more run of ``prompts`` through ``ServeEngine`` counting the
-    sLSTM's steps (one a token a sLSTM layer, prefill and decode), and the
-    device launches a step under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import ssm
-    from repro_torch.models import transformer as T
-    from repro_torch.obs import Registry
-    from repro_torch.serve import ServeEngine
-
+@contextlib.contextmanager
+def counting_slstm(T, seen: list):
+    """Inside: every sLSTM call appends its token count to ``seen``."""
     real, names = T._RECURRENT["slstm"]
-    seen = []
 
     def counting(p, x, cfg_, state=None):
         seen.append(x.shape[1])
         return real(p, x, cfg_, state=state)
 
-    eng = ServeEngine(cfg, model, cache_len=max(len(p) for p in prompts)
-                      + SERVE_MAX_NEW, n_slots=SERVE_SLOTS,
-                      page_size=SERVE_PAGE, registry=Registry(),
-                      device="cuda")
     T._RECURRENT["slstm"] = (counting, names)
     try:
-        t0 = time.perf_counter()
-        serve_run(eng, prompts, SERVE_MAX_NEW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        yield
     finally:
         T._RECURRENT["slstm"] = (real, names)
+
+
+def slstm_steps(torch, cfg, model, prompts, seen: list) -> None:
+    """The sLSTM's steps that ``counting_slstm`` recorded in ``seen`` over
+    one serving run of ``prompts`` (one a token a sLSTM layer, prefill and
+    decode), and the device launches a step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
     n_layers = sum(s.mixer == "slstm" for s in cfg.pattern) * \
         cfg.n_superblocks
     need(sum(seen) == n_layers * (sum(len(p) for p in prompts)
@@ -2264,11 +2342,11 @@ def slstm_steps(torch, cfg, model, prompts, card: str) -> None:
     n_kernels = sum(e.count for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not e.is_user_annotation)
-    log(f"[19] sLSTM: {sum(seen)} steps a run over {n_layers} layers "
-        f"({len(seen)} calls: {len(prompts)} prefills and "
+    log(f"[19] sLSTM: {sum(seen)} steps in the second run over {n_layers} "
+        f"layers ({len(seen)} calls: {len(prompts)} prefills and "
         f"{len(seen) // n_layers - len(prompts)} decode steps a layer); a "
         f"256-token call {n_kernels} device launches "
-        f"({n_kernels / 256:.2f} a step); the run {wall:.3f} s on {card}")
+        f"({n_kernels / 256:.2f} a step)")
 
 
 def ssm_serve_phase(torch, kernels, card) -> dict:
@@ -2311,9 +2389,12 @@ def ssm_serve_phase(torch, kernels, card) -> dict:
     # the admission step is not profiled: its trace of four sLSTM
     # prefills (about 175,000 launches) took the profiler about 160 s to
     # process on an H100 80GB HBM3 (700 W)
+    # the sLSTM's steps are counted in the second run
+    seen: list = []
     serve_runs(torch, kernels, full, model, prompts, card, "[19a]", 0,
-               profile_admission=False)
-    slstm_steps(torch, full, model, prompts, card)
+               profile_admission=False,
+               second_run=counting_slstm(T, seen))
+    slstm_steps(torch, full, model, prompts, seen)
     del model
     torch.cuda.empty_cache()
     log(f"[19a] {time.perf_counter() - t_phase:.1f} s into the phase")
@@ -2347,30 +2428,12 @@ def ssm_serve_phase(torch, kernels, card) -> dict:
     torch.cuda.empty_cache()
 
     # ---- B4 at jamba's heads against its plain version, and its times
-    err_fa = 0.0
-    for s_len in (2048, min(lens)):
-        q, k, v = attn_inputs(torch, s_len, cfg.n_heads, cfg.n_kv,
-                              cfg.d_head, torch.float32)
-        got = fa_ops.flash_attention(q, k, v)
-        want = fa_ref.flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        need(err <= 2e-5, f"[19b] flash_attn S={s_len} {cfg.n_heads}/"
-             f"{cfg.n_kv} heads within 2e-5: {err:.3g}")
-        log(f"[19b] flash_attn S={s_len} f32 causal, q [1,{s_len},"
-            f"{cfg.n_heads},{cfg.d_head}], k/v [1,{s_len},{cfg.n_kv},"
-            f"{cfg.d_head}]: max abs err {err:.3g} (tolerance 2e-05)")
-        err_fa = max(err_fa, err)
-    del q, k, v, got, want
-    row = flash_times(torch, fa_ops, fa_ref, 2048, cfg.n_heads, cfg.n_kv,
-                      cfg.d_head)
-    row.pop("fma_bound_ms")
-    row.update(name=f"flash_attn_{cfg.n_heads}x{cfg.n_kv}",
-               kernel="flash_attn", launches=launches, max_abs_err=err_fa)
-    log(f"[19b] flash_attn S=2048 {cfg.n_heads}/{cfg.n_kv} heads: "
-        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, SDPA "
-        f"{row['library_ms']:.4f} ms) on {card}")
+    err_fa = max(flash_check(torch, fa_ops, fa_ref, "[19b]", s_len,
+                             cfg.n_heads, cfg.n_kv, cfg.d_head, causal=True)
+                 for s_len in (2048, min(lens)))
+    row = flash_row(torch, fa_ops, fa_ref, "[19b]", card, cfg, 2048, True,
+                    f"flash_attn_{cfg.n_heads}x{cfg.n_kv}", launches,
+                    err_fa)
     torch.cuda.empty_cache()
 
     # ---- the smoke configs: serving and four bf16 steps, card and CPU
@@ -2380,6 +2443,161 @@ def ssm_serve_phase(torch, kernels, card) -> dict:
         smoke_train_equal(torch, small, tag)
     log(f"[19] phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return row
+
+
+@contextlib.contextmanager
+def counting_encoder(T, frames: list):
+    """Inside: every encoder pass appends its frame count to ``frames``."""
+    real = T._encoder_forward
+
+    def counting(model, x, cfg, train=False):
+        frames.append(x.shape[1])
+        return real(model, x, cfg, train)
+
+    T._encoder_forward = counting
+    try:
+        yield
+    finally:
+        T._encoder_forward = real
+
+
+def cross_share(torch, cfg, model, cache_len: int, pos: int, card) -> None:
+    """The cross blocks' share of a decode step of ``SERVE_SLOTS`` rows at
+    ``pos`` over a dense cache of ``cache_len`` (CUDA events): every step
+    projects the encoder's output to keys and values again, as the JAX
+    package does, and attends over them."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import zeros
+
+    n = SERVE_SLOTS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cache = zeros(T.cache_shapes(cfg, n, cache_len), "cuda")
+    cache["enc_out"].normal_(generator=gen)
+    tok = torch.randint(2, cfg.vocab, (n, 1), device="cuda", generator=gen)
+    posv = torch.full((n,), pos, device="cuda")
+    x = torch.randn((n, 1, cfg.d_model), device="cuda", generator=gen)
+    step_ms = cuda_ms(torch, lambda: T.decode_step(model, tok, posv, cache,
+                                                   cfg), 3, warmup=1)
+    with torch.no_grad():
+        cross_ms = cuda_ms(torch, lambda: [
+            T._cross_attention(b, x, cache["enc_out"], cfg)
+            for _, b in model.blocks()], 3, warmup=1)
+    log(f"[20a] a decode step of {n} rows at position {pos}: {step_ms:.2f} "
+        f"ms, of which the {cfg.n_layers} cross blocks over "
+        f"{cache['enc_out'].shape[1]} frames {cross_ms:.2f} ms (share "
+        f"{cross_ms / step_ms:.3f}) on {card}")
+
+
+def encdec_vlm_phase(torch, kernels, card) -> list:
+    """Phase 20: whisper-tiny (encoder-decoder) and internvl2-2b (vision
+    tokens) at full width and depth: B4 at their new shapes against its
+    plain version, each config's stage assignment on the card against the
+    CPU, serving twice through ``ServeEngine`` (whisper's encoder over
+    ``WHISPER_FRAMES`` frames, internvl's 256 vision positions before each
+    prompt), and each smoke config's serving and four bf16 training steps
+    on the card against the CPU. Runs under
+    ``torch.use_deterministic_algorithms(True)``. Returns B4's
+    kernels-JSON rows at whisper's encoder heads and internvl's heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import param_count
+
+    t_phase = time.perf_counter()
+    wh, iv = get_config(WHISPER_ARCH), get_config(VLM_ARCH)
+    wh_prompts = serve_traffic(wh.vocab, SERVE_REQUESTS, 4, 224, seed=0)
+    iv_prompts = serve_traffic(iv.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+    wh_lens = [len(p) for p in wh_prompts]
+    iv_pre = [len(p) + iv.vision_tokens for p in iv_prompts]
+
+    # ---- B4 at the new shapes before serving with them: d_head 64 with a
+    # GQA group of 1 (non-causal over the encoder's frames, causal over the
+    # decoder's prompts) and internvl's 16/8 x 128 behind 256 vision tokens
+    err_wh = flash_check(torch, fa_ops, fa_ref, "[20a]", WHISPER_FRAMES,
+                         wh.n_heads, wh.n_kv, wh.d_head, causal=False)
+    for s_len in (max(wh_lens), min(wh_lens)):
+        err_wh = max(err_wh, flash_check(torch, fa_ops, fa_ref, "[20a]",
+                                         s_len, wh.n_heads, wh.n_kv,
+                                         wh.d_head, causal=True))
+    err_iv = max(flash_check(torch, fa_ops, fa_ref, "[20b]", s_len,
+                             iv.n_heads, iv.n_kv, iv.d_head, causal=True)
+                 for s_len in (max(iv_pre), min(iv_pre)))
+    torch.cuda.empty_cache()
+
+    # ---- (a) whisper-tiny at full width and depth
+    stage_equal(torch, wh, "[20a]")
+    t0 = time.perf_counter()
+    model = T.materialize_lm(wh, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(T.lm_shapes(wh))
+    need(sum(p.numel() for p in model.parameters()) == n_params,
+         "[20a] the model holds lm_shapes' parameters")
+    log(f"[20a] {WHISPER_ARCH}: {wh.encoder_layers} encoder + {wh.n_layers} "
+        f"decoder layers x d_model {wh.d_model}, {wh.n_heads}/{wh.n_kv} "
+        f"heads x {wh.d_head}, LayerNorm, learned positions ({wh.max_seq} "
+        f"decoder, {wh.max_source_positions} encoder), tied vocab "
+        f"{wh.vocab}, f32, {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[20a] prompt lengths {wh_lens}")
+    frames: list = []
+    fa_per = wh.encoder_layers + wh.n_layers
+    # no profile: whisper is measured by its runs' rates and the cross
+    # blocks' share of a decode step below
+    wh_launches = serve_runs(torch, kernels, wh, model, wh_prompts, card,
+                             "[20a]", fa_per, profile_admission=False,
+                             profile_decode=False, cache_len=WHISPER_FRAMES,
+                             second_run=counting_encoder(T, frames))
+    need(frames == [WHISPER_FRAMES] * SERVE_REQUESTS,
+         f"[20a] the encoder ran once a request over {WHISPER_FRAMES} "
+         f"frames: {frames}")
+    log(f"[20a] the encoder ran {len(frames)} times over {frames[0]} "
+        f"frames; flash_attn {wh_launches} launches a run ({fa_per} a "
+        f"request: {wh.encoder_layers} encoder and {wh.n_layers} decoder "
+        f"layers; cross-attention launches none)")
+    cross_share(torch, wh, model, WHISPER_FRAMES, max(wh_lens), card)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[20a] {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # ---- (b) internvl2-2b at full width and depth
+    stage_equal(torch, iv, "[20b]")
+    t0 = time.perf_counter()
+    model = T.materialize_lm(iv, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(T.lm_shapes(iv))
+    need(sum(p.numel() for p in model.parameters()) == n_params,
+         "[20b] the model holds lm_shapes' parameters")
+    log(f"[20b] {VLM_ARCH}: {iv.n_layers} layers x d_model {iv.d_model}, "
+        f"{iv.n_heads}/{iv.n_kv} heads x {iv.d_head}, {iv.vision_tokens} "
+        f"vision tokens of width {iv.vision_dim}, vocab {iv.vocab}, f32, "
+        f"{n_params} parameters ({4 * n_params / 1e9:.2f} GB) made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    log(f"[20b] prompt lengths {[len(p) for p in iv_prompts]}, prefills "
+        f"{iv_pre} positions")
+    iv_launches = serve_runs(
+        torch, kernels, iv, model, iv_prompts, card, "[20b]", iv.n_layers,
+        cache_len=max(iv_pre) + SERVE_MAX_NEW)
+    del model
+    torch.cuda.empty_cache()
+
+    rows = [flash_row(torch, fa_ops, fa_ref, "[20a]", card, wh,
+                      WHISPER_FRAMES, False,
+                      f"flash_attn_{wh.n_heads}x{wh.n_kv}_noncausal",
+                      wh_launches, err_wh),
+            flash_row(torch, fa_ops, fa_ref, "[20b]", card, iv, 2048, True,
+                      f"flash_attn_{iv.n_heads}x{iv.n_kv}", iv_launches,
+                      err_iv)]
+    torch.cuda.empty_cache()
+
+    # ---- the smoke configs: serving and four bf16 steps, card and CPU
+    for arch, tag in ((WHISPER_ARCH, "[20a]"), (VLM_ARCH, "[20b]")):
+        small = get_config(arch).smoke()
+        smoke_serving_equal(torch, small, tag)
+        smoke_train_equal(torch, small, tag)
+    log(f"[20] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2770,6 +2988,10 @@ def main(argv=None) -> int:
     # ---- 19. the recurrent mixers: xlstm and jamba ---------------------
     rows_used.append(ssm_serve_phase(torch, kernels, card))
     log(f"[19] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 20. encoder-decoder and vision tokens: whisper and internvl ---
+    rows_used += encdec_vlm_phase(torch, kernels, card)
+    log(f"[20] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

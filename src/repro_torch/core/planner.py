@@ -202,11 +202,9 @@ def replan_expert_placement(cfg: ArchConfig, prev: dict, n_shards: int,
 
 def layer_hypergraph(cfg: ArchConfig) -> tuple[HostHypergraph, np.ndarray]:
     """Residual-stream chain + periodic skip fan-ins over layers; returns
-    the graph and each layer's size in MB-ish units. Runs on the configs
-    the port's ``lm_shapes`` covers: attention, MLA, Mamba, mLSTM or
-    sLSTM mixers with MLP, MoE or no feed-forward. Encoder-decoder and
-    vision configs raise ``NotImplementedError`` until ROADMAP.md Queue A
-    item 14f ports their layers."""
+    the graph and each layer's size in MB-ish units (the parameters of
+    ``lm_shapes``, encoder and vision projection included, spread over
+    the decoder's layers)."""
     from repro_torch.models import transformer as T
     from repro_torch.models.common import param_count
     L = cfg.n_layers
@@ -229,8 +227,8 @@ def layer_hypergraph(cfg: ArchConfig) -> tuple[HostHypergraph, np.ndarray]:
 def plan_stage_assignment(cfg: ArchConfig, n_stages: int,
                           theta: int = 8, device=None) -> dict:
     """Layer -> pipeline stage by a k-way cut (eps 0.10) of
-    ``layer_hypergraph(cfg)`` on ``device`` (CUDA unless another is named).
-    The configs of ``layer_hypergraph``."""
+    ``layer_hypergraph(cfg)`` on ``device`` (CUDA unless another is
+    named)."""
     hg, _ = layer_hypergraph(cfg)
     res = partition_kway(hg, k=n_stages, eps=0.10, theta=theta,
                          coarse_target=max(4 * n_stages, 16), device=device)

@@ -55,8 +55,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    pos_off = cfg.vision_tokens if cfg.vision_dim else 0
     model = T.materialize_lm(cfg, seed=0, device=dev)
-    eng = ServeEngine(cfg, model, cache_len=args.prompt_len + args.max_new,
+    eng = ServeEngine(cfg, model,
+                      cache_len=args.prompt_len + pos_off + args.max_new,
                       temperature=args.temperature, seed=args.seed,
                       policy=args.policy, n_slots=args.slots,
                       page_size=args.page_size, device=dev)

@@ -7,6 +7,12 @@ holds one ``Block`` per layer, layer ``sb * len(pattern) + i``. The
 ``first_k_dense`` leading layers are top-level ``dense{k}`` keys of the
 JAX tree and modules of that name in the port, unstacked in both. A layer
 of ``ffn="none"`` (xLSTM) holds no ``norm2`` and no ``ffn`` on either side.
+An encoder-decoder config's cross blocks are stacked the stack's way in
+the JAX tree's ``stack_cross`` and sit in each port ``Block`` as
+``normx`` and ``cross``; its encoder layers are stacked over
+``encoder_layers`` in ``encoder.stack`` and are the port's
+``encoder.layers.{j}``, while ``encoder.pos`` and ``encoder.final_norm``
+are unstacked in both.
 Weights keep the JAX ``[in, out]`` layout (the MoE experts' ``[E, in,
 out]``, Mamba's ``[d_conv, d_inner]`` conv taps), so nothing is
 transposed.
@@ -51,20 +57,31 @@ def _tensor(a) -> torch.Tensor:
 
 def jax_path(cfg: ArchConfig, name: str) -> tuple[tuple[str, ...], int]:
     """The JAX parameter-tree path of the port's parameter ``name`` and its
-    superblock along the stacked layers axis (0 for unstacked leaves:
-    ``embed``, ``final_norm`` and ``dense{k}`` keep their paths)."""
+    index along the stacked axis: a stack layer's superblock, an encoder
+    layer's index (0 for unstacked leaves: ``embed``, ``final_norm``,
+    ``dense{k}``, ``encoder.pos`` and ``encoder.final_norm`` keep their
+    paths)."""
     parts = tuple(name.split("."))
-    if parts[0] != "layers":
-        return parts, 0
-    sb, slot = divmod(int(parts[1]), len(cfg.pattern))
-    return ("stack", f"slot{slot}") + parts[2:], sb
+    if parts[0] == "layers":
+        sb, slot = divmod(int(parts[1]), len(cfg.pattern))
+        tree = "stack_cross" if parts[2] in ("normx", "cross") else "stack"
+        return (tree, f"slot{slot}") + parts[2:], sb
+    if parts[:2] == ("encoder", "layers"):
+        return ("encoder", "stack") + parts[3:], int(parts[2])
+    return parts, 0
+
+
+def _stacked(path: tuple[str, ...]) -> bool:
+    """Whether the JAX leaf at ``path`` has a stacked leading axis."""
+    return path[0] in ("stack", "stack_cross") or \
+        path[:2] == ("encoder", "stack")
 
 
 def leaf_groups(cfg: ArchConfig, names) -> list[tuple[tuple[str, ...],
                                                       list[str]]]:
     """The JAX tree's leaves in ``jax.tree`` flatten order (keys sorted at
     every level), each with the port names that hold it: one name, or a
-    stacked leaf's per-layer names in superblock order."""
+    stacked leaf's per-layer names in stacking order."""
     groups: dict[tuple[str, ...], list] = {}
     for n in names:
         path, sb = jax_path(cfg, n)
@@ -75,31 +92,36 @@ def leaf_groups(cfg: ArchConfig, names) -> list[tuple[tuple[str, ...],
 
 def params_from_jax(cfg: ArchConfig, tree: dict) -> dict[str, torch.Tensor]:
     """A state dict for ``models.transformer.LM`` from the JAX parameter
-    tree as numpy arrays (or tensors), with the layers axis unstacked."""
+    tree as numpy arrays (or tensors), with the stacked axes unstacked."""
     n_slot = len(cfg.pattern)
     state = {}
-    for name, arr in _flat({k: v for k, v in tree.items() if k != "stack"}):
-        state[name] = _tensor(arr)
-    for slot, sub in tree["stack"].items():
-        i = int(slot.removeprefix("slot"))
-        for name, arr in _flat(sub):
-            t = _tensor(arr)
-            for sb in range(t.shape[0]):
-                state[f"layers.{sb * n_slot + i}.{name}"] = t[sb].clone()
+    for path, arr in _flat(tree):
+        parts = tuple(path.split("."))
+        if not _stacked(parts):
+            state[path] = _tensor(arr)
+            continue
+        t = _tensor(arr)
+        for j in range(t.shape[0]):
+            if parts[0] == "encoder":
+                name = f"encoder.layers.{j}." + ".".join(parts[2:])
+            else:
+                i = int(parts[1].removeprefix("slot"))
+                name = f"layers.{j * n_slot + i}." + ".".join(parts[2:])
+            state[name] = t[j].clone()
     return state
 
 
 def tree_from_flat(cfg: ArchConfig, flat: dict) -> dict:
     """The JAX-layout tree of tensors keyed by the port's parameter names:
-    nested dicts, each stacked leaf one ``[n_superblocks, ...]`` tensor
-    on the CPU."""
+    nested dicts, each stacked leaf one ``[n, ...]`` tensor on the
+    CPU."""
     tree: dict = {}
     for path, names in leaf_groups(cfg, flat):
         ts = [flat[n].detach().cpu() for n in names]
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = torch.stack(ts) if path[0] == "stack" else ts[0]
+        node[path[-1]] = torch.stack(ts) if _stacked(path) else ts[0]
     return tree
 
 

@@ -9,7 +9,10 @@ as the JAX package computes it outside any Pallas kernel. Training
 attention is ``chunked_attention``, the JAX package's chunked
 online-softmax ``flash_attention`` in plain tensor ops, so autograd
 differentiates it as ``jax.grad`` differentiates the JAX one (the flash
-kernel has no backward).
+kernel has no backward). Cross-attention, whose queries and keys have
+different lengths, is ``chunked_attention`` in every mode (see
+``transformer._cross_attention``): the flash kernel takes one length for
+q, k and v, as the TPU kernel does.
 
 MLA (DeepSeek-V2's multi-head latent attention) is the JAX package's
 absorbed form, ``mla_attention``: the scores ``(W_uk^T q_nope) . c_kv +
@@ -43,7 +46,9 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
-def attn_shapes(cfg: ArchConfig) -> dict:
+def attn_shapes(cfg: ArchConfig, cross: bool = False) -> dict:
+    """Q/K/V/O projections; ``cross`` (a cross-attention block) changes
+    nothing, as in the JAX package."""
     H, KV, DH, D = cfg.n_heads, cfg.n_kv, cfg.d_head, cfg.d_model
     s = {
         "wq": Spec((D, H * DH), ("embed", "heads")),

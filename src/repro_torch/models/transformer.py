@@ -1,6 +1,7 @@
-"""Decoder-only LM for layer patterns of ``attn``, ``mla``, ``mamba``,
-``mlstm`` or ``slstm`` mixers with ``mlp``, ``moe`` or no (``"none"``)
-feed-forward, port of the decoder paths of ``repro.models.transformer``.
+"""The LM for layer patterns of ``attn``, ``mla``, ``mamba``, ``mlstm`` or
+``slstm`` mixers with ``mlp``, ``moe`` or no (``"none"``) feed-forward,
+with a Whisper-style encoder and cross-attention (``encoder_layers``) or
+vision tokens (``vision_dim``): port of ``repro.models.transformer``.
 
 ``lm_shapes`` and ``cache_shapes`` give the JAX package's spec trees. The
 ``LM`` module holds one ``Block`` per layer in an ``nn.ModuleList`` (layer
@@ -31,8 +32,25 @@ state back in the cache's dtype. ``loss_fn`` is the training loss:
 ``[B, S, V]`` logits, plus the MoE layers' balance loss.
 ``expert_perm`` (the placement planner's permutation of the expert axis)
 reaches every MoE layer through ``forward``, ``loss_fn``, ``prefill`` and
-``decode_step``. Encoder-decoder and vision models raise
-``NotImplementedError``, in every mode.
+``decode_step``.
+
+Encoder-decoder (whisper): ``LM.encoder`` runs over the stub front end's
+frame embeddings ``enc_frames`` [B, T, d_model] (learned positions, then
+pre-norm layers of non-causal self-attention and MLP, then a final
+norm): on the flash kernel in prefill, ``chunked_attention`` in train.
+Each stack layer holds a cross block (``normx``, ``cross``: the JAX
+tree's ``stack_cross``) that attends from the decoder to the encoder's
+output after the mixer, ``chunked_attention`` over one key chunk in
+every mode. Train and
+prefill compute the encoder's output (prefill writes it to the cache's
+"batch" leaf ``enc_out``); decode reads it from the cache and recomputes
+the cross keys and values every step, as the JAX package does.
+Vision (internvl): ``vision`` [B, vision_tokens, vision_dim] through
+``vis_proj`` goes before the text, positions count from the first vision
+token, and ``loss_fn`` pads the labels with -1 over the vision
+positions. Frames and vision embeddings are cast to the parameters'
+dtype (the JAX package promotes instead: f32 inputs to bf16 weights
+compute in f32 there).
 """
 from __future__ import annotations
 
@@ -58,14 +76,6 @@ F32 = torch.float32
 def _unported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md Queue A item {item}")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's decoder does not run yet."""
-    if cfg.encoder_layers:
-        _unported("encoder-decoder models", "14f (encoder-decoder and VLM)")
-    if cfg.vision_dim:
-        _unported("vision inputs", "14f (encoder-decoder and VLM)")
 
 
 # ---------------------------------------------------------------------------
@@ -104,14 +114,34 @@ def _dense_spec(cfg: ArchConfig) -> LayerSpec:
     return dataclasses.replace(cfg.pattern[0], ffn="mlp")
 
 
+def _enc_layer_shapes(cfg: ArchConfig) -> dict:
+    return {"norm1": _norm_shapes(cfg), "mixer": L.attn_shapes(cfg),
+            "norm2": _norm_shapes(cfg), "ffn": L.mlp_shapes(cfg)}
+
+
+def _cross_shapes(cfg: ArchConfig) -> dict:
+    return {"normx": _norm_shapes(cfg), "cross": L.attn_shapes(cfg,
+                                                               cross=True)}
+
+
 def lm_shapes(cfg: ArchConfig) -> dict:
-    check_supported(cfg)
     s: dict[str, Any] = {"embed": L.embed_shapes(cfg),
                          "final_norm": _norm_shapes(cfg)}
     s["stack"] = {
         f"slot{i}": stack_specs(_layer_shapes(spec, cfg), cfg.n_superblocks)
         for i, spec in enumerate(cfg.pattern)
     }
+    if cfg.encoder_layers:
+        s["stack_cross"] = {
+            f"slot{i}": stack_specs(_cross_shapes(cfg), cfg.n_superblocks)
+            for i, _ in enumerate(cfg.pattern)
+        }
+        s["encoder"] = {
+            "stack": stack_specs(_enc_layer_shapes(cfg), cfg.encoder_layers),
+            "final_norm": _norm_shapes(cfg),
+            "pos": Spec((cfg.max_source_positions, cfg.d_model),
+                        (None, "embed"), init="embed", scale=0.02),
+        }
     for k in range(cfg.first_k_dense):
         s[f"dense{k}"] = _layer_shapes(_dense_spec(cfg), cfg)
     return s
@@ -161,8 +191,9 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
     """Cache spec tree. With ``page_size``/``n_pages`` the per-token
     caches (attention KV, MLA compressed KV) switch to the paged
     ``[n_pages, page_size, ...]`` layout ("kv_pages" leading axis); the
-    per-slot recurrent states keep their ``[batch, ...]`` slot layout."""
-    check_supported(cfg)
+    per-slot recurrent states and the encoder's output ``enc_out``
+    ``[batch, min(max_source_positions, cache_len), d_model]`` keep their
+    ``[batch, ...]`` slot layout."""
     c: dict[str, Any] = {"stack": {
         f"slot{i}": stack_specs(_mixer_cache_spec(spec, cfg, batch,
                                                   cache_len, page_size,
@@ -172,6 +203,10 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
     for k in range(cfg.first_k_dense):
         c[f"dense{k}"] = _mixer_cache_spec(_dense_spec(cfg), cfg, batch,
                                            cache_len, page_size, n_pages)
+    if cfg.encoder_layers:
+        enc_len = min(cfg.max_source_positions, cache_len)
+        c["enc_out"] = Spec((batch, enc_len, cfg.d_model),
+                            ("batch", None, "embed"), init="zeros")
     return c
 
 
@@ -180,11 +215,12 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int, *,
 # ---------------------------------------------------------------------------
 class Block(SpecModule):
     """One pre-norm decoder layer of ``spec``: attention, MLA, Mamba, mLSTM
-    or sLSTM, then the SwiGLU MLP, the MoE layer or (``ffn="none"``)
-    nothing."""
+    or sLSTM, then (with ``cross``) the cross block ``normx`` and
+    ``cross`` attending to the encoder's output, then the SwiGLU MLP, the
+    MoE layer or (``ffn="none"``) nothing."""
 
     def __init__(self, spec: LayerSpec, cfg: ArchConfig, device=None,
-                 dtype=F32):
+                 dtype=F32, cross: bool = False):
         super().__init__({}, device, dtype)
         self.spec = spec
         self.norm1 = SpecModule(_norm_shapes(cfg), device, dtype)
@@ -193,37 +229,61 @@ class Block(SpecModule):
             self.norm2 = SpecModule(_norm_shapes(cfg), device, dtype)
             self.ffn = (L.MoE if spec.ffn == "moe" else L.MLP)(cfg, device,
                                                                dtype)
+        self.has_cross = cross
+        if cross:
+            self.normx = SpecModule(_norm_shapes(cfg), device, dtype)
+            self.cross = SpecModule(L.attn_shapes(cfg, cross=True), device,
+                                    dtype)
 
     def forward(self, x, cfg, mode, positions, cache, pos, pages=None,
-                expert_perm=None):
+                expert_perm=None, enc_out=None):
         return _apply_layer(self.spec, self, x, cfg, mode, positions, cache,
-                            pos, pages, expert_perm)
+                            pos, pages, expert_perm,
+                            enc_out if self.has_cross else None)
+
+
+class Encoder(SpecModule):
+    """The encoder of an encoder-decoder LM: learned positions ``pos``
+    ``[max_source_positions, d_model]``, ``encoder_layers`` pre-norm
+    attention + MLP layers (``layers``, the JAX tree's ``encoder.stack``)
+    and ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
+        shapes = lm_shapes(cfg)["encoder"]
+        super().__init__({k: shapes[k] for k in ("pos", "final_norm")},
+                         device, dtype)
+        self.layers = nn.ModuleList(
+            Block(LayerSpec("attn", "mlp"), cfg, device, dtype)
+            for _ in range(cfg.encoder_layers))
 
 
 class LM(nn.Module):
-    """Decoder-only LM: embedding, the ``first_k_dense`` leading layers
-    ``dense{k}``, the stack's blocks (``layers``), final norm, head.
-    Parameters are made on ``device`` (uninitialised until ``init_`` or
-    ``load_state_dict``)."""
+    """The LM: embedding, the ``first_k_dense`` leading layers
+    ``dense{k}``, the stack's blocks (``layers``, each with its cross
+    block when the config has an encoder), final norm, head, and the
+    ``encoder``. Parameters are made on ``device`` (uninitialised until
+    ``init_`` or ``load_state_dict``)."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=F32):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = SpecModule(L.embed_shapes(cfg), device, dtype)
         self.final_norm = SpecModule(_norm_shapes(cfg), device, dtype)
         for k in range(cfg.first_k_dense):
             self.add_module(f"dense{k}", Block(_dense_spec(cfg), cfg, device,
                                                dtype))
+        cross = bool(cfg.encoder_layers)
         self.layers = nn.ModuleList(
-            Block(spec, cfg, device, dtype)
+            Block(spec, cfg, device, dtype, cross=cross)
             for _ in range(cfg.n_superblocks) for spec in cfg.pattern)
+        if cross:
+            self.encoder = Encoder(cfg, device, dtype)
 
     def blocks(self) -> list:
         """``(key, block)`` in the order the forward runs them: the dense
         layers keyed ``"dense{k}"``, then the stack keyed by layer index
         (layer ``sb * len(pattern) + i`` is ``stack.slot{i}``'s superblock
-        ``sb``)."""
+        ``sb``, and its cross block ``stack_cross.slot{i}``'s)."""
         return [(f"dense{k}", getattr(self, f"dense{k}"))
                 for k in range(self.cfg.first_k_dense)] + \
             list(enumerate(self.layers))
@@ -420,15 +480,33 @@ def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages)
 
 
+def _cross_attention(p, x, enc_out, cfg):
+    """The cross block: ``normx``, then non-causal attention from ``x`` to
+    the encoder's output ``enc_out`` [B, T, d_model] in plain tensor ops
+    (queries and keys of different lengths, which the flash kernel does
+    not take), the keys in one chunk of T. The JAX package chunks them by
+    ``gcd(k_chunk, T)``: 4 at whisper's 1,500 frames, 375 steps of the
+    online softmax's loop, which only reorder its float sums and took
+    0.95 of a decode step on an H100."""
+    hx = _norm(p["normx"], x, cfg)
+    q, k, v = L.qkv_project(p["cross"], hx, enc_out, cfg)
+    o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                            k_chunk=enc_out.shape[1])
+    return _attn_out(p["cross"], o)
+
+
 def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
-                 pages=None, expert_perm=None):
+                 pages=None, expert_perm=None, enc_out=None):
     """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
-    zero for other layers)."""
+    zero for other layers). With ``enc_out`` the cross block runs after
+    the mixer."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
                                   cache, pos, pages)
     x = x + mix
+    if enc_out is not None:
+        x = x + _cross_attention(p, x, enc_out, cfg)
     if spec.ffn == "none":
         return x, new_cache, aux
     h = _norm(p["norm2"], x, cfg)
@@ -466,15 +544,49 @@ def _layer_cache(cache, cfg: ArchConfig, key) -> dict:
     return {k: t[sb] for k, t in cache["stack"][f"slot{slot}"].items()}
 
 
-def _train_block(block, x, cfg, positions, expert_perm):
+def _encoder_forward(model: LM, frames, cfg: ArchConfig,
+                     train: bool = False):
+    """Whisper-style encoder over the stub frame embeddings ``frames``
+    [B, T, d_model]: ``frames + pos[:T]``, then per layer ``norm1``,
+    non-causal self-attention (``chunked_attention`` under ``train``,
+    which autograd differentiates, else the flash kernel), ``norm2`` and
+    the MLP, then ``final_norm``."""
+    enc = model.encoder
+    x = frames.to(enc.pos.dtype) + enc.pos[:frames.shape[1]]
+    for blk in enc.layers:
+        h = _norm(blk.norm1, x, cfg)
+        q, k, v = L.qkv_project(blk.mixer, h, h, cfg)
+        if train:
+            o = L.chunked_attention(q, k, v, causal=False,
+                                    q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+        else:
+            o = L.flash_attention(q, k, v, causal=False)
+        x = x + _attn_out(blk.mixer, o)
+        x = x + L.mlp_apply(blk.ffn, _norm(blk.norm2, x, cfg))
+    return _norm(enc.final_norm, x, cfg)
+
+
+def _store_enc_out(cache, enc_out) -> None:
+    """Prefill's encoder output into ``cache["enc_out"]``: copied in place
+    when the shapes agree, else the entry replaced (the JAX package
+    replaces the leaf, whose length may differ from the cache's)."""
+    leaf = cache["enc_out"]
+    if leaf.shape == enc_out.shape:
+        leaf.copy_(enc_out)
+    else:
+        cache["enc_out"] = enc_out.to(leaf.dtype)
+
+
+def _train_block(block, x, cfg, positions, expert_perm, enc_out):
     x, _, aux = block(x, cfg, "train", positions, None, None,
-                      expert_perm=expert_perm)
+                      expert_perm=expert_perm, enc_out=enc_out)
     return x, aux
 
 
 def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
             cache=None, pos=None, page_table=None, page_size: int = 0,
-            remat: bool = True, expert_perm=None):
+            remat: bool = True, expert_perm=None, vision=None,
+            enc_frames=None):
     """Returns (hidden [B,S,D], cache, aux), aux the MoE balance loss
     summed over the layers in layer order (an f32 zero without MoE).
     ``pos`` may be a scalar (synchronized decode) or a [B] vector of
@@ -482,7 +594,11 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     decode-mode KV updates go through the paged block-table layout
     instead of the dense [B, S] one. The cache is updated in place and
     returned. ``expert_perm`` [n_experts] maps each routed expert to its
-    slot on the MoE layers' expert axis.
+    slot on the MoE layers' expert axis. ``vision`` [B, vision_tokens,
+    vision_dim] goes before the text through ``vis_proj`` (S counts it);
+    ``enc_frames`` [B, T, d_model] feed the encoder in train and prefill
+    (an encoder-decoder config needs them there; decode reads
+    ``cache["enc_out"]``).
 
     ``mode="train"`` takes no cache and returns (hidden, None, aux) with
     autograd recording; under ``remat`` each block is recomputed in the
@@ -494,25 +610,41 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     B, S = tokens.shape
     dev = tokens.device
     pages = (page_table, page_size) if page_table is not None else None
-    positions = _positions(pos, S, dev)
     train = mode == "train"
+    if cfg.encoder_layers and mode != "decode" and enc_frames is None:
+        raise ValueError(f"{cfg.name}: {mode} needs enc_frames (the "
+                         f"encoder's input)")
     if expert_perm is not None:
         expert_perm = torch.as_tensor(expert_perm, device=dev).long()
     with contextlib.nullcontext() if train else torch.no_grad():
         x = L.embed_apply(model.embed, tokens, cfg,
-                          positions=positions if cfg.pos == "learned"
-                          else None)
+                          positions=_positions(pos, S, dev)
+                          if cfg.pos == "learned" else None)
+        if vision is not None and cfg.vision_dim:
+            w = model.embed.vis_proj
+            x = torch.cat([vision.to(w.dtype) @ w, x], dim=1)
+            S = x.shape[1]
+        positions = _positions(pos, S, dev)
+        enc_out = None
+        if cfg.encoder_layers:
+            if mode == "decode":
+                enc_out = cache["enc_out"]
+            else:
+                enc_out = _encoder_forward(model, enc_frames, cfg, train)
+                if cache is not None:
+                    _store_enc_out(cache, enc_out)
         aux = torch.zeros((), dtype=F32, device=dev)
         for key, block in model.blocks():
             if not train:
                 x, _, a = block(x, cfg, mode, positions,
                                 _layer_cache(cache, cfg, key), pos, pages,
-                                expert_perm)
+                                expert_perm, enc_out)
             elif remat:
                 x, a = checkpoint(_train_block, block, x, cfg, positions,
-                                  expert_perm, use_reentrant=False)
+                                  expert_perm, enc_out, use_reentrant=False)
             else:
-                x, a = _train_block(block, x, cfg, positions, expert_perm)
+                x, a = _train_block(block, x, cfg, positions, expert_perm,
+                                    enc_out)
             aux = aux + a
         return _norm(model.final_norm, x, cfg), cache, aux
 
@@ -547,23 +679,35 @@ def chunked_ce_loss(x, embed, labels, cfg: ArchConfig, chunk: int = 512,
 
 def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
             remat: bool = True):
-    """batch: dict(tokens [B,S], labels [B,S]). Returns
+    """batch: dict(tokens [B,S], labels [B,S], + optional vision [B,
+    vision_tokens, vision_dim] / enc_frames [B, T, d_model]). Returns
     (ce + aux, {"ce", "aux"}); aux is the MoE balance loss (0 without
-    MoE, where ``expert_perm`` changes nothing, as in JAX)."""
+    MoE, where ``expert_perm`` changes nothing, as in JAX). The labels
+    are padded with -1 over the vision positions."""
     if plan is not None:
         _unported("the training loss on a mesh (plan=)",
                   "14i (training on a mesh)")
+    vision = batch.get("vision")
     x, _, aux = forward(model, batch["tokens"], cfg, mode="train",
-                        remat=remat, expert_perm=expert_perm)
-    ce = chunked_ce_loss(x, model.embed, batch["labels"], cfg)
+                        remat=remat, expert_perm=expert_perm, vision=vision,
+                        enc_frames=batch.get("enc_frames"))
+    lbl = batch["labels"]
+    if vision is not None and cfg.vision_dim:
+        pad = torch.full((lbl.shape[0], x.shape[1] - lbl.shape[1]), -1,
+                         dtype=lbl.dtype, device=lbl.device)
+        lbl = torch.cat([pad, lbl], dim=1)
+    ce = chunked_ce_loss(x, model.embed, lbl, cfg)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(model: LM, tokens, cache, cfg: ArchConfig, expert_perm=None):
-    """Fills ``cache`` (dense, cache_len >= S) in place; returns
+def prefill(model: LM, tokens, cache, cfg: ArchConfig, expert_perm=None,
+            *, vision=None, enc_frames=None):
+    """Fills ``cache`` (dense, cache_len >= S, and the vision tokens) in
+    place, the encoder's output in ``cache["enc_out"]``; returns
     (last_logits [B, V], cache)."""
     x, cache, _ = forward(model, tokens, cfg, mode="prefill", cache=cache,
-                          expert_perm=expert_perm)
+                          expert_perm=expert_perm, vision=vision,
+                          enc_frames=enc_frames)
     logits = L.unembed_apply(model.embed, x[:, -1:], cfg)
     return logits[:, 0], cache
 
@@ -571,9 +715,10 @@ def prefill(model: LM, tokens, cache, cfg: ArchConfig, expert_perm=None):
 def decode_step(model: LM, token, pos, cache, cfg: ArchConfig,
                 page_table=None, page_size: int = 0, expert_perm=None):
     """token [B,1] int, pos scalar OR per-slot [B] vector (continuous
-    batching). With ``page_table`` [B, P] + ``page_size`` the KV caches are
-    paged (see ``cache_shapes(page_size=..., n_pages=...)``). Returns
-    (logits [B,V], cache), the cache updated in place."""
+    batching; vision tokens counted). With ``page_table`` [B, P] +
+    ``page_size`` the KV caches are paged (see ``cache_shapes(page_size=...,
+    n_pages=...)``). Returns (logits [B,V], cache), the cache updated in
+    place."""
     x, cache, _ = forward(model, token, cfg, mode="decode", cache=cache,
                           pos=pos, page_table=page_table,
                           page_size=page_size, expert_perm=expert_perm)

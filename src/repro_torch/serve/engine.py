@@ -11,8 +11,13 @@ from the queue.
 Per-token KV state (attention's K and V, MLA's compressed ``c_kv`` and
 ``k_rope``) lives in a block-table paged pool (``serve/paging.py``),
 updated in place (the JAX engine donates it to a jitted step instead);
-the recurrent mixers' per-slot states (Mamba, mLSTM, sLSTM) live in the
-slot's row, which a prefill's insert overwrites.
+the recurrent mixers' per-slot states (Mamba, mLSTM, sLSTM) and the
+encoder's output live in the slot's row, which a prefill's insert
+overwrites. A request reserves pages for its prompt, the vision offset
+(a vision config's ``vision_tokens``, placed before the text) and its
+``max_new`` tokens. The prefill's stub front ends are the JAX engine's:
+zero vision embeddings and zero encoder frames of ``min(max_source_positions,
+cache_len)`` positions.
 ``generate()`` is a thin wrapper over the scheduler and keeps the batched
 API; ``policy="static"`` keeps the synchronized static batch over a dense
 cache. Under greedy sampling a prompt decoded inside a mixed-length batch
@@ -28,7 +33,8 @@ reproduced bit for bit).
 The engine runs on CUDA unless ``device`` names another device; the model
 is moved there. Timing: ``ttft`` maps each request to its seconds from
 ``submit`` to its first token; the registry counts prefill and decode
-tokens and seconds.
+tokens and seconds, and the vision positions a prefill adds to its prompt
+tokens (``engine.prefill_vision_positions``).
 """
 from __future__ import annotations
 
@@ -91,14 +97,24 @@ class ServeEngine:
         self._cache = None
 
     # ------------------------------------------------------------ plumbing
+    @property
+    def _pos_off(self) -> int:
+        return self.cfg.vision_tokens if self.cfg.vision_dim else 0
+
+    def _need_tokens(self, req: _Request) -> int:
+        """Positions ``req`` takes in its slot: prompt, vision offset and
+        new tokens."""
+        return len(req.prompt) + self._pos_off + req.max_new
+
     def _validate(self, prompt_len: int, max_new: int) -> None:
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
-        need = prompt_len + max_new
+        need = prompt_len + self._pos_off + max_new
         if need > self.cache_len:
             raise ValueError(
-                f"cache too small: prompt {prompt_len} + max_new {max_new} "
-                f"= {need} > cache_len {self.cache_len}")
+                f"cache too small: prompt {prompt_len} + vision offset "
+                f"{self._pos_off} + max_new {max_new} = {need} > "
+                f"cache_len {self.cache_len}")
 
     def _next_key(self, tag: str) -> np.ndarray:
         key = np.asarray([self.seed, self._n_samples], np.int64)
@@ -119,6 +135,21 @@ class ServeEngine:
             gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
             tok = torch.argmax(logits / self.temperature + gumbel, dim=-1)
         return tok.to(torch.int32).cpu().numpy()
+
+    def _prefill_kwargs(self, batch: int) -> dict:
+        """The stub front ends' inputs of a prefill of ``batch`` rows, as
+        the JAX engine gives them: zero vision embeddings, zero encoder
+        frames."""
+        cfg, kw = self.cfg, {}
+        if cfg.vision_dim:
+            kw["vision"] = torch.zeros(
+                (batch, cfg.vision_tokens, cfg.vision_dim),
+                device=self.device)
+        if cfg.encoder_layers:
+            kw["enc_frames"] = torch.zeros(
+                (batch, min(cfg.max_source_positions, self.cache_len),
+                 cfg.d_model), device=self.device)
+        return kw
 
     def _ensure(self, n_slots_hint: int = 1) -> None:
         if self._cache is not None:
@@ -177,11 +208,10 @@ class ServeEngine:
         commit its first token."""
         t0 = time.monotonic()
         slot = self._free_slots.pop()
-        need_tok = len(req.prompt) + req.max_new
-        self._pm.alloc(slot, need_tok)
+        self._pm.alloc(slot, self._need_tokens(req))
         dense = common.zeros(self._dense1, self.device)
         logits, dense = T.prefill(self.params, self._tensor(req.prompt[None]),
-                                  dense, self.cfg)
+                                  dense, self.cfg, **self._prefill_kwargs(1))
         self._insert(self._cache, dense, slot,
                      self._tensor(self._pm.table[slot]))
         tok = int(self._sample(logits, self._next_key("prefill"))[0])
@@ -190,8 +220,10 @@ class ServeEngine:
         r = self.registry
         r.observe("engine.ttft.s", now - req.t_submit)
         r.counter("engine.prefill_tokens", len(req.prompt))
+        if self._pos_off:
+            r.counter("engine.prefill_vision_positions", self._pos_off)
         r.counter("engine.prefill.s", now - t0)
-        self._slot_pos[slot] = len(req.prompt)
+        self._slot_pos[slot] = len(req.prompt) + self._pos_off
         self._slot_tok[slot] = tok
         self._active[slot] = req
         self._commit(slot, req, tok, finished)
@@ -210,7 +242,7 @@ class ServeEngine:
         admitted = 0
         while self._queue and self._free_slots:
             req = self._queue.popleft()
-            if not self._pm.can_alloc(len(req.prompt) + req.max_new):
+            if not self._pm.can_alloc(self._need_tokens(req)):
                 skipped.append(req)
                 if len(skipped) > self.admit_lookahead:
                     break  # bounded lookahead: wait for the next EOS
@@ -220,7 +252,7 @@ class ServeEngine:
         for req in reversed(skipped):
             self._queue.appendleft(req)
         if skipped and not self._active and not admitted:
-            need_tok = len(skipped[0].prompt) + skipped[0].max_new
+            need_tok = self._need_tokens(skipped[0])
             raise paging.OutOfPagesError(
                 f"request needs {self._pm.spec.pages_for(need_tok)} "
                 f"pages but the idle pool has {self._pm.free_pages} "
@@ -267,13 +299,15 @@ class ServeEngine:
 
     # ------------------------------------------------------- batched API
     def generate(self, prompts: np.ndarray, max_new: int = 32,
+                 extras: dict | None = None,
                  lengths: np.ndarray | None = None) -> np.ndarray:
         """prompts: [B, S0] int32 (left-aligned, pad with 0 to equal S0).
         Returns generated tokens [B, max_new]; positions after a sequence's
         EOS are filled with ``eos_id``.
 
         ``lengths`` ([B] true prompt lengths) overrides the default pad
-        inference (row length = last nonzero + 1). On the continuous policy
+        inference (row length = last nonzero + 1). ``extras`` is accepted
+        and unused, as in the JAX engine. On the continuous policy
         each row is submitted at its true length; the static policy decodes
         the full padded [B, S0] block, so compare policies on equal-length
         batches.
@@ -320,7 +354,7 @@ class ServeEngine:
         cache = common.zeros(T.cache_shapes(self.cfg, B, self.cache_len),
                              self.device)
         logits, cache = T.prefill(self.params, self._tensor(prompts), cache,
-                                  self.cfg)
+                                  self.cfg, **self._prefill_kwargs(B))
         out = np.zeros((B, max_new), np.int32)
         done = np.zeros((B,), bool)
         tok = self._sample(logits, self._next_key("prefill"))
@@ -332,6 +366,7 @@ class ServeEngine:
                 break
             logits, cache = T.decode_step(
                 self.params, self._tensor(tok[:, None]),
-                self._tensor(np.full((B,), S0 + i)), cache, self.cfg)
+                self._tensor(np.full((B,), S0 + self._pos_off + i)), cache,
+                self.cfg)
             tok = self._sample(logits, self._next_key("decode"))
         return out

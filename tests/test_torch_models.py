@@ -146,12 +146,6 @@ def test_full_width_llama4_parameter_count():
                for k in ("we_gate", "we_up", "we_down")) == 2_013_265_920
 
 
-@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-2b"])
-def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14f"):
-        TT.LM(tget(name).smoke(), device="cpu")
-
-
 def test_train_mode_raises():
     """Train mode runs on one device; what it does not run yet raises and
     names its ROADMAP item, and an unknown mode raises. An

@@ -145,11 +145,17 @@ def test_plan_stage_assignment_equals_jax():
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
 def test_plan_stage_assignment_unported_config_raises(arch):
-    """Encoder-decoder and vision configs wait for ROADMAP.md Queue A item
-    14f; the SSM configs' stage assignment is held to JAX in
+    """The encoder-decoder and vision configs, which raised until the port
+    ran them, now plan: on two stages (their layer sizes count the
+    encoder and ``vis_proj``) equal to JAX's; four stages are held in
+    tests/test_torch_encdec_vlm.py, the SSM configs in
     tests/test_torch_ssm.py."""
-    with pytest.raises(NotImplementedError, match="item 14f"):
-        tpl.plan_stage_assignment(tget(arch), 4, device="cpu")
+    want = jpl.plan_stage_assignment(jget(arch), 2, theta=2)
+    got = tpl.plan_stage_assignment(tget(arch), 2, theta=2, device="cpu")
+    assert len(got["stage_of_layer"]) == tget(arch).n_layers
+    np.testing.assert_array_equal(got["stage_of_layer"],
+                                  want["stage_of_layer"])
+    _assert_report_equal(got["report"], want["report"])
 
 
 def test_plan_expert_placement_rejects_uneven_shards():
