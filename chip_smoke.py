@@ -13,10 +13,12 @@ d_model 1536, vocab 151936, f32, seeded random weights), continuous
 policy, 4 slots, page size 16, on llama4-scout-17b-16e (attention +
 MoE) at full width, 4 of its 48 layers (phase 17), and on deepseek-v2-236b
 (MLA + MoE) at full width, 3 of its 60 layers (phase 18), and the
-recurrent mixers on xlstm-350m at full width and depth and jamba-v0.1-52b
-(Mamba + attention + MoE) at full width, 8 of its 32 layers (phase 19),
-and the encoder-decoder whisper-tiny and the vision-token internvl2-2b at
-full width and depth (phase 20). Phases, each fatal on failure:
+recurrent mixers on xlstm-350m at full width, 8 of its 24 layers, and
+jamba-v0.1-52b (Mamba + attention + MoE) at full width, 8 of its 32
+layers (phase 19), the encoder-decoder whisper-tiny and the vision-token
+internvl2-2b at full width and depth (phase 20), and serving on a (1, 2)
+mesh (phase 21: qwen2-1.5b uncut and deepseek-v2-236b's first layer, two
+ranks sharing the card over gloo). Phases, each fatal on failure:
 
   1. the card (``nvidia-smi``) and the kernel build from ``src/``, with
      each kernel's registers and spills as ptxas reports them;
@@ -33,9 +35,10 @@ full width and depth (phase 20). Phases, each fatal on failure:
      the telemetry: ``level_stats`` (one a level, level 0 the input graph,
      its kernel fields equal to ``kernel_path``) and ``timings`` equal to
      the span tree's durations;
-  4. a second identical run gives identical parts;
-  5. one ``use_kernels=False`` run passes the audit, on the same graph
-     cut to 4 layers (32,768 neurons) to leave time for phases 9 to 11;
+  4. ``use_kernels=True`` on the same graph cut to 4 layers (32,768
+     neurons);
+  5. ``use_kernels=False`` on that graph passes the audit and gives phase
+     4's parts (phase 9 repeats the full solve twice, held to phase 3's);
   6. each kernel's time (CUDA events) beside its plain version's, its
      bound and a one-call PyTorch yardstick where one exists (flash_attn
      at the serving path's longest prefill, S 2048, f32, causal); for
@@ -81,10 +84,12 @@ full width and depth (phase 20). Phases, each fatal on failure:
      with one injected solve fault: every rid delivered and audited, the
      routes as submitted, one requeue, no kernel launch (both lanes run
      with the kernels off, as in the JAX package); the
-     ``SERVICE_AGAIN`` (4) smallest again give identical parts, the 2 smallest give the same parts through
+     ``SERVICE_AGAIN`` (2) smallest again give identical parts and the
+     same parts through
      ``partition_batch_device`` on the card and the CPU; wall time,
      requests/s, solve and queue times per route, and the device's idle
-     share of one bucket solve under the profiler; the metrics dump
+     share of one bucket solve cut to ``SERVICE_PROFILE_LEVELS`` (2)
+     levels under the profiler; the metrics dump
      carries the ``service.solve`` span.
  13. the paper's Fig. 7 comparison: the nine graphs of
      ``paper_snn_suite(FIG7_SNN_SCALE)`` (0.25: 96-768 nodes) and
@@ -129,7 +134,8 @@ full width and depth (phase 20). Phases, each fatal on failure:
      race=False)`` gets the sharded mesh solve's parts; on (2, 2)
      racing off gives the single-device parts and racing on, replicated
      then sharded with one seed, gives the same valid parts twice; a
-     one-rank NCCL group gives the single-device parts; each mesh under
+     one-rank NCCL group made in the script's own process gives the
+     single-device parts; each spawned mesh under
      ``DIST_TIMEOUT``; every sharded rank stores at most ``9 *
      ceil(caps.p / model)`` bytes of pins arrays; per run the wall
      seconds, transport, ``pins_bytes_per_device``, host-staged copies,
@@ -189,10 +195,11 @@ full width and depth (phase 20). Phases, each fatal on failure:
      bf16 training steps within 2^-8 of the CPU's with aux > 0.
  19. the recurrent mixers (``models/ssm.py``, plain tensor ops, as the
      JAX package computes them outside any Pallas kernel). (a)
-     xlstm-350m at full width and depth (``XLSTM_ARCH``: 24 layers, 7
-     mLSTM : 1 sLSTM, no feed-forward, d_model 1024, 4 heads, vocab
-     50,304; f32, seeded): ``plan_stage_assignment(xlstm-350m, 4)``
-     equal to the CPU's; phase 8's traffic through ``ServeEngine`` twice
+     xlstm-350m at full width (``XLSTM_ARCH``: 7 mLSTM : 1 sLSTM, no
+     feed-forward, d_model 1024, 4 heads, vocab 50,304; f32, seeded) cut
+     to ``XLSTM_LAYERS`` (8, one superblock) of 24 layers:
+     ``plan_stage_assignment(xlstm-350m, 4)`` over all 24 layers equal
+     to the CPU's; phase 8's traffic through ``ServeEngine`` twice
      (every request answered, slots refilled, identical tokens, no
      flash_attn launch, TTFT, tokens/s, peak memory, a profile), the
      second run counting the sLSTM's steps (one a token a sLSTM layer),
@@ -234,10 +241,28 @@ full width and depth (phase 20). Phases, each fatal on failure:
      serving tokens identical on the card and the CPU, and four bf16
      training steps (whisper's batch with ``enc_frames``, internvl's with
      ``vision``) within 2^-8 of the CPU's.
+ 21. serving on a mesh, run by phase 15's (1, 2) ranks after their
+     solves (one spawn for both phases), both on this card over gloo
+     (collectives staged through the host), the weights made from seed 0
+     on each rank and whole there, the caches sharded over "model". (a)
+     qwen2-1.5b uncut: phase 8's traffic continuous (the page pool
+     striped over "model"), the tokens phase 8's; static over phase 8's
+     first four prompts at a cache of ``MESH_STATIC_LEN`` (32,768)
+     positions split over "model" (3.76 GB of KV a rank,
+     flash-decoding), the tokens those of phase 8's
+     single-device static run on the same model; flash_attn 28 times a
+     prefill on each rank. (b) deepseek-v2-236b at full width cut to its
+     first layer (MLA + MLP): continuous and static at
+     ``DS_MESH_STATIC_LEN`` (4,096), the tokens a single-device engine's
+     on the same weights and traffic, no kernel launched. Each rank's
+     cache holds half the whole cache's bytes; each run logs the ranks'
+     prefill and decode tokens/s, peak memory and host-staged copies,
+     bytes and seconds (collectives a decode step for static). No step
+     is profiled.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 20 run under
+the same parts. Phases 3 to 5 and 9 to 21 run under
 ``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
@@ -294,14 +319,18 @@ MOE_SHARDS = 4
 DS_ARCH = "deepseek-v2-236b"
 DS_LAYERS = 3
 DS_SHARDS = 8
-# phase 19: the recurrent mixers. xlstm-350m at full width and depth (24
-# layers, 7 mLSTM : 1 sLSTM, 241,644,628 parameters, 0.97 GB in f32), and
+# phase 19: the recurrent mixers. xlstm-350m at full width (24 layers, 7
+# mLSTM : 1 sLSTM, 241,644,628 parameters, 0.97 GB in f32), and
 # jamba-v0.1-52b at full width cut to JAMBA_LAYERS of 32 layers: one
 # superblock, the least depth that holds its attention layer and both
 # feed-forward kinds (7 Mamba + 1 attention, MoE on every other layer:
 # 13,295,235,072 parameters, 53.18 GB in f32; the 32 layers' 51.6 G
 # parameters do not fit one card)
 XLSTM_ARCH = "xlstm-350m"
+# xlstm served at one superblock (7 mLSTM + 1 sLSTM) of its three since
+# phase 21 came: its two runs took 19.5 s of phase 19's 82.2 s uncut, most
+# of it the sLSTM's launches (its stage assignment takes all 24 layers)
+XLSTM_LAYERS = 8
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 8
 # phase 20: whisper-tiny (4 encoder + 4 decoder layers, 243,069,312
@@ -312,14 +341,30 @@ JAMBA_LAYERS = 8
 WHISPER_ARCH = "whisper-tiny"
 VLM_ARCH = "internvl2-2b"
 WHISPER_FRAMES = 1500
+# phase 21: serving on a (1, 2) mesh, both ranks on this card over gloo
+# (phase 15's (1, 2) ranks, after their solves: a spawn costs 15-35 s).
+# qwen2-1.5b uncut, continuous at phase 8's cache length (the pool striped
+# over "model") and static over phase 8's first MESH_STATIC_ROWS prompts at
+# a cache of MESH_STATIC_LEN positions, sequence-sharded (28 layers x K and
+# V x 2 heads x 128 x 4 B = 57,344 B a position: 7.52 GB whole, 3.76 GB a
+# rank); deepseek-v2-236b at full width cut to its first layer (the dense
+# MLA + MLP layer, 1,221,411,840 parameters), continuous and static at
+# DS_MESH_STATIC_LEN over phase 8's last four prompts (an MLA prefill holds
+# [B, 128, S, S] f32 scores: 4 x 1,762 would hold 6.4 GB a copy a rank)
+MESH_STATIC_LEN = 32768
+MESH_STATIC_ROWS = 4
+DS_MESH_LAYERS = 1
+DS_MESH_STATIC_LEN = 4096
 # phase 13's SNN suite at a quarter scale (the ISPD suite stays whole): at
 # 1.0 the host baselines took 152 s of the phase's 286 s on an H100 80GB
 # HBM3 (700 W), 106 s of it seq-ml and overlap on rand-l alone, and 34 s at
 # 0.5; phases 17 and 18 need the time (a mesh solve's time follows its
 # levels, not its size, so phase 15 gives none back when its graph shrinks)
 FIG7_SNN_SCALE = 0.25
-# the kernels-off run (phase 5) at a cut depth: it only shows the plain path
-# passes the audit, and the script's time goes to the new paths
+# phases 4-5 at a cut depth: the kernels on and off give the same parts
+# (the kernels give the plain path's bits); phase 4 repeated phase 3's
+# full solve (35 s) until phase 21 came, and phase 9 solves the full graph
+# twice more, each held to phase 3's parts
 OFF_LAYERS = 4
 # phase 11's k-way V-cycle cut to 16 levels: uncut, its coarsening stalls
 # at the default 64 levels with 276 nodes and the solve takes 93-120 s. A
@@ -342,10 +387,15 @@ DIST_THETA = 1
 # (three, not eight: eight a rung took the phase to 177 s, six to 160 s and
 # five to 168 s, over its budget of about 150 s; four until phase 18 came),
 # and how many of the smallest are solved again for the repeat check (8
-# until phase 18)
+# until phase 18, 4 until phase 21: the two that partition_batch_device
+# also runs)
 SERVICE_RUNGS = ((224, 256), (896, 1024), (1792, 2048))
 SERVICE_PER_RUNG = 3
-SERVICE_AGAIN = 4
+SERVICE_AGAIN = 2
+# and the levels of the bucket solve it profiles (a level is about 30,000
+# launches, and the trace's export and parse took 20.7 s for the whole
+# solve's 8 levels on an H100 80GB HBM3 at 700 W)
+SERVICE_PROFILE_LEVELS = 2
 # phase 16: training at qwen2-1.5b's full width and depth, uncut
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
@@ -614,7 +664,8 @@ def profile_steps(torch, engine, n: int):
 def serve_runs(torch, kernels, cfg, model, prompts, card: str,
                tag: str, fa_per_request: int,
                profile_admission: bool = True, profile_decode: bool = True,
-               cache_len: int | None = None, second_run=None) -> int:
+               cache_len: int | None = None, second_run=None,
+               keep: dict | None = None) -> int:
     """Serve ``prompts`` (one arriving per engine step, greedy,
     ``SERVE_MAX_NEW`` new tokens, ``SERVE_SLOTS`` slots, page size
     ``SERVE_PAGE``, a cache of ``cache_len`` positions, by default the
@@ -626,7 +677,8 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
     ``second_run`` where one is given); then one admission step and four
     decode-only steps, each under the profiler unless
     ``profile_admission`` / ``profile_decode`` is off. Returns the
-    flash_attn launches of one run."""
+    flash_attn launches of one run; ``keep["tokens"]`` gets the first
+    run's tokens, a request each in submission order."""
     import numpy as np
     from repro_torch.obs import Registry
     from repro_torch.serve import ServeEngine
@@ -688,6 +740,8 @@ def serve_runs(torch, kernels, cfg, model, prompts, card: str,
         del eng
     need(all(np.array_equal(a, b) for a, b in zip(*runs)),
          f"{tag} two full-width runs give identical tokens")
+    if keep is not None:
+        keep["tokens"] = runs[0]
     log(f"{tag} second run: identical tokens; first request "
         f"{runs[0][0][:8].tolist()}...")
 
@@ -748,10 +802,39 @@ def smoke_serving_equal(torch, small, tag: str) -> None:
         f"identical on the card and the CPU")
 
 
-def serve_phase(torch, kernels, card: str) -> int:
+def static_block(prompts):
+    """``prompts`` left-aligned in one zero-padded [n, longest] block."""
+    import numpy as np
+    out = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, :len(p)] = p
+    return out
+
+
+def static_run(torch, cfg, model, prompts, cache_len: int, plan=None):
+    """The static policy over ``prompts`` in one block at a cache of
+    ``cache_len`` positions, greedy, ``SERVE_MAX_NEW`` tokens (EOS
+    unreachable, so every run decodes as many steps): (tokens, registry,
+    wall seconds)."""
+    from repro_torch.obs import Registry
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, cache_len=cache_len, plan=plan,
+                      policy="static", registry=Registry(),
+                      device=None if plan is not None else "cuda")
+    eng.eos_id = cfg.vocab
+    t0 = time.perf_counter()
+    toks = eng.generate(static_block(prompts), max_new=SERVE_MAX_NEW)
+    torch.cuda.synchronize()
+    return toks, eng.registry, time.perf_counter() - t0
+
+
+def serve_phase(torch, kernels, card: str):
     """Phase 8: qwen2-1.5b at full width on the card, twice, and its smoke
-    config on the card against the CPU. Returns the flash_attn launches of
-    one full-width run."""
+    config on the card against the CPU; then phase 21's single-device
+    static reference on the same model. Returns the flash_attn launches
+    of one full-width run and phase 21's references (the first run's
+    tokens, the static tokens)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
@@ -765,12 +848,24 @@ def serve_phase(torch, kernels, card: str) -> int:
         f"the card in {time.perf_counter() - t0:.1f} s")
     prompts = serve_traffic(cfg.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
     log(f"[8] prompt lengths {[len(p) for p in prompts]}")
+    ref: dict = {}
     launches = serve_runs(torch, kernels, cfg, model, prompts, card, "[8]",
-                          cfg.n_layers)
+                          cfg.n_layers, keep=ref)
+    # phase 21's reference: the static policy at MESH_STATIC_LEN positions
+    ref["static"], reg, wall = static_run(
+        torch, cfg, model, prompts[:MESH_STATIC_ROWS], MESH_STATIC_LEN)
+    dc_rate = reg.total("engine.decode_tokens") / reg.total(
+        "engine.decode.s")
+    log(f"[8] static reference for [21]: {MESH_STATIC_ROWS} rows x "
+        f"{max(len(p) for p in prompts[:MESH_STATIC_ROWS])} at a cache of "
+        f"{MESH_STATIC_LEN} positions, {wall:.2f} s (prefill "
+        f"{reg.total('engine.prefill.s'):.3f} s, decode {dc_rate:.1f} "
+        f"tokens/s), peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB, on {card}")
     del model
     torch.cuda.empty_cache()
     smoke_serving_equal(torch, cfg.smoke(), "[8]")
-    return launches
+    return launches, ref
 
 
 def small_entry_points(small, rc, partition) -> None:
@@ -1257,8 +1352,9 @@ def service_phase(torch, kernels, card, dev) -> None:
         f"partition_batch_device on the card ({secs[dev]:.3f} s) and the "
         f"CPU ({secs['cpu']:.3f} s)")
 
-    # one bucket solve of one request (the middle rung's first) under the
-    # profiler, device activity only: a solve launches hundreds of
+    # one bucket solve of one request (the middle rung's first, its first
+    # SERVICE_PROFILE_LEVELS levels) under the profiler, device activity
+    # only: a solve launches hundreds of
     # thousands of kernels, so the busy time is summed from the trace file
     # the profiler writes, not from its Python event objects
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -1272,7 +1368,8 @@ def service_phase(torch, kernels, card, dev) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         partition_batch_device(batch, om, dl, bm.caps, bm.kcap, theta=8,
-                               max_levels=bm.max_levels, device=dev)
+                               max_levels=SERVICE_PROFILE_LEVELS,
+                               device=dev)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t1
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -1287,7 +1384,8 @@ def service_phase(torch, kernels, card, dev) -> None:
         by_name[e["name"][:48]] += e["dur"] / 1e3
     share = f"{1 - busy / pwall:.3f}" if busy > 0 else "not measured"
     log(f"[12] profile, one bucket solve of 1 request "
-        f"({bucket_reqs[i][0].n_nodes} nodes, bucket n {bm.caps.n}): wall "
+        f"({bucket_reqs[i][0].n_nodes} nodes, bucket n {bm.caps.n}) cut to "
+        f"{SERVICE_PROFILE_LEVELS} levels: wall "
         f"{pwall:.3f} s under the profiler, device busy {busy:.3f} s (idle "
         f"share {share}), {len(dev_ev)} device kernels and copies, "
         f"{time.perf_counter() - t_prof:.1f} s with the trace's export and "
@@ -1519,8 +1617,9 @@ def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs,
     ``compensated_psum``), "warm" (a ``WarmCache`` holding the
     memory-sharded graph takes a 1% ``perturb_delta`` through
     ``apply_delta_sharded``, then a warm ``repartition`` from
-    ``prev_parts``) or "service" (one routed request through
-    ``PartitionService(plan=..., shard_graph=True, race=False)``)."""
+    ``prev_parts``), "service" (one routed request through
+    ``PartitionService(plan=..., shard_graph=True, race=False)``) or
+    "serve" (phase 21's serving runs, ``mesh_serve_runs``)."""
     sys.path.insert(0, src)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1549,6 +1648,10 @@ def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs,
     out = []
     for run in runs:
         kind = run["kind"]
+        if kind == "serve":
+            out.append(dict(run=run,
+                            serve=mesh_serve_runs(torch, plan, dev)))
+            continue
         sharded = kind != "solve" or run["shard"]
         # the stripe this rank would store (no solve holds it here yet)
         pins_bytes = (sharded_from_host(hg, caps, plan)
@@ -1749,11 +1852,27 @@ def stripe_checks(torch, kernels, hg, card, omega, delta, nstripes: int):
     return rows
 
 
+def in_process_rank(fn, backend: str, *args):
+    """``fn(0, *args)`` as the one rank of a ``backend`` group made in this
+    process (a spawned rank costs 15-25 s of start-up), the group
+    destroyed after."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group(backend, world_size=1, rank=0,
+                                init_method="file://"
+                                + os.path.join(rdv, "init"))
+        try:
+            return fn(0, *args)
+        finally:
+            dist.destroy_process_group()
+
+
 def _solve(race=False, seed=0, shard=False, comp=False) -> dict:
     return dict(kind="solve", race=race, seed=seed, shard=shard, comp=comp)
 
 
-def dist_phase(torch, kernels, card, layers, omega, delta, theta):
+def dist_phase(torch, kernels, card, layers, omega, delta, theta,
+               serve: bool = False):
     """Phase 15: the mesh V-cycle. ``partition(use_kernels=True)`` of the
     ``layers``-deep graph on one device, then the same solve by spawned
     ranks that all compute on this card over gloo (their collectives
@@ -1767,12 +1886,14 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
     equal to the sharded mesh solve (the service runs the kernels off,
     and the port's kernels give the segment path's bits). Mesh (2, 2):
     racing off, then racing on replicated and memory-sharded with one
-    seed, the two equal and valid. A one-rank NCCL group gives the
-    single-device parts. Each sharded rank stores at most ``9 *
-    ceil(caps.p / model)`` bytes of pins arrays. B1-B3's stripe launches
-    are held to their plain versions first. Returns the stripe rows of
-    the kernels JSON, their launches those of the replicated (1, 2) solve
-    over both ranks."""
+    seed, the two equal and valid. A one-rank NCCL group, made in this
+    process, gives the single-device parts. Each sharded rank stores at
+    most ``9 * ceil(caps.p / model)`` bytes of pins arrays. B1-B3's
+    stripe launches are held to their plain versions first. With ``serve``
+    the (1, 2) ranks then run phase 21's serving (``mesh_serve_runs``).
+    Returns the stripe rows of the kernels JSON, their launches those of
+    the replicated (1, 2) solve over both ranks, and the (1, 2) ranks'
+    serving results (None without ``serve``)."""
     from repro_torch.core import generate
     from repro_torch.core.hypergraph import Caps
     from repro_torch.core.partitioner import (WarmCache, partition,
@@ -1815,19 +1936,30 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
     args = (src, layers, omega, delta, theta)
     meshes = [((1, 2), "gloo", [_solve(), _solve(shard=True),
                                 _solve(comp=True), dict(kind="warm"),
-                                dict(kind="service")]),
+                                dict(kind="service")]
+                + [dict(kind="serve")] * serve),
               ((2, 2), "gloo", [_solve(), _solve(race=True, seed=5),
                                 _solve(race=True, seed=5, shard=True)]),
               ((1, 1), "nccl", [_solve()])]
-    stripe_launches = None
+    stripe_launches, served = None, None
     for (data, model), backend, runs in meshes:
         t0 = time.perf_counter()
-        res = run_ranks(dist_rank, data * model, *args, data, model, runs,
-                        r0.parts, backend=backend, timeout=DIST_TIMEOUT)
+        if data * model == 1:   # nobody to wait for: no spawn
+            res = [in_process_rank(dist_rank, backend, *args, data, model,
+                                   runs, r0.parts)]
+        else:
+            res = run_ranks(dist_rank, data * model, *args, data, model,
+                            runs, r0.parts, backend=backend,
+                            timeout=DIST_TIMEOUT)
         log(f"[15] mesh ({data}, {model}) over {backend}: "
-            f"{time.perf_counter() - t0:.1f} s with the spawn, on {card}")
+            f"{time.perf_counter() - t0:.1f} s "
+            f"{'in this process' if data * model == 1 else 'with the spawn'}"
+            f", on {card}")
         for i, run in enumerate(runs):
             per = [rank_out[i] for rank_out in res]
+            if run["kind"] == "serve":
+                served = [o["serve"] for o in per]
+                continue
             a = per[0]
             for o in per[1:]:
                 need((o["parts"] == a["parts"]).all(),
@@ -1901,7 +2033,7 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta):
     for r in rows:
         r["launches"] = stripe_launches[r["name"]]
         r["kernel"], r["name"] = r["name"], r["name"] + "_stripe"
-    return rows
+    return rows, served
 
 
 def train_phase(torch, kernels, card) -> None:
@@ -2351,7 +2483,8 @@ def slstm_steps(torch, cfg, model, prompts, seen: list) -> None:
 
 def ssm_serve_phase(torch, kernels, card) -> dict:
     """Phase 19: the recurrent mixers. xlstm-350m (mLSTM and sLSTM, no
-    feed-forward) at full width and depth, and jamba-v0.1-52b (Mamba,
+    feed-forward) at full width, ``XLSTM_LAYERS`` of its 24 layers, and
+    jamba-v0.1-52b (Mamba,
     attention and MoE) at full width, ``JAMBA_LAYERS`` of its 32 layers:
     each config's stage assignment on the card against the CPU, phase 8's
     traffic through ``ServeEngine`` twice, the sLSTM's steps, B4 at
@@ -2369,32 +2502,33 @@ def ssm_serve_phase(torch, kernels, card) -> dict:
 
     t_phase = time.perf_counter()
 
-    # ---- (a) xlstm-350m at full width and depth
+    # ---- (a) xlstm-350m at full width, XLSTM_LAYERS of its layers
     full = get_config(XLSTM_ARCH)
     stage_equal(torch, full, "[19a]")
+    cfg = dataclasses.replace(full, n_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
-    model = T.materialize_lm(full, seed=0, device="cuda")
+    model = T.materialize_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = param_count(T.lm_shapes(full))
+    n_params = param_count(T.lm_shapes(cfg))
     need(sum(p.numel() for p in model.parameters()) == n_params,
          "[19a] the model holds lm_shapes' parameters")
-    log(f"[19a] {XLSTM_ARCH}: {full.n_layers} layers "
-        f"({[s.mixer for s in full.pattern]} a superblock, no feed-forward) "
-        f"x d_model {full.d_model}, {full.n_heads} heads, vocab "
-        f"{full.vocab}, f32, {n_params} parameters "
+    log(f"[19a] {XLSTM_ARCH}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({[s.mixer for s in cfg.pattern]} a superblock, no feed-forward) "
+        f"x d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab}, f32, {n_params} parameters "
         f"({4 * n_params / 1e9:.2f} GB) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    prompts = serve_traffic(full.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+    prompts = serve_traffic(cfg.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
     log(f"[19a] prompt lengths {[len(p) for p in prompts]}")
     # the admission step is not profiled: its trace of four sLSTM
     # prefills (about 175,000 launches) took the profiler about 160 s to
     # process on an H100 80GB HBM3 (700 W)
     # the sLSTM's steps are counted in the second run
     seen: list = []
-    serve_runs(torch, kernels, full, model, prompts, card, "[19a]", 0,
+    serve_runs(torch, kernels, cfg, model, prompts, card, "[19a]", 0,
                profile_admission=False,
                second_run=counting_slstm(T, seen))
-    slstm_steps(torch, full, model, prompts, seen)
+    slstm_steps(torch, cfg, model, prompts, seen)
     del model
     torch.cuda.empty_cache()
     log(f"[19a] {time.perf_counter() - t_phase:.1f} s into the phase")
@@ -2598,6 +2732,184 @@ def encdec_vlm_phase(torch, kernels, card) -> list:
         smoke_train_equal(torch, small, tag)
     log(f"[20] phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return rows
+
+
+def mesh_serve_runs(torch, plan, dev) -> dict:
+    """Phase 21's work in one rank of ``plan``'s mesh (a phase-15 rank,
+    after its solves): qwen2-1.5b uncut, then deepseek-v2-236b's first
+    layer, each made from seed 0 on ``dev`` and served continuous (phase
+    8's traffic) and static, with launches, host-staged collectives and
+    peak memory reset just before each run and read just after."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import Registry
+    from repro_torch.serve import ServeEngine
+
+    t_all = time.perf_counter()
+    sizes = plan.shape()
+    jobs = [("qwen2", get_config(SERVE_ARCH), slice(0, MESH_STATIC_ROWS),
+             MESH_STATIC_LEN),
+            ("deepseek", dataclasses.replace(get_config(DS_ARCH),
+                                             n_layers=DS_MESH_LAYERS),
+             slice(-4, None), DS_MESH_STATIC_LEN)]
+    out = {}
+
+    def stats(reg, t0):
+        torch.cuda.synchronize()
+        return dict(wall=time.perf_counter() - t0,
+                    launches=dict(kernels.LAUNCHES),
+                    staged=dict(comm.STATS),
+                    peak=torch.cuda.max_memory_allocated(),
+                    prefill_tokens=reg.total("engine.prefill_tokens"),
+                    prefill_s=reg.total("engine.prefill.s"),
+                    decode_tokens=reg.total("engine.decode_tokens"),
+                    decode_s=reg.total("engine.decode.s"))
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        comm.reset_stats()
+        return time.perf_counter()
+
+    for tag, cfg, static_rows, static_len in jobs:
+        lm = T.materialize_lm(cfg, seed=0, device=dev)
+        prompts = serve_traffic(cfg.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+        cache_len = max(len(p) for p in prompts) + SERVE_MAX_NEW
+        t0 = reset()
+        eng = ServeEngine(cfg, lm, cache_len=cache_len, plan=plan,
+                          n_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                          registry=Registry())
+        res, rids, refills = serve_run(eng, prompts, SERVE_MAX_NEW)
+        out[tag, "continuous"] = dict(
+            stats(eng.registry, t0), tokens=[res[r] for r in rids],
+            refills=refills, cache_len=cache_len,
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for t in _tensors(eng._cache)),
+            whole_bytes=4 * common.param_count(T.cache_shapes(
+                cfg, SERVE_SLOTS, cache_len, page_size=SERVE_PAGE,
+                n_pages=eng.n_pages)))
+        del eng
+        t0 = reset()
+        toks, reg, _ = static_run(torch, cfg, lm, prompts[static_rows],
+                                  static_len, plan)
+        specs = T.cache_shapes(cfg, len(toks), static_len)
+        out[tag, "static"] = dict(
+            stats(reg, t0), tokens=toks, cache_len=static_len,
+            cache_bytes=4 * sum(math.prod(common.local_shape(
+                s, common.cache_pspec(s, plan.rules, sizes), sizes))
+                for _, s in common.spec_leaves(specs)),
+            whole_bytes=4 * common.param_count(specs))
+        del lm
+        torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t_all
+    return out
+
+
+def mesh_serve_phase(torch, card, ref8: dict, fa_row: dict, served: list):
+    """Phase 21: serving on a (1, 2) mesh, both ranks on this card over
+    gloo (NCCL refuses two ranks on one card), the weights whole on each
+    rank and the caches sharded over "model"; ``served`` holds each rank's
+    ``mesh_serve_runs``, which phase 15's (1, 2) ranks ran after their
+    solves (one spawn for both phases). qwen2-1.5b uncut: phase 8's
+    traffic continuous (the pool striped by pages), its tokens phase 8's;
+    static over phase 8's first four prompts at ``MESH_STATIC_LEN``
+    positions (the dense cache split by positions, flash-decoding), its
+    tokens the single-device static engine's from phase 8; flash_attn 28
+    times a request on each rank. deepseek-v2-236b's first layer (MLA +
+    MLP) continuous and static at ``DS_MESH_STATIC_LEN``, its tokens the
+    single-device engine's on the same weights and traffic, no kernel
+    launched. Each rank's cache holds half the whole one's bytes. Returns
+    B4's kernels-JSON row of the mesh, its launches both ranks'."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import Registry
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    # ---- deepseek's single-device references on the same weights
+    ds = dataclasses.replace(get_config(DS_ARCH), n_layers=DS_MESH_LAYERS)
+    lm = T.materialize_lm(ds, seed=0, device="cuda")
+    prompts = serve_traffic(ds.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+    cache_len = max(len(p) for p in prompts) + SERVE_MAX_NEW
+    eng = ServeEngine(ds, lm, cache_len=cache_len, n_slots=SERVE_SLOTS,
+                      page_size=SERVE_PAGE, registry=Registry(),
+                      device="cuda")
+    res, rids, _ = serve_run(eng, prompts, SERVE_MAX_NEW)
+    ds_ref = {"continuous": [res[r] for r in rids]}
+    ds_ref["static"], _, _ = static_run(torch, ds, lm, prompts[-4:],
+                                        DS_MESH_STATIC_LEN)
+    del eng, lm
+    torch.cuda.empty_cache()
+    log(f"[21] {DS_ARCH} cut to {DS_MESH_LAYERS} layer: single-device "
+        f"references in {time.perf_counter() - t_phase:.1f} s, on {card}")
+
+    # ---- the mesh's runs
+    log(f"[21] mesh (1, 2) over gloo (phase 15's ranks): "
+        + ", ".join(f"{o['wall']:.1f}" for o in served)
+        + f" s by rank in the ranks' serving runs, on {card}")
+    refs = {("qwen2", "continuous"): ref8["tokens"],
+            ("qwen2", "static"): ref8["static"],
+            ("deepseek", "continuous"): ds_ref["continuous"],
+            ("deepseek", "static"): ds_ref["static"]}
+    fa_mesh = 0
+    for (tag, policy), want in refs.items():
+        per = [r[tag, policy] for r in served]
+        what = f"[21] {tag} {policy}"
+        need(all(len(o["tokens"]) == len(want)
+                 and all(np.array_equal(a, b)
+                         for a, b in zip(o["tokens"], want)) for o in per),
+             f"{what}: every rank's tokens equal the single-device "
+             f"engine's")
+        need(all(2 * o["cache_bytes"] == o["whole_bytes"] for o in per),
+             f"{what}: each rank holds half of the cache's "
+             f"{per[0]['whole_bytes']} B")
+        fa = [o["launches"]["flash_attn"] for o in per]
+        if tag == "qwen2":
+            n_prefills = SERVE_REQUESTS if policy == "continuous" else 1
+            need(all(n == 28 * n_prefills for n in fa),
+                 f"{what}: flash_attn launched 28 times a prefill on each "
+                 f"rank ({fa})")
+            fa_mesh += sum(fa)
+        need(not any(v for o in per for k, v in o["launches"].items()
+                     if tag != "qwen2" or k != "flash_attn"),
+             f"{what}: no other kernel launched")
+        if policy == "continuous":
+            need(all(o["refills"] > 0 for o in per),
+                 f"{what}: slots refilled while others decode")
+        steps = (SERVE_MAX_NEW if policy == "static" else
+                 per[0]["decode_tokens"])
+        log(f"{what}: cache {per[0]['cache_len']} positions, "
+            + ", ".join(f"{o['cache_bytes']}" for o in per)
+            + f" B by rank of {per[0]['whole_bytes']} B whole; wall "
+            + ", ".join(f"{o['wall']:.2f}" for o in per) + " s; prefill "
+            + ", ".join(f"{o['prefill_tokens'] / o['prefill_s']:.1f}"
+                        for o in per)
+            + " tokens/s, decode "
+            + ", ".join(f"{o['decode_tokens'] / o['decode_s']:.1f}"
+                        for o in per)
+            + " tokens/s; peak "
+            + ", ".join(f"{o['peak'] / 2**30:.3f}" for o in per)
+            + " GiB by rank; host-staged "
+            + ", ".join(f"{o['staged']['copies']} copies "
+                        f"({o['staged']['bytes'] / 2**20:.2f} MiB, "
+                        f"{o['staged']['seconds']:.2f} s)" for o in per)
+            + (f", {per[0]['staged']['copies'] / 2 / steps:.1f} "
+               f"collectives a decode step" if policy == "static" else
+               f" over {per[0]['decode_tokens']:.0f} decode tokens")
+            + f"; flash_attn {fa}; tokens equal the single-device "
+            f"engine's; on {card}")
+    log(f"[21] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return dict(fa_row, name="flash_attn_mesh", kernel="flash_attn",
+                launches=fa_mesh)
 
 
 def main(argv=None) -> int:
@@ -2819,23 +3131,27 @@ def main(argv=None) -> int:
                 timings=r1.timings, launches=dict(launches), peak=peak,
                 caps=caps)
 
-    # ---- 4. determinism -------------------------------------------------------
-    r2 = partition(hg, omega=omega, delta=delta, theta=theta,
-                   use_kernels=True)
-    need((r1.parts == r2.parts).all(), "second run gives identical parts")
-    log(f"[4] second run: identical parts (total {r2.timings['total']:.2f} s)")
-
-    # ---- 5. kernels off, at a cut depth -----------------------------------
+    # ---- 4-5. kernels on, then off, at a cut depth: the same parts -------
+    # (phase 9 solves the full graph twice more and holds both to phase 3)
     hg5 = generate.snn_layered(n_layers=min(args.layers, OFF_LAYERS),
                                width=8192, fanout=16, window=64, seed=0)
+    r4 = partition(hg5, omega=omega, delta=delta, theta=theta,
+                   use_kernels=True)
+    log(f"[4] use_kernels=True on {hg5.n_nodes} nodes "
+        f"({min(args.layers, OFF_LAYERS)} layers): connectivity "
+        f"{r4.connectivity}, n_levels {r4.n_levels}, total "
+        f"{r4.timings['total']:.2f} s")
     r0 = partition(hg5, omega=omega, delta=delta, theta=theta,
                    use_kernels=False)
     need(r0.audit["size_ok"] and r0.audit["inbound_ok"],
          f"kernels-off audit {r0.audit}")
+    need((r0.parts == r4.parts).all() and r0.n_levels == r4.n_levels,
+         "[5] the kernels-off run gives the kernels-on run's parts")
     log(f"[5] use_kernels=False on {hg5.n_nodes} nodes "
         f"({min(args.layers, OFF_LAYERS)} layers): connectivity "
         f"{r0.connectivity}, n_parts {r0.n_parts}, n_levels {r0.n_levels}, "
-        f"timings " + json.dumps(r0.timings))
+        f"timings " + json.dumps(r0.timings) + "; the kernels-on run's "
+        f"parts")
     del hg5
     torch.use_deterministic_algorithms(False)
     log(f"[5] {time.perf_counter() - t_start:.1f} s from the start")
@@ -2905,7 +3221,7 @@ def main(argv=None) -> int:
     b, by = bound(g_bytes, g_ops_n)
     rows_used.append(dict(name="gains", ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by, library_ms=lib, max_abs_err=err_g))
-    del pins_k, d0, r0, r1, r2, e_card, walked
+    del pins_k, d0, r0, r1, r4, e_card, walked
 
     # flash_attn at the serving path's longest prefill; the f32 FMA bound
     # of the first version is logged beside its 3xTF32 bound
@@ -2941,7 +3257,7 @@ def main(argv=None) -> int:
     del q, k, v, got, want
 
     # ---- 8. serving at full width -----------------------------------------
-    fa_launches = serve_phase(torch, kernels, card)
+    fa_launches, serve_ref = serve_phase(torch, kernels, card)
     rows_used.append(fa_row)
     launches["flash_attn"] = fa_launches
 
@@ -2967,10 +3283,11 @@ def main(argv=None) -> int:
     ds_perm = moe_phase(torch, kernels, card)
     log(f"[14] {time.perf_counter() - t_start:.1f} s from the start")
 
-    # ---- 15. the mesh V-cycle --------------------------------------------
-    rows_used += dist_phase(torch, kernels, card,
-                            min(args.layers, DIST_LAYERS), omega, delta,
-                            DIST_THETA)
+    # ---- 15. the mesh V-cycle; its (1, 2) ranks also serve phase 21 -----
+    rows, served = dist_phase(torch, kernels, card,
+                              min(args.layers, DIST_LAYERS), omega, delta,
+                              DIST_THETA, serve=True)
+    rows_used += rows
     log(f"[15] {time.perf_counter() - t_start:.1f} s from the start")
 
     # ---- 16. training --------------------------------------------------
@@ -2992,6 +3309,11 @@ def main(argv=None) -> int:
     # ---- 20. encoder-decoder and vision tokens: whisper and internvl ---
     rows_used += encdec_vlm_phase(torch, kernels, card)
     log(f"[20] {time.perf_counter() - t_start:.1f} s from the start")
+
+    # ---- 21. serving on a mesh: qwen2 and deepseek's first layer ------
+    rows_used.append(mesh_serve_phase(torch, card, serve_ref, fa_row,
+                                      served))
+    log(f"[21] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 
     out = []

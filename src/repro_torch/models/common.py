@@ -10,9 +10,19 @@ spec says so.
 The numbers differ from JAX's (another generator); tests carry weights
 across with ``models.convert.params_from_jax``.
 
-The sharding helpers (``pspecs``, ``shardings``, ``shard_map``) wait for
-the LM framework's sharding rules (ROADMAP.md Queue A item 14); the
-partitioner's mesh is ``repro_torch.dist.Plan``.
+On a mesh (``repro_torch.dist.Plan``), ``_resolve_pspec`` and ``pspecs``
+resolve a Spec's logical axes to the mesh dims each tensor dim splits over
+(a tuple of dims, or None a dim), as the JAX ones resolve a
+``PartitionSpec``: the divisibility fallback, a mesh dim splitting one
+tensor dim with the earlier dims winning, trailing Nones dropped; they read
+only the mesh's shape. A serving cache takes the splits of
+``CACHE_SPLIT_AXES`` ("batch" over "data", "kv_seq" and "kv_pages" over
+"model"); ``shard_zeros`` allocates a rank's shards of a cache tree as a
+``ShardTree`` (the tree with its Specs and resolved splits), and
+``shard_of`` slices a whole leaf to a rank's shard. Splits over other axes
+(heads, mlp, embed) are tensor parallelism and FSDP, which change only the
+layout in the JAX package: they wait for ROADMAP.md Queue A item 14i, and
+such leaves stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -57,6 +67,13 @@ def spec_leaves(tree, prefix: str = "") -> list[tuple[str, Spec]]:
     return out
 
 
+def leaf(tree: dict, path: str):
+    """The leaf of a nested dict at a dotted ``spec_leaves`` path."""
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
 def param_count(tree) -> int:
     return sum(int(np.prod(s.shape)) for _, s in spec_leaves(tree))
 
@@ -81,6 +98,104 @@ def zeros(tree, device, dtype=torch.float32):
     """A nested dict of zero tensors with the specs' shapes."""
     return tree_map_specs(
         lambda s: torch.zeros(s.shape, dtype=dtype, device=device), tree)
+
+
+# ---------------------------------------------------------------------------
+# sharding on a mesh
+# ---------------------------------------------------------------------------
+def _resolve_pspec(spec: Spec, rules: dict[str, Any], mesh_shape) -> tuple:
+    """The mesh dims each dim of ``spec`` splits over (a tuple of dims, or
+    None), for ``rules`` on a mesh of ``mesh_shape`` ({dim: size}): a dim
+    that its mesh dims' sizes do not divide stays whole, a mesh dim splits
+    at most one tensor dim (earlier dims win: axes are declared most
+    important first), trailing Nones dropped."""
+    entries: list = []
+    used: set[str] = set()
+    for dim, name in zip(spec.shape, spec.axes):
+        mapped = rules.get(name) if name else None
+        if mapped is None:
+            entries.append(None)
+            continue
+        dims = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+        if any(d in used for d in dims):
+            entries.append(None)
+            continue
+        if dim % math.prod(mesh_shape[d] for d in dims):
+            entries.append(None)  # divisibility fallback: whole
+        else:
+            used.update(dims)
+            entries.append(dims)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def pspecs(tree, rules: dict[str, Any], mesh_shape):
+    return tree_map_specs(lambda s: _resolve_pspec(s, rules, mesh_shape),
+                          tree)
+
+
+# the logical axes whose splits a serving cache takes on a mesh
+CACHE_SPLIT_AXES = ("batch", "kv_seq", "kv_pages")
+
+
+def cache_pspec(spec: Spec, rules: dict[str, Any], mesh_shape) -> tuple:
+    """``_resolve_pspec`` of a cache leaf, kept at the dims of
+    ``CACHE_SPLIT_AXES`` (a head, mlp or embed split stays whole)."""
+    ps = _resolve_pspec(spec, rules, mesh_shape)
+    return tuple(e if name in CACHE_SPLIT_AXES else None
+                 for e, name in zip(ps, spec.axes))
+
+
+def part(dims, mesh_shape, coords) -> tuple[int, int]:
+    """(index, count) of a rank's part of a tensor dim split over the mesh
+    dims ``dims`` (row-major over them), the rank at ``coords``."""
+    idx, n = 0, 1
+    for d in dims or ():
+        idx, n = idx * mesh_shape[d] + coords[d], n * mesh_shape[d]
+    return idx, n
+
+
+def shard_of(x, pspec: tuple, mesh_shape, coords):
+    """The shard of the whole leaf ``x`` that the rank at ``coords`` holds
+    under ``pspec``: its slice along each split dim (a view)."""
+    for ax, dims in enumerate(pspec):
+        if dims:
+            i, n = part(dims, mesh_shape, coords)
+            size = x.shape[ax] // n
+            x = x.narrow(ax, i * size, size)
+    return x
+
+
+def local_shape(spec: Spec, pspec: tuple, mesh_shape) -> tuple[int, ...]:
+    shape = list(spec.shape)
+    for ax, dims in enumerate(pspec):
+        if dims:
+            shape[ax] //= math.prod(mesh_shape[d] for d in dims)
+    return tuple(shape)
+
+
+class ShardTree(dict):
+    """A rank's shards of a tree of tensors (nested dicts, as ``zeros``
+    makes them), with ``specs``, the tree's whole Specs, and ``pspecs``,
+    each leaf's split (``cache_pspec``). A plain dict under a plan is a
+    tree whole on every rank."""
+
+    def __init__(self, tree: dict, specs, pspecs):
+        super().__init__(tree)
+        self.specs = specs
+        self.pspecs = pspecs
+
+
+def shard_zeros(tree, plan, device, dtype=torch.float32) -> ShardTree:
+    """Zeros of a rank's shards of the cache Spec tree ``tree`` under
+    ``plan``, allocated at the shard's shape (never whole, then cut)."""
+    sh = plan.shape()
+    ps = tree_map_specs(lambda s: cache_pspec(s, plan.rules, sh), tree)
+    out = tree_map_specs(lambda s: torch.zeros(
+        local_shape(s, cache_pspec(s, plan.rules, sh), sh), dtype=dtype,
+        device=device), tree)
+    return ShardTree(out, tree, ps)
 
 
 class SpecModule(nn.Module):

@@ -26,7 +26,15 @@ The MoE layer is the JAX package's sort-based capacity dispatch: its
 routing integers are the JAX ones, and its scatter and combine give every
 lane a row of its own, so the card adds no float atomically.
 ``moe_apply_local_dispatch`` (the shard-local dispatch on a mesh) waits
-for ROADMAP.md Queue A item 14i and the sequence-sharded decode for 14g.
+for ROADMAP.md Queue A item 14i.
+
+On a mesh, decode attention over a cache whose keys are split over the
+"model" ranks is flash-decoding (``flash_decode``): each rank scores its
+own keys, the row maxima combine by an ``all_reduce`` max, and the
+softmax sums and the weighted values by one ``all_reduce`` sum of their
+concatenation (the JAX package's two ``psum``s, the same values in one
+collective). ``decode_attention_seqsharded`` is the JAX function of that
+name.
 """
 from __future__ import annotations
 
@@ -149,6 +157,54 @@ def decode_attention(q, kcache, vcache, length=None):
     a = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgc,bckd->bkgd", a.float(), vcache.float())
     return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def softmax_combine(comm, s, weigh):
+    """The softmax of the f32 scores ``s`` [..., keys] over the keys of
+    every rank of ``comm`` (a ``dist.comm.Comm``; None: this rank's keys
+    alone), applied by ``weigh(p)`` [..., d]: the row max over every rank,
+    ``p = exp(s - max)``, then ``weigh(p)`` and ``p``'s row sums summed
+    over every rank in one ``all_reduce`` (the JAX ``shard_map`` bodies'
+    two ``psum``s), divided by ``max(sum, 1e-30)``. Every row needs one
+    unmasked key on some rank (else its max is -inf and the row NaN):
+    callers keep one."""
+    m = torch.amax(s, dim=-1)
+    if comm is not None:
+        m = comm.all_reduce(m, "max")
+    p = torch.exp(s - m[..., None])
+    ol = torch.cat([weigh(p), torch.sum(p, dim=-1)[..., None]], dim=-1)
+    if comm is not None:
+        ol = comm.all_reduce(ol)
+    return ol[..., :-1] / torch.clamp(ol[..., -1], min=1e-30)[..., None]
+
+
+def flash_decode(comm, q, kcache, vcache, valid=None):
+    """Single-step attention over the keys this rank holds, combined with
+    the other ranks of ``comm`` (``softmax_combine``): q [B,1,H,Dh], cache
+    [B,S_local,KV,Dh], ``valid`` [B,S_local] masks keys."""
+    B, _, H, Dh = q.shape
+    _, S, KV, _ = kcache.shape
+    g = H // KV
+    qr = q.reshape(B, KV, g, Dh)
+    s = torch.einsum("bkgd,bckd->bkgc", qr.float(),
+                     kcache.float()) / math.sqrt(Dh)
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    o = softmax_combine(comm, s, lambda p: torch.einsum(
+        "bkgc,bckd->bkgd", p.to(q.dtype).float(), vcache.float()))
+    return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def decode_attention_seqsharded(plan, q, kcache, vcache, length=None):
+    """Flash-decoding over a sequence-sharded KV cache: ``kcache`` and
+    ``vcache`` are this rank's rows and its S/m keys, the "model" ranks'
+    partial softmaxes combine (``flash_decode``). Without the plan's
+    ``kv_seq`` rule it is ``decode_attention`` over the whole cache. As
+    the JAX function's sharded branch does, it reads no ``length``: every
+    key counts."""
+    if plan.rules.get("kv_seq") is None:
+        return decode_attention(q, kcache, vcache, length)
+    return flash_decode(plan.model, q, kcache, vcache)
 
 
 class Attention(SpecModule):
@@ -362,11 +418,15 @@ def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
     Every kept lane writes its own (expert, slot) row and every dropped
     lane a dump row of its own, and the combine reads the same rows (zero
     for a dropped lane): no two lanes share a row, so no scatter or
-    gather gradient walks a run of equal indices."""
+    gather gradient walks a run of equal indices.
+
+    ``plan`` (a mesh plan with whole weights) changes nothing computed, as
+    in the JAX function, whose plan only constrains layouts; its
+    ``moe_local_dispatch`` rule raises (item 14i). On a mesh whose ranks
+    hold parts of the batch, the caller gathers the rows first: the
+    capacity is batch-global."""
     if plan is not None:
-        raise NotImplementedError(
-            "moe_apply on a mesh (plan=, moe_apply_local_dispatch) is not "
-            "ported yet: ROADMAP.md Queue A item 14i (training on a mesh)")
+        plan.check_ported()
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.n_experts, mo.top_k

@@ -85,11 +85,11 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
     [B,di,d_state]). Returns (out, (new_tail, h_last f32)). The scan's
     ``[B,chunk,di,d_state]`` f32 terms are made a chunk at a time and
     contracted with C at once, so no ``[B,S,di,d_state]`` tensor is held
-    outside training."""
+    outside training. ``plan`` (a mesh plan with whole weights) changes
+    nothing computed, as in the JAX function, whose plan only constrains
+    layouts; its rules of item 14i raise."""
     if plan is not None:
-        raise NotImplementedError(
-            "mamba_apply on a mesh (plan=) is not ported yet: ROADMAP.md "
-            "Queue A item 14i (training on a mesh)")
+        plan.check_ported()
     mb = cfg.mamba
     B, S, D = x.shape
     di = mb.expand * D

@@ -51,6 +51,17 @@ token, and ``loss_fn`` pads the labels with -1 over the vision
 positions. Frames and vision embeddings are cast to the parameters'
 dtype (the JAX package promotes instead: f32 inputs to bf16 weights
 compute in f32 there).
+
+On a mesh (``plan=`` on ``prefill``, ``decode_step`` and ``forward``,
+serving only) each rank holds the whole weights and its shard of the
+cache (``common.ShardTree``), and `Shards` says where this call's rows
+and cache lie: rows over "data" where the batch divides the data-parallel
+size, the dense cache's positions over "model" (``kv_seq``, the JAX
+``shard_map`` branch of ``_decode_attn_update`` and
+``_mla_decode_update``: flash-decoding) and the paged pool's pages over
+"model" (``kv_pages``: each rank scores its own pages, combined the same
+way). Training on a mesh and tensor-parallel weights are ROADMAP.md
+Queue A item 14i.
 """
 from __future__ import annotations
 
@@ -66,9 +77,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
-from repro_torch.models.common import (Spec, SpecModule, apply_rope,
-                                       init_params_, layer_norm, rms_norm,
-                                       softmax_cross_entropy, stack_specs)
+from repro_torch.models.common import (ShardTree, Spec, SpecModule,
+                                       apply_rope, init_params_, layer_norm,
+                                       leaf, part, rms_norm,
+                                       softmax_cross_entropy, spec_leaves,
+                                       stack_specs)
 
 F32 = torch.float32
 
@@ -236,10 +249,10 @@ class Block(SpecModule):
                                     dtype)
 
     def forward(self, x, cfg, mode, positions, cache, pos, pages=None,
-                expert_perm=None, enc_out=None):
+                expert_perm=None, enc_out=None, sh=None):
         return _apply_layer(self.spec, self, x, cfg, mode, positions, cache,
                             pos, pages, expert_perm,
-                            enc_out if self.has_cross else None)
+                            enc_out if self.has_cross else None, sh)
 
 
 class Encoder(SpecModule):
@@ -300,6 +313,72 @@ def _norm(p, x, cfg):
 
 
 # ---------------------------------------------------------------------------
+# a forward's place on a mesh
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """Where one prefill or decode call's rows and caches lie on this rank
+    of ``plan``'s mesh: ``rows``, ``seq`` and ``pages`` are this rank's
+    (index, count) of the batch over "data", of the dense caches'
+    positions over "model" and of the paged pool's pages over "model",
+    None where that dim is whole here. The JAX functions take the plan
+    and read the split off their global arrays; a rank here holds only
+    its shard, so the split is the cache's (a ``ShardTree``'s resolved
+    specs), decided where the cache was allocated."""
+    plan: Any
+    rows: tuple[int, int] | None = None
+    seq: tuple[int, int] | None = None
+    pages: tuple[int, int] | None = None
+
+
+def _dp_or_none(plan, batch: int):
+    """The data-parallel mesh dims the rows split over, None when the
+    batch does not divide them."""
+    return plan.rules["batch"] if batch % plan.dp_size() == 0 else None
+
+
+def shards_for(plan, cache, batch: int) -> Shards | None:
+    """This rank's `Shards` of a call over ``batch`` rows and ``cache``
+    under ``plan`` (None without a plan). A ``ShardTree`` cache gives the
+    rows over "data" when the batch divides the data-parallel size, and
+    the positions or pages over "model" as its resolved specs split
+    them; a plain dict cache is whole on every rank, and every rank then
+    computes every row over it."""
+    if plan is None:
+        return None
+    if not isinstance(cache, ShardTree):
+        return Shards(plan)
+    sizes, coords = plan.shape(), plan.coords()
+
+    def own(dims):
+        i, n = part(dims, sizes, coords)
+        return (i, n) if n > 1 else None
+
+    def split(axis):
+        for path, spec in spec_leaves(cache.specs):
+            if axis in spec.axes:
+                ps = leaf(cache.pspecs, path)
+                ax = spec.axes.index(axis)
+                return own(ps[ax]) if ax < len(ps) and ps[ax] else None
+        return None
+
+    dp = _dp_or_none(plan, batch)
+    rows = own((dp,) if isinstance(dp, str) else dp) if dp else None
+    return Shards(plan, rows=rows, seq=split("kv_seq"),
+                  pages=split("kv_pages"))
+
+
+def _rows(x, sh: Shards | None):
+    """This rank's rows of ``x`` (a [B, ...] tensor) when the rows split
+    over "data", else ``x``."""
+    if sh is None or sh.rows is None or x is None:
+        return x
+    i, n = sh.rows
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 def _attn_out(p, o):
@@ -312,41 +391,103 @@ def _pos_vec(pos, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).long().expand(batch)
 
 
-def _paged_update(cache, new, posv, table, psize: int):
+def _paged_update(cache, new, posv, table, psize: int, pages=None):
     """Per-row write into a paged cache, in place. cache [NP, psize, ...],
     new [B, 1, ...], posv [B], table [B, P]. Unallocated table entries are
     an out-of-range sentinel (>= NP) and their rows are skipped, where the
     JAX scatter drops them; a logical page past the table clamps, as a JAX
-    gather does."""
+    gather does. With ``pages`` (this rank's (r, m) of a pool striped over
+    "model") ``cache`` holds the pages ``[r*NP/m, (r+1)*NP/m)`` and only
+    rows on them are written."""
     B, P = table.shape
     page = table[torch.arange(B, device=cache.device),
                  (posv // psize).clamp(max=P - 1)].long()
-    rows = (page < cache.shape[0]).nonzero().squeeze(1)
+    if pages is not None:
+        page = page - pages[0] * cache.shape[0]
+    rows = ((page >= 0) & (page < cache.shape[0])).nonzero().squeeze(1)
     cache[page[rows], (posv % psize)[rows]] = new[rows, 0]
     return cache
 
 
-def _paged_gather(cache, table):
+def _paged_gather(cache, table, pages=None):
     """Each slot's logical [P*psize, ...] view of its pages. Sentinel
-    entries clamp to an arbitrary physical page; callers mask by per-slot
-    length so the clamped rows never contribute."""
+    entries clamp to the last physical page (JAX's ``clip``); callers mask
+    by per-slot length so the clamped rows never contribute. With
+    ``pages`` (a pool striped over "model", see ``_paged_update``) a page
+    another rank holds reads an arbitrary page of this rank's, which
+    ``_paged_own`` masks."""
     B, P = table.shape
-    g = cache[table.long().clamp(0, cache.shape[0] - 1)]
+    idx = table.long()
+    if pages is not None:
+        r, m = pages
+        idx = idx.clamp(0, m * cache.shape[0] - 1) - r * cache.shape[0]
+    g = cache[idx.clamp(0, cache.shape[0] - 1)]
     return g.reshape(B, P * cache.shape[1], *cache.shape[2:])
 
 
-def _decode_attn_update(q, k_new, v_new, kcache, vcache, pos):
-    """Write (k_new, v_new) at per-row ``pos`` of the dense cache, in place,
-    and attend."""
+def _paged_own(table, n_local: int, psize: int, pages) -> torch.Tensor:
+    """[B, P*psize]: which positions of each slot's view lie on this rank's
+    pages of a pool striped over "model" (``n_local`` pages a rank). A
+    sentinel entry reads the pool's last page, as it does whole, so every
+    position lies on exactly one rank."""
+    r, m = pages
+    own = table.long().clamp(0, m * n_local - 1) // n_local == r
+    return own.repeat_interleave(psize, dim=1)
+
+
+def _paged_valid(table, posv, cache, psize: int, pages):
+    """The keys of each slot's view that count here: positions up to the
+    slot's own, on this rank's pages where the pool is striped."""
+    S = table.shape[1] * psize
+    valid = torch.arange(S, device=cache.device)[None] <= posv[:, None]
+    if pages is not None:
+        valid = valid & _paged_own(table, cache.shape[0], psize, pages)
+    return valid
+
+
+def _write_prefill(leaf_, new, sh: Shards | None) -> None:
+    """A prefill's per-token entries ``new`` [B, S, ...] into the dense
+    cache leaf ``leaf_`` from position 0, in place; a rank holding the
+    positions ``[r*Sl, (r+1)*Sl)`` of a sequence-sharded cache keeps only
+    those."""
+    leaf_.zero_()
+    lo = sh.seq[0] * leaf_.shape[1] if sh is not None and sh.seq else 0
+    n = min(new.shape[1] - lo, leaf_.shape[1])
+    if n > 0:
+        leaf_[:, :n] = new[:, lo:lo + n].to(leaf_.dtype)
+
+
+def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
+    """Write (k_new, v_new) at per-row ``pos`` (scalar or [B]) of the dense
+    cache, in place, and attend. ``sh`` (this call's `Shards`, None off a
+    mesh) takes the JAX function's ``plan``: when it splits the cache's
+    positions over "model" (the JAX condition: ``kv_seq`` set and the
+    cache length a multiple of the "model" size, resolved when the cache
+    was made), rank r holds ``[r*Sl, (r+1)*Sl)``, writes a row only where
+    ``pos - r*Sl`` falls in ``[0, Sl)``, masks ``r*Sl + arange(Sl) >
+    pos``, and the ranks' partial softmaxes combine (flash-decoding, the
+    JAX ``shard_map`` branch). Otherwise it attends over the whole
+    cache."""
     posv = _pos_vec(pos, q.shape[0], q.device)
-    rows = torch.arange(q.shape[0], device=q.device)
-    kcache[rows, posv] = k_new[:, 0]
-    vcache[rows, posv] = v_new[:, 0]
-    o = L.decode_attention(q, kcache, vcache, length=posv + 1)
+    if sh is None or sh.seq is None:
+        rows = torch.arange(q.shape[0], device=q.device)
+        kcache[rows, posv] = k_new[:, 0]
+        vcache[rows, posv] = v_new[:, 0]
+        o = L.decode_attention(q, kcache, vcache, length=posv + 1)
+        return o, kcache, vcache
+    Sl = kcache.shape[1]
+    lpos = posv - sh.seq[0] * Sl
+    rows = ((lpos >= 0) & (lpos < Sl)).nonzero().squeeze(1)
+    kcache[rows, lpos[rows]] = k_new[rows, 0]
+    vcache[rows, lpos[rows]] = v_new[rows, 0]
+    gpos = sh.seq[0] * Sl + torch.arange(Sl, device=q.device)
+    o = L.flash_decode(sh.plan.model, q, kcache, vcache,
+                       gpos[None, :] <= posv[:, None])
     return o, kcache, vcache
 
 
-def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
+def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None,
+                sh=None):
     """One attention mixer. ``cache`` is this layer's ``{"k", "v"}``
     (views into the stacked cache), updated in place."""
     q, k, v = L.qkv_project(p, x, x, cfg)
@@ -359,22 +500,26 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
         return _attn_out(p, o), None
     if mode == "prefill":
         o = L.flash_attention(q, k, v, causal=True)
-        S = x.shape[1]
         for name, new in (("k", k), ("v", v)):
-            cache[name].zero_()
-            cache[name][:, :S] = new.to(cache[name].dtype)
+            _write_prefill(cache[name], new, sh)
         return _attn_out(p, o), cache
     if pages is not None:
         table, psize = pages
+        striped = sh.pages if sh is not None else None
         posv = _pos_vec(pos, q.shape[0], q.device)
         kc = _paged_update(cache["k"], k.to(cache["k"].dtype), posv, table,
-                           psize)
+                           psize, striped)
         vc = _paged_update(cache["v"], v.to(cache["v"].dtype), posv, table,
-                           psize)
-        o = L.decode_attention(q, _paged_gather(kc, table),
-                               _paged_gather(vc, table), length=posv + 1)
+                           psize, striped)
+        kv, vv = (_paged_gather(kc, table, striped),
+                  _paged_gather(vc, table, striped))
+        if striped is None:
+            o = L.decode_attention(q, kv, vv, length=posv + 1)
+        else:  # the pool striped over "model": flash-decoding
+            o = L.flash_decode(sh.plan.model, q, kv, vv, _paged_valid(
+                table, posv, kc, psize, striped))
         return _attn_out(p, o), {"k": kc, "v": vc}
-    o, kc, vc = _decode_attn_update(q, k.to(cache["k"].dtype),
+    o, kc, vc = _decode_attn_update(sh, q, k.to(cache["k"].dtype),
                                     v.to(cache["v"].dtype), cache["k"],
                                     cache["v"], pos)
     return _attn_out(p, o), {"k": kc, "v": vc}
@@ -383,7 +528,8 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None):
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------
-def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None):
+def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None,
+               sh=None):
     """One MLA mixer. ``cache`` is this layer's ``{"c_kv", "k_rope"}``
     (views into the stacked cache), updated in place."""
     q_nope, q_rope = L.mla_project_q(p, x, cfg, positions)
@@ -395,12 +541,10 @@ def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None):
     if mode == "prefill":
         o = L.mla_attention(p, q_nope, q_rope, c_new, kr_new, cfg,
                             causal=True)
-        S = x.shape[1]
         for name, new in (("c_kv", c_new), ("k_rope", kr_new)):
-            cache[name].zero_()
-            cache[name][:, :S] = new.to(cache[name].dtype)
+            _write_prefill(cache[name], new, sh)
         return L.mla_output(p, o, cfg), cache
-    o, cc, krc = _mla_decode_update(p, q_nope, q_rope,
+    o, cc, krc = _mla_decode_update(sh, p, q_nope, q_rope,
                                     c_new.to(cache["c_kv"].dtype),
                                     kr_new.to(cache["k_rope"].dtype),
                                     cache["c_kv"], cache["k_rope"], pos,
@@ -408,42 +552,60 @@ def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None):
     return L.mla_output(p, o, cfg), {"c_kv": cc, "k_rope": krc}
 
 
-def _mla_decode_update(p, q_nope, q_rope, c_new, kr_new, c_cache, kr_cache,
-                       pos, cfg, pages=None):
+def _mla_decode_update(sh, p, q_nope, q_rope, c_new, kr_new, c_cache,
+                       kr_cache, pos, cfg, pages=None):
     """Absorbed-matrix MLA decode over the dense or paged compressed cache,
     written in place at per-row ``pos`` (scalar or [B]): scores
     ``q_eff.c + q_rope.k_rope`` times the scale, keys past each row's
     position masked, the softmax's max, exp and sum as the JAX package
-    writes them, values combined in latent space and up-projected. The
-    sequence-sharded branch of the JAX function (a mesh plan) waits for
-    ROADMAP.md Queue A item 14g."""
+    writes them, values combined in latent space and up-projected. ``sh``
+    (this call's `Shards`) takes the JAX function's ``plan``: a dense
+    cache whose positions split over "model" takes the JAX ``shard_map``
+    branch (each rank writes its own rows and scores its own positions,
+    the max and then the sums and latents combine over "model"), and a
+    pool striped over "model" combines the same way over each rank's own
+    pages."""
     m = cfg.mla
     B = q_nope.shape[0]
-    posv = _pos_vec(pos, B, q_nope.device)
+    dev = q_nope.device
+    posv = _pos_vec(pos, B, dev)
     q_eff = L.mla_absorb_q(p, q_nope, cfg)[:, 0]               # [B,H,lora]
     qr = q_rope[:, 0]                                           # [B,H,rope]
     scale = 1.0 / math.sqrt(m.d_nope + m.d_rope)
+    comm = None
     if pages is not None:
         table, psize = pages
-        cc = _paged_update(c_cache, c_new, posv, table, psize)
-        krc = _paged_update(kr_cache, kr_new, posv, table, psize)
-        c_all, kr_all = _paged_gather(cc, table), _paged_gather(krc, table)
-    else:
-        rows = torch.arange(B, device=q_nope.device)
+        striped = sh.pages if sh is not None else None
+        cc = _paged_update(c_cache, c_new, posv, table, psize, striped)
+        krc = _paged_update(kr_cache, kr_new, posv, table, psize, striped)
+        c_all, kr_all = (_paged_gather(cc, table, striped),
+                         _paged_gather(krc, table, striped))
+        valid = _paged_valid(table, posv, cc, psize, striped)
+        if striped is not None:
+            comm = sh.plan.model
+    elif sh is None or sh.seq is None:
+        rows = torch.arange(B, device=dev)
         c_cache[rows, posv] = c_new[:, 0]
         kr_cache[rows, posv] = kr_new[:, 0]
         cc, krc = c_cache, kr_cache
         c_all, kr_all = cc, krc
-    gpos = torch.arange(c_all.shape[1], device=q_nope.device)
+        valid = torch.arange(cc.shape[1], device=dev)[None] <= posv[:, None]
+    else:
+        Sl = c_cache.shape[1]
+        lpos = posv - sh.seq[0] * Sl
+        rows = ((lpos >= 0) & (lpos < Sl)).nonzero().squeeze(1)
+        c_cache[rows, lpos[rows]] = c_new[rows, 0]
+        kr_cache[rows, lpos[rows]] = kr_new[rows, 0]
+        cc, krc = c_cache, kr_cache
+        c_all, kr_all = cc, krc
+        gpos = sh.seq[0] * Sl + torch.arange(Sl, device=dev)
+        valid = gpos[None, :] <= posv[:, None]
+        comm = sh.plan.model
     s = (torch.einsum("bhq,btq->bht", q_eff.float(), c_all.float())
          + torch.einsum("bhr,btr->bht", qr.float(), kr_all.float())) * scale
-    s = torch.where(gpos[None, None, :] <= posv[:, None, None], s,
-                    float("-inf"))
-    pw = torch.exp(s - torch.amax(s, dim=-1)[..., None])
-    l = torch.sum(pw, dim=-1)
-    lat = torch.einsum("bht,btq->bhq", pw.to(c_all.dtype).float(),
-                       c_all.float())
-    lat = lat / torch.clamp(l, min=1e-30)[..., None]
+    s = torch.where(valid[:, None, :], s, float("-inf"))
+    lat = L.softmax_combine(comm, s, lambda pw: torch.einsum(
+        "bht,btq->bhq", pw.to(c_all.dtype).float(), c_all.float()))
     o = L.mla_up_v(p, lat.to(q_nope.dtype), cfg)
     return o[:, None], cc, krc
 
@@ -456,14 +618,16 @@ _RECURRENT = {"mamba": (ssm.mamba_apply, ("tail", "h")),
               "slstm": (ssm.slstm_apply, ("c", "n", "h", "m"))}
 
 
-def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache):
+def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None):
     """One Mamba, mLSTM or sLSTM mixer. ``cache`` is this layer's state
     (views into the stacked cache): train and prefill start from the fresh
     state, decode from the cache's; prefill and decode write the new state
-    back in place, in the cache's dtype. Train returns no cache."""
+    back in place, in the cache's dtype. Train returns no cache. Mamba
+    takes the plan, as in the JAX package."""
     fn, names = _RECURRENT[spec.mixer]
     state = tuple(cache[k] for k in names) if mode == "decode" else None
-    out, new = fn(p, x, cfg, state=state)
+    kw = {"plan": plan} if spec.mixer == "mamba" and plan is not None else {}
+    out, new = fn(p, x, cfg, state=state, **kw)
     if mode == "train":
         return out, None
     for k, t in zip(names, new):
@@ -472,12 +636,13 @@ def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache):
 
 
 def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
-                 pages=None):
+                 pages=None, sh=None):
     if spec.mixer in _RECURRENT:
-        return _apply_recurrent(spec, p, x, cfg, mode, cache)
+        return _apply_recurrent(spec, p, x, cfg, mode, cache,
+                                sh.plan if sh is not None else None)
     if spec.mixer == "mla":
-        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages)
-    return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages)
+        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh)
+    return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages, sh)
 
 
 def _cross_attention(p, x, enc_out, cfg):
@@ -496,14 +661,15 @@ def _cross_attention(p, x, enc_out, cfg):
 
 
 def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
-                 pages=None, expert_perm=None, enc_out=None):
+                 pages=None, expert_perm=None, enc_out=None, sh=None):
     """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
     zero for other layers). With ``enc_out`` the cross block runs after
-    the mixer."""
+    the mixer. Where the rows split over "data" (``sh.rows``), a MoE layer
+    gathers them first: its capacity is batch-global."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
-                                  cache, pos, pages)
+                                  cache, pos, pages, sh)
     x = x + mix
     if enc_out is not None:
         x = x + _cross_attention(p, x, enc_out, cfg)
@@ -511,7 +677,14 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
         return x, new_cache, aux
     h = _norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":
-        out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm)
+        plan = sh.plan if sh is not None else None
+        if sh is not None and sh.rows is not None:
+            hs = sh.plan.data.all_gather(h)
+            out, a = L.moe_apply(p["ffn"], hs.reshape(-1, *h.shape[1:]),
+                                 cfg, expert_perm, plan)
+            out = _rows(out, sh)
+        else:
+            out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm, plan)
         aux = aux + a
     else:
         out = L.mlp_apply(p["ffn"], h)
@@ -586,7 +759,7 @@ def _train_block(block, x, cfg, positions, expert_perm, enc_out):
 def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
             cache=None, pos=None, page_table=None, page_size: int = 0,
             remat: bool = True, expert_perm=None, vision=None,
-            enc_frames=None):
+            enc_frames=None, plan=None):
     """Returns (hidden [B,S,D], cache, aux), aux the MoE balance loss
     summed over the layers in layer order (an f32 zero without MoE).
     ``pos`` may be a scalar (synchronized decode) or a [B] vector of
@@ -604,9 +777,30 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     autograd recording; under ``remat`` each block is recomputed in the
     backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of
     the scanned layer body), which gives the same bits as keeping its
-    activations. Prefill and decode record no gradient."""
+    activations. Prefill and decode record no gradient.
+
+    ``plan`` (a ``dist.Plan``; prefill and decode) runs the call on this
+    rank of its mesh with the weights whole, over a cache that is this
+    rank's ``ShardTree`` (or a plain dict, whole on every rank; see
+    `shards_for`). Every rank takes the whole batch's inputs; where the
+    rows split over "data" it computes its own rows (the slices of
+    ``tokens``, ``pos``, ``page_table``, ``vision`` and ``enc_frames``)
+    and returns their hidden states. Attention and MLA decode over
+    positions or pages split over "model" combine by flash-decoding; a
+    prefill writes only this rank's positions."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
+    if plan is not None:
+        if mode == "train":
+            _unported("the training forward on a mesh (plan=)",
+                      "14i (training on a mesh)")
+        plan.check_ported()
+    sh = shards_for(plan, cache, tokens.shape[0])
+    if sh is not None and sh.rows is not None:
+        tokens, page_table, vision, enc_frames = (
+            _rows(t, sh) for t in (tokens, page_table, vision, enc_frames))
+        if pos is not None and torch.as_tensor(pos).ndim:
+            pos = _rows(torch.as_tensor(pos), sh)
     B, S = tokens.shape
     dev = tokens.device
     pages = (page_table, page_size) if page_table is not None else None
@@ -638,7 +832,7 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
             if not train:
                 x, _, a = block(x, cfg, mode, positions,
                                 _layer_cache(cache, cfg, key), pos, pages,
-                                expert_perm, enc_out)
+                                expert_perm, enc_out, sh)
             elif remat:
                 x, a = checkpoint(_train_block, block, x, cfg, positions,
                                   expert_perm, enc_out, use_reentrant=False)
@@ -701,27 +895,31 @@ def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
 
 
 def prefill(model: LM, tokens, cache, cfg: ArchConfig, expert_perm=None,
-            *, vision=None, enc_frames=None):
+            *, vision=None, enc_frames=None, plan=None):
     """Fills ``cache`` (dense, cache_len >= S, and the vision tokens) in
     place, the encoder's output in ``cache["enc_out"]``; returns
-    (last_logits [B, V], cache)."""
+    (last_logits [B, V], cache). Under ``plan`` (see `forward`) the
+    logits are this rank's rows and the cache keeps this rank's shard."""
     x, cache, _ = forward(model, tokens, cfg, mode="prefill", cache=cache,
                           expert_perm=expert_perm, vision=vision,
-                          enc_frames=enc_frames)
+                          enc_frames=enc_frames, plan=plan)
     logits = L.unembed_apply(model.embed, x[:, -1:], cfg)
     return logits[:, 0], cache
 
 
 def decode_step(model: LM, token, pos, cache, cfg: ArchConfig,
-                page_table=None, page_size: int = 0, expert_perm=None):
+                page_table=None, page_size: int = 0, expert_perm=None, *,
+                plan=None):
     """token [B,1] int, pos scalar OR per-slot [B] vector (continuous
     batching; vision tokens counted). With ``page_table`` [B, P] +
     ``page_size`` the KV caches are paged (see ``cache_shapes(page_size=...,
     n_pages=...)``). Returns (logits [B,V], cache), the cache updated in
-    place."""
+    place. Under ``plan`` (see `forward`) the logits are this rank's
+    rows."""
     x, cache, _ = forward(model, token, cfg, mode="decode", cache=cache,
                           pos=pos, page_table=page_table,
-                          page_size=page_size, expert_perm=expert_perm)
+                          page_size=page_size, expert_perm=expert_perm,
+                          plan=plan)
     logits = L.unembed_apply(model.embed, x, cfg)
     return logits[:, 0], cache
 

@@ -30,11 +30,23 @@ with its own key ``(seed, n)``, n counting the engine's samples since the
 last reseed, so no key repeats (``jax.random.categorical`` cannot be
 reproduced bit for bit).
 
-The engine runs on CUDA unless ``device`` names another device; the model
-is moved there. Timing: ``ttft`` maps each request to its seconds from
-``submit`` to its first token; the registry counts prefill and decode
-tokens and seconds, and the vision positions a prefill adds to its prompt
-tokens (``engine.prefill_vision_positions``).
+On a mesh (``plan``, a ``dist.Plan``), every rank runs the engine: the same
+scheduler on the same requests, the weights whole on every rank, the cache
+allocated sharded from the start (``models.common.shard_zeros``): the
+static policy's dense cache split over "model" along its positions
+("kv_seq") and the continuous policy's pool striped over "model" by pages
+("kv_pages"), both split over "data" by rows ("batch") where the slots
+divide the data-parallel size. A prefill of one request is computed whole
+on every rank and inserted into the rank's own pages and rows; a decode
+step over rows split over "data" computes the rank's own rows, and their
+sampled tokens are gathered over "data" before the host reads them, so
+every rank schedules alike. Greedy tokens are the single-device engine's.
+
+The engine runs on CUDA unless ``device`` (or the plan's device) names
+another; the model is moved there. Timing: ``ttft`` maps each request to
+its seconds from ``submit`` to its first token; the registry counts
+prefill and decode tokens and seconds, and the vision positions a prefill
+adds to its prompt tokens (``engine.prefill_vision_positions``).
 """
 from __future__ import annotations
 
@@ -68,6 +80,7 @@ class ServeEngine:
     cfg: ArchConfig
     params: T.LM
     cache_len: int
+    plan: object | None = None  # a dist.Plan: serve on its mesh
     temperature: float = 0.0
     eos_id: int = 1
     seed: int = 0
@@ -85,7 +98,15 @@ class ServeEngine:
             raise ValueError(f"unknown policy {self.policy!r}")
         if self.registry is None:
             self.registry = obs_metrics.REGISTRY
+        if self.plan is not None:
+            self.plan.check_ported()
+            if self.device is None:
+                self.device = self.plan.device
         self.device = resolve_device(self.device)
+        if self.plan is not None and \
+                self.device.type != self.plan.device.type:
+            raise ValueError(f"device {self.device} is not the plan's "
+                             f"{self.plan.device}")
         self.params = self.params.to(self.device)
         self._n_samples = 0
         self._keys_used: list = []
@@ -123,18 +144,41 @@ class ServeEngine:
             self._keys_used.append((tag, key))
         return key
 
-    def _sample(self, logits, key: np.ndarray) -> np.ndarray:
-        """Tokens [B] int32 on the host (the one sync of a step)."""
+    def _sample(self, logits, key: np.ndarray, rows=None) -> np.ndarray:
+        """Tokens [B] int32 on the host (the one sync of a step). With
+        ``rows`` (this rank's (index, count) of a batch split over "data")
+        ``logits`` are this rank's rows, and the tokens of every rank's
+        rows are gathered; the noise is drawn for the whole batch, so the
+        keys give the single-device engine's draws."""
         if self.temperature <= 0:
             tok = torch.argmax(logits, dim=-1)
         else:
             seed = int(np.random.SeedSequence(key.tolist()).generate_state(
                 1, np.uint64)[0] >> np.uint64(1))
             gen = torch.Generator(device=logits.device).manual_seed(seed)
-            u = torch.rand(logits.shape, generator=gen, device=logits.device)
+            b, v = logits.shape
+            n = rows[1] if rows is not None else 1
+            u = torch.rand((b * n, v), generator=gen, device=logits.device)
+            if rows is not None:
+                u = u[rows[0] * b:(rows[0] + 1) * b]
             gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
             tok = torch.argmax(logits / self.temperature + gumbel, dim=-1)
-        return tok.to(torch.int32).cpu().numpy()
+        tok = tok.to(torch.int32)
+        if rows is not None:
+            tok = self.plan.data.all_gather(tok).reshape(-1)
+        return tok.cpu().numpy()
+
+    def _zeros(self, specs):
+        """A cache of ``specs``: whole, or this rank's shards on a mesh."""
+        if self.plan is None:
+            return common.zeros(specs, self.device)
+        return common.shard_zeros(specs, self.plan, self.device)
+
+    def _rows_of(self, cache, batch: int):
+        """This rank's (index, count) of ``batch`` rows over "data", or
+        None when every rank computes every row."""
+        sh = T.shards_for(self.plan, cache, batch)
+        return sh.rows if sh is not None else None
 
     def _prefill_kwargs(self, batch: int) -> dict:
         """The stub front ends' inputs of a prefill of ``batch`` rows, as
@@ -165,8 +209,9 @@ class ServeEngine:
         cspecs = T.cache_shapes(self.cfg, self.n_slots, self.cache_len,
                                 page_size=self.page_size,
                                 n_pages=self.n_pages)
-        self._cache = common.zeros(cspecs, self.device)
-        self._insert = paging.make_insert(cspecs, self.page_size)
+        self._cache = self._zeros(cspecs)
+        self._insert = paging.make_insert(cspecs, self.page_size, self.plan)
+        self._decode_rows = self._rows_of(self._cache, self.n_slots)
         self._dense1 = T.cache_shapes(self.cfg, 1, self.cache_len)
         self._slot_pos = np.zeros((self.n_slots,), np.int32)
         self._slot_tok = np.zeros((self.n_slots,), np.int32)
@@ -211,7 +256,8 @@ class ServeEngine:
         self._pm.alloc(slot, self._need_tokens(req))
         dense = common.zeros(self._dense1, self.device)
         logits, dense = T.prefill(self.params, self._tensor(req.prompt[None]),
-                                  dense, self.cfg, **self._prefill_kwargs(1))
+                                  dense, self.cfg, plan=self.plan,
+                                  **self._prefill_kwargs(1))
         self._insert(self._cache, dense, slot,
                      self._tensor(self._pm.table[slot]))
         tok = int(self._sample(logits, self._next_key("prefill"))[0])
@@ -267,8 +313,9 @@ class ServeEngine:
                 self.params, self._tensor(self._slot_tok[:, None]),
                 self._tensor(self._slot_pos), self._cache, self.cfg,
                 page_table=self._pm.device_table(self.device),
-                page_size=self.page_size)
-            toks = self._sample(logits, self._next_key("decode"))
+                page_size=self.page_size, plan=self.plan)
+            toks = self._sample(logits, self._next_key("decode"),
+                                self._decode_rows)
             self.registry.counter("engine.decode_tokens", len(self._active))
             self.registry.counter("engine.decode.s", time.monotonic() - t1)
             for slot, req in list(self._active.items()):
@@ -349,24 +396,34 @@ class ServeEngine:
 
     def _generate_static(self, prompts: np.ndarray, max_new: int):
         """Synchronized static batch: one dense cache row per request,
-        lock-step decode until every row is done."""
+        lock-step decode until every row is done. The registry counts
+        its prompt tokens (the padded block's) and decode tokens, with
+        their seconds."""
         B, S0 = prompts.shape
-        cache = common.zeros(T.cache_shapes(self.cfg, B, self.cache_len),
-                             self.device)
+        cache = self._zeros(T.cache_shapes(self.cfg, B, self.cache_len))
+        rows = self._rows_of(cache, B)
+        r = self.registry
+        t0 = time.monotonic()
         logits, cache = T.prefill(self.params, self._tensor(prompts), cache,
-                                  self.cfg, **self._prefill_kwargs(B))
+                                  self.cfg, plan=self.plan,
+                                  **self._prefill_kwargs(B))
         out = np.zeros((B, max_new), np.int32)
         done = np.zeros((B,), bool)
-        tok = self._sample(logits, self._next_key("prefill"))
+        tok = self._sample(logits, self._next_key("prefill"), rows)
+        r.counter("engine.prefill_tokens", B * S0)
+        r.counter("engine.prefill.s", time.monotonic() - t0)
         for i in range(max_new):
             out[:, i] = np.where(done, self.eos_id, tok)
             done |= tok == self.eos_id
             if done.all():
                 out[:, i + 1:] = self.eos_id  # consistent post-EOS padding
                 break
+            t0 = time.monotonic()
             logits, cache = T.decode_step(
                 self.params, self._tensor(tok[:, None]),
                 self._tensor(np.full((B,), S0 + self._pos_off + i)), cache,
-                self.cfg)
-            tok = self._sample(logits, self._next_key("decode"))
+                self.cfg, plan=self.plan)
+            tok = self._sample(logits, self._next_key("decode"), rows)
+            r.counter("engine.decode_tokens", B)
+            r.counter("engine.decode.s", time.monotonic() - t0)
         return out

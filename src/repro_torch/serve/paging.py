@@ -17,6 +17,14 @@ an arbitrary page whose rows the per-slot length mask discards.
 cache is copied into the slot's pages (per-token leaves) or slot row
 (per-slot state), driven by the cache ``Spec`` axes: "kv_pages" leaves
 page-scatter, "batch" leaves slot-insert. The copy is in place.
+
+On a mesh (``plan``) the pool is a ``ShardTree``: a leaf whose resolved
+spec splits "kv_pages" over "model" holds pages ``[r*NP/m, (r+1)*NP/m)``
+on rank r, a "batch" leaf split over "data" its rank's slots, and the
+insert writes only what this rank holds. A pool leaf that resolves to a
+head split ("kv_heads", when "model" does not divide the pages) stays
+whole on every rank: the head split comes with tensor parallelism,
+ROADMAP.md Queue A item 14i.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.common import spec_leaves
+from repro_torch.models.common import leaf, part, spec_leaves
 
 
 class OutOfPagesError(RuntimeError):
@@ -112,35 +120,44 @@ def _leaf_kind(spec) -> tuple[str, int]:
     raise ValueError(f"cache spec with neither kv_pages nor batch: {spec}")
 
 
-def _leaf(tree: dict, path: str) -> torch.Tensor:
-    for k in path.split("."):
-        tree = tree[k]
-    return tree
-
-
-def make_insert(paged_specs, page_size: int):
+def make_insert(paged_specs, page_size: int, plan=None):
     """Build ``insert(paged_cache, dense_cache, slot, table_row)``: copy a
-    batch-1 dense prefill cache into ``slot``'s pages / slot row, in place.
-    ``table_row`` is the slot's ``[pages_per_slot]`` row of the page table
-    (a tensor on the cache's device)."""
+    batch-1 dense prefill cache (whole on every rank) into ``slot``'s
+    pages / slot row, in place. ``table_row`` is the slot's
+    ``[pages_per_slot]`` row of the page table (a tensor on the cache's
+    device). Under ``plan`` ``paged_cache`` is this rank's ``ShardTree``
+    and only its own pages and slots are written."""
     leaves = [(path, _leaf_kind(s)) for path, s in spec_leaves(paged_specs)]
+    if plan is not None:
+        sizes, coords = plan.shape(), plan.coords()
+
+    def first(path, ax, paged_cache) -> int:
+        """The first page or slot this rank holds along ``ax``."""
+        if plan is None:
+            return 0
+        ps = leaf(paged_cache.pspecs, path)
+        dims = ps[ax] if ax < len(ps) else None
+        return part(dims, sizes, coords)[0] * leaf(paged_cache,
+                                                   path).shape[ax]
 
     def insert(paged_cache, dense_cache, slot: int, table_row):
         for path, (kind, ax) in leaves:
-            big, small = _leaf(paged_cache, path), _leaf(dense_cache, path)
+            big, small = leaf(paged_cache, path), leaf(dense_cache, path)
+            lo = first(path, ax, paged_cache)
             lead = (slice(None),) * ax
             if kind == "paged":
                 # big [..., NP, ps, tail], small [..., 1, CL, tail]: logical
                 # row p goes to physical (table[p // ps], p % ps); rows past
-                # the slot's allocated pages hit the sentinel and drop
+                # the slot's allocated pages hit the sentinel and drop, and
+                # pages another rank holds are skipped
                 p = torch.arange(small.shape[ax + 1], device=big.device)
-                page = table_row.long()[p // page_size]
-                keep = page < big.shape[ax]
+                page = table_row.long()[p // page_size] - lo
+                keep = (page >= 0) & (page < big.shape[ax])
                 rows = small.select(ax, 0).to(big.dtype)
                 big[lead + (page[keep], (p % page_size)[keep])] = \
                     rows[lead + (keep,)]
-            else:
-                big[lead + (slot,)] = small[lead + (0,)].to(big.dtype)
+            elif 0 <= slot - lo < big.shape[ax]:
+                big[lead + (slot - lo,)] = small[lead + (0,)].to(big.dtype)
         return paged_cache
 
     return insert

@@ -37,14 +37,25 @@ def _one_torch_thread():
 
 def _numbers(text: str) -> list:
     """The printed lines without their wall times (``1.2s``, ``3.0x
-    faster``, ``tok/s``), which vary from run to run."""
+    faster``, ``tok/s``), which vary from run to run. The whitespace in
+    front of a time goes with it: a padded ``%7.1f`` time is one space
+    narrower from 10 s on."""
     keep = []
     for line in text.splitlines():
         if re.search(r"\d+(\.\d+)?s\b|tok/s|faster|wall", line):
-            line = re.sub(r"\d+(\.\d+)?s\b|\(\S+x faster\)", "", line)
+            line = re.sub(r"\s*\d+(\.\d+)?s\b|\(\S+x faster\)", "", line)
             line = re.sub(r"wall:.*|[\d.]+ tok/s.*", "", line)
         keep.append(line)
     return keep
+
+
+def test_numbers_drop_padded_times():
+    """Two runs of ``partition_snn`` whose times straddle 10 s print lines
+    one space apart; every other number still counts."""
+    line = "ours  n_parts=12 conn=345  valid=True {:7.1f}s"
+    assert _numbers(line.format(9.9)) == _numbers(line.format(10.1))
+    assert _numbers(line.format(9.9)) != _numbers(
+        line.replace("345", "346").format(9.9))
 
 
 @pytest.mark.parametrize("example", [quickstart, partition_snn,

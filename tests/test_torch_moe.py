@@ -24,6 +24,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as tget
 from repro_torch.core import planner as tpl
+from repro_torch.dist.sharding import Plan, lm_rules
 from repro_torch.models import common as TC
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -132,10 +133,25 @@ def test_moe_apply_matches_jax(n_experts, top_k, with_perm):
 
 
 def test_moe_apply_on_a_mesh_raises():
+    """The shard-local dispatch (the plan's ``moe_local_dispatch`` rule)
+    waits for item 14i; a plan without it computes as without a plan."""
     _, cfg = _cfgs()
     p = TL.MoE(cfg, device="cpu")
+    p.load_state_dict({k: 0.1 * torch.ones_like(v)
+                       for k, v in p.state_dict().items()})
+    x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        TL.moe_apply(p, torch.zeros(1, 2, cfg.d_model), cfg, plan=object())
+        TL.moe_apply(p, x, cfg, plan=_plan(moe_local=True))
+    got, want = (TL.moe_apply(p, x, cfg, plan=_plan()),
+                 TL.moe_apply(p, x, cfg))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _plan(**flags):
+    """A plan with the rules of ``flags`` and no mesh: ``moe_apply`` reads
+    only its rules."""
+    return Plan(mesh=None, device=torch.device("cpu"), data=None,
+                model=None, rules=lm_rules(**flags))
 
 
 def _models(jcfg, cfg, seed=0):

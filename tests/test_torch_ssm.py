@@ -41,6 +41,7 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import get_config as tget
 from repro_torch.core import planner as tpl
 from repro_torch.data import pipeline as tpipe
+from repro_torch.dist.sharding import Plan, lm_rules
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import common as TC
 from repro_torch.models import convert
@@ -188,9 +189,20 @@ def test_split_sequence_equals_one_pass(mixer):
 
 
 def test_mamba_plan_raises():
+    """A plan rule of item 14i raises; a plan without one computes as
+    without a plan (whole weights: the JAX plan only constrains
+    layouts)."""
     _, tfn, _, cfg, _, _, tp = _mixer_params("mamba")
+    x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        tfn(tp, torch.zeros((1, 2, cfg.d_model)), cfg, plan=object())
+        tfn(tp, x, cfg, plan=Plan(mesh=None, device=torch.device("cpu"),
+                                  data=None, model=None,
+                                  rules=lm_rules(attn_p_bf16=True)))
+    got = tfn(tp, x, cfg, plan=Plan(mesh=None, device=torch.device("cpu"),
+                                    data=None, model=None))
+    want = tfn(tp, x, cfg)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
 # ------------------------------------------------------------- the trees
