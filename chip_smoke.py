@@ -43,7 +43,10 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      bound and a one-call PyTorch yardstick where one exists (flash_attn
      at the serving path's longest prefill, S 2048, f32, causal); for
      pair_scores, the kernel with its bins fixed, and beside it the whole
-     ``score_slots_kernel``, ``fits_kernel`` and the segment path;
+     ``score_slots_kernel``, ``fits_kernel`` and the segment path; for
+     pins_count first its edge-case sweep against its plain version
+     (``pins_sweep``), then beside its time the launches alone, replayed
+     from a CUDA graph (also in phases 11 and 15), and its tile plan;
   7. the flash_attn kernel against its plain version at the serving
      path's head shapes (q [1,S,12,128], k/v [1,S,2,128]): f32 causal at
      S 2048, 1000 and 159 (the cell's shortest prompt), bf16 causal at
@@ -465,6 +468,34 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(torch, fn, iters: int = 50) -> float:
+    """Mean device milliseconds per call of ``iters`` calls captured in one
+    CUDA graph and replayed (CUDA events around the replay): the launches
+    without the host's enqueue. Captured with deterministic algorithms
+    off, so ``torch.empty`` adds no fill of its own."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return a.elapsed_time(b) / iters
+
+
 def bound(nbytes: float, ops: float,
           rate: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time on the card: the larger of bytes over the memory rate and
@@ -488,6 +519,101 @@ def pins_library_ms(torch, hg, d, parts, caps, kcap: int) -> float:
                       caps.e * kcap + (e_of * kcap + pin_p)[is_dst]])
     return cuda_ms(torch, lambda: torch.bincount(
         keys, minlength=2 * caps.e * kcap), 20)
+
+
+def pins_plan(torch, pc_ops, kcap: int, nrows: int) -> str:
+    """B2's launch shape for ``[nrows, kcap]`` on this card, for the log."""
+    p = pc_ops.tile_plan(kcap, nrows, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    return (f"TE {p.te}, {p.stages} buffer(s) of {p.buffer} B, {p.smem} B "
+            f"of shared memory, grid {p.grid}, "
+            + ("global atomics" if p.stages == 0 else
+               "bulk stores" if p.bulk else "plain stores"))
+
+
+def pins_sweep(torch, kernels, thg, pc_ops, pc_ref, dev) -> None:
+    """B2's edge cases against its plain version with ``torch.equal``: kcap
+    1, 2, 3, 8, 1024 and 4096 (dynamic shared memory above 48 KB) on a
+    level of 3,301 edge rows (ragged against every TE above 1) with a run
+    of 600 empty edges and 700 padding rows (dead tiles), one edge at the
+    full ``dbar`` cardinality, pin ids outside [0, ncap) and part ids
+    outside [0, kcap), on the whole range and on stripes whose ``row0`` is
+    no multiple of TE; then kcap 40,000 (past shared memory: the global
+    atomics) on a level of 40 edge rows; and the persistent loop, three
+    blocks walking every tile of the first level (dead tiles between live
+    ones, both buffers in turn) at kcap 2, 3 and 1024."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.hypergraph import device_from_host
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(26)
+
+    def level(n_nodes, n_live, n_dead, pad):
+        cards = np.concatenate([rng.integers(1, 18, size=n_live), [64],
+                                np.zeros(n_dead, np.int64),
+                                rng.integers(1, 18, size=n_live)])
+        hg = thg.HostHypergraph(
+            n_nodes=n_nodes,
+            edge_off=np.concatenate([[0], np.cumsum(cards)]).astype(np.int32),
+            edge_pins=np.concatenate([rng.choice(n_nodes, size=c,
+                                                 replace=False)
+                                      for c in cards]).astype(np.int32),
+            edge_nsrc=rng.integers(0, cards + 1).astype(np.int32),
+            edge_w=np.ones(len(cards), np.float32))
+        caps = dataclasses.replace(thg.Caps.for_host(hg),
+                                   e=hg.n_edges + pad)
+        d = device_from_host(hg, caps, dev)
+        bad = torch.from_numpy(rng.choice(hg.n_pins, 40, replace=False)).to(
+            dev)
+        d.edge_pins[bad[:20]] = -7
+        d.edge_pins[bad[20:]] = caps.n + 5
+        return d, caps
+
+    d, caps = level(4000, 1000, 600, 700)
+    dbar = pc_ops.tile_bounds(caps)[0]
+    need(caps.e == 3301 and dbar == 64, f"the sweep's level: {caps.e} rows, "
+         f"dbar {dbar}")
+    cases = [(kcap, r0, n) for kcap in (1, 2, 3, 8, 1024, 4096)
+             for r0, n in ((0, caps.e), (37, 1000), (3, caps.e - 3))]
+    d_g, caps_g = level(300, 15, 4, 5)
+    cases.append((40000, 0, caps_g.e))
+    for kcap, r0, n in cases:
+        dd, cc = (d_g, caps_g) if kcap == 40000 else (d, caps)
+        parts = torch.from_numpy(rng.integers(
+            -3, kcap + 3, size=cc.n).astype(np.int32)).to(dev)
+        got = pc_ops.pins_rows(dd, parts, cc, kcap, r0, n)
+        want = pc_ref.pins_rows_ref(dd, parts, cc, kcap,
+                                    pc_ops.tile_bounds(cc)[0], r0, n)
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(got, want)),
+             f"pins_count at kcap {kcap}, rows [{r0}, {r0 + n}) of "
+             f"{cc.e}: equal to its plain version")
+        log(f"[6] pins_count sweep: kcap {kcap}, rows [{r0}, {r0 + n}) of "
+            f"{cc.e}: equal to its plain version "
+            f"({pins_plan(torch, pc_ops, kcap, n)})")
+    for kcap in (2, 3, 1024):
+        plan = pc_ops.tile_plan(kcap, caps.e)
+        parts = torch.from_numpy(rng.integers(
+            -3, kcap + 3, size=caps.n).astype(np.int32)).to(dev)
+        got = torch.full((2, caps.e, kcap), -1, dtype=torch.int32,
+                         device=dev)
+        kernels.launch("pins_count_launch", "pins_count",
+                       d.edge_off.data_ptr(), d.edge_pins.data_ptr(),
+                       d.edge_nsrc.data_ptr(), parts.data_ptr(),
+                       got[0].data_ptr(), got[1].data_ptr(), caps.e, caps.n,
+                       kcap, 0, caps.e, plan.te, plan.stages, 3)
+        want = pc_ref.pins_rows_ref(d, parts, caps, kcap, dbar, 0, caps.e)
+        torch.cuda.synchronize()
+        need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"pins_count at kcap {kcap} on a grid of 3: equal to its plain "
+             f"version")
+        log(f"[6] pins_count sweep: kcap {kcap}, {-(-caps.e // plan.te)} "
+            f"tiles of TE {plan.te} on a grid of 3: equal to its plain "
+            f"version")
+    log(f"[6] pins_count sweep: {len(cases) + 3} cases in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def gains_library_ms(torch, g_ref, d, pins, caps, h: int) -> float:
@@ -1155,6 +1281,10 @@ def kway_phase(torch, kernels, hg, dl, cold, card, theta, dev):
                 float(hg.n_pins) * kcap)
     lib_pc = pins_library_ms(torch, hg, d0, parts0, caps, kcap)
     lib_g = gains_library_ms(torch, g_ref, d0, pins, caps, h)
+    dev_pc = graph_ms(torch, lambda: pc_ops.pins_matrix_kernel(
+        d0, parts0, caps, kcap))
+    log(f"[11] pins_count at kcap {kcap}: device alone {dev_pc:.4f} ms (a "
+        f"CUDA graph of 50 calls); {pins_plan(torch, pc_ops, kcap, caps.e)}")
     log(f"[11] at kcap {kcap}: pins_count {ms_pc:.4f} ms (plain "
         f"{plain_pc:.4f}, bound {b_pc[0]:.4f} by {b_pc[1]}, library "
         f"torch.bincount {lib_pc:.4f}), gains {ms_g:.4f} ms (plain "
@@ -1790,6 +1920,11 @@ def stripe_checks(torch, kernels, hg, card, omega, delta, nstripes: int):
     rows = []
     pc_bytes = 4.0 * (ne + 1 + e_pins + ne + caps.n + 2 * ne * kcap)
     b = bound(pc_bytes, e_pins)
+    dev_pc = graph_ms(torch, lambda: pc_ops.pins_rows(d0, parts0, caps, kcap,
+                                                     e0, ne))
+    log(f"[15] pins_count on stripe 0, [{ne}, {kcap}]: device alone "
+        f"{dev_pc:.4f} ms (a CUDA graph of 50 calls); "
+        f"{pins_plan(torch, pc_ops, kcap, ne)}")
     off = torch.from_numpy(hg.edge_off).to(dev)
     e_of = torch.repeat_interleave(torch.arange(hg.n_edges, device=dev),
                                    off.diff())
@@ -3189,7 +3324,9 @@ def main(argv=None) -> int:
                           max_abs_err=err_ps))
     del pairs, nbrs, ucnt, lcnt
 
-    # pins_count: CSR + parts read once, two [Ecap, kcap] outputs written
+    # pins_count: its edge cases, then CSR + parts read once, two
+    # [Ecap, kcap] outputs written
+    pins_sweep(torch, kernels, thg, pc_ops, pc_ref, dev)
     pc_bytes = 4.0 * (caps.e + 1 + hg.n_pins + caps.e + caps.n
                       + 2 * caps.e * kcap)
     ms = cuda_ms(torch, lambda: pc_ops.pins_matrix_kernel(d0, parts0, caps,
@@ -3198,6 +3335,11 @@ def main(argv=None) -> int:
                                                           kcap, dbar), 10)
     lib = pins_library_ms(torch, hg, d0, parts0, caps, kcap)
     b, by = bound(pc_bytes, float(hg.n_pins))
+    dev_ms = graph_ms(torch, lambda: pc_ops.pins_matrix_kernel(
+        d0, parts0, caps, kcap))
+    log(f"[6] pins_count [{caps.e}, {kcap}]: {ms:.4f} ms, device alone "
+        f"{dev_ms:.4f} ms (a CUDA graph of 50 calls), bound {b:.4f} ms "
+        f"({pins_plan(torch, pc_ops, kcap, caps.e)})")
     rows_used.append(dict(name="pins_count", ms=ms, plain_ms=plain,
                           bound_ms=b, bound_by=by, library_ms=lib,
                           max_abs_err=err_pc))

@@ -47,7 +47,10 @@ loaded with ``ctypes``. The build goes to ``build/repro_torch/<hash>/`` at
 the root of the checkout, keyed by a hash of the sources and flags, at
 first use, with ptxas's report of each kernel's registers and spills
 (``ptxas_log()``). Each C entry point launches on the stream it is given, allocates
-nothing and returns ``cudaGetLastError()``.
+nothing and returns ``cudaGetLastError()``. ``pins_count_launch`` also
+takes its launch shape from ``pins_count/ops.py::tile_plan`` (edge rows a
+tile, counter buffers, grid) and raises its kernel's dynamic
+shared-memory limit itself when the buffers need more than 48 KB.
 """
 from __future__ import annotations
 
@@ -79,8 +82,9 @@ _F = ctypes.c_float
 # C signature of every entry point: (argument types) -> cudaError_t as int
 _SIGNATURES = {
     # edge_off, edge_pins, edge_nsrc, parts, pins, pins_in,
-    # ecap, ncap, kcap, row0, nrows, stream
-    "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ecap, ncap, kcap, row0, nrows, te, stages, grid, stream
+    "pins_count_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
     # node_off, node_edges, edge_off, edge_pins, parts, edge_w, pins, conn,
     # ncap, ecap, kcap, h, wide, row0, nrows, stream
     "gains_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -199,7 +203,10 @@ def launch(name: str, counter: str, *args) -> None:
     if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as int
         raise TypeError(f"{name} takes {len(fn.argtypes) - 1} arguments "
                         f"and the stream, got {len(args)}")
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current device's stream; naming the device by its index skips
+    # the slow lookup that current_stream() makes without one
+    stream = torch.cuda.current_stream(
+        torch.cuda.current_device()).cuda_stream
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "

@@ -2,11 +2,16 @@
 refinement needs on every repetition, as a drop-in for
 ``core.refine.pins_matrix``.
 
-The CUDA kernel (``csrc/pins_count.cu``) reads the CSR pins directly;
-``fits_kernel`` keeps the JAX package's densify-width predicate, so the
-branch taken per level, and ``PartitionResult.kernel_path``, match it.
+The CUDA kernel (``csrc/pins_count.cu``) reads the CSR pins directly, a
+tile of edge rows a block, on a persistent grid whose shape ``tile_plan``
+chooses; ``fits_kernel`` keeps the JAX package's densify-width predicate,
+so the branch taken per level, and ``PartitionResult.kernel_path``, match
+it.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -37,6 +42,75 @@ def stripe_rows(caps: Caps, nshards: int) -> int:
     """Edge rows a shard's stripe holds on a mesh (ceil-divided, a
     multiple of 8, as the JAX package's ``stripe_rows``)."""
     return segops.round_up(-(-caps.e // max(nshards, 1)), 8)
+
+
+# a tile's two [TE, kcap] int32 counter blocks (one buffer) fit this; 16
+# KB and 128 rows timed best of 1-256 rows at kcap 2, 128 and 1024 on an
+# H100 (tools/time_pins_count.py --sweep)
+STAGE_BYTES = 16 * 1024
+MAX_TE = 128
+# dynamic shared memory a block can opt into, and an SM's, on an H100;
+# the SM keeps 1 KB of its own a resident block
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1024
+THREADS, SM_THREADS = 256, 2048
+ZERO_INTS = 1024   # the dead tiles' zero source, with two buffers
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The kernel's launch shape for one ``(kcap, nrows)``: ``te`` edge rows
+    a tile; ``buffer`` bytes of a tile's two counter blocks; ``stages``
+    buffers (2: a tile's bulk stores drain while the next one counts; 0:
+    the counters exceed shared memory and live in global memory); ``bulk``
+    whether full tiles leave by bulk asynchronous stores (a tile's span a
+    multiple of 16 bytes); ``smem`` bytes of dynamic shared memory; and
+    ``grid`` blocks."""
+    te: int
+    buffer: int
+    stages: int
+    bulk: bool
+    smem: int
+    grid: int
+
+
+def _smem(te: int, kcap: int, stages: int, bulk: bool) -> int:
+    """The kernel's shared-memory layout: ``stages`` x 2 counter blocks,
+    the zero region (two buffers of full-width spans only), then the
+    tile's ``te + 1`` offsets and ``te`` dst starts unless ``te`` is 1."""
+    span = te * kcap
+    zero = min(span, ZERO_INTS) if bulk and stages == 2 else 0
+    return 4 * (stages * 2 * span + zero + (0 if te == 1 else 2 * te + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(kcap: int, nrows: int, sms: int = 132,
+              stage_bytes: int = STAGE_BYTES) -> TilePlan:
+    """TE is the largest power of two in [1, ``MAX_TE``] whose buffer fits
+    ``stage_bytes`` (1 when none does); two buffers when they fit a block's
+    shared memory, else one, else the global-memory path. The grid is as
+    many blocks as the SMs hold at that shared memory (at most
+    ``SM_THREADS / THREADS`` each), and no more than there are tiles."""
+    te = MAX_TE
+    while te > 1 and 2 * te * kcap * 4 > stage_bytes:
+        te //= 2
+    bulk = te * kcap % 4 == 0
+    for stages in (2, 1):
+        smem = _smem(te, kcap, stages, bulk)
+        if smem <= SMEM_BLOCK:
+            per_sm = min(SM_THREADS // THREADS,
+                         SMEM_SM // (smem + SMEM_RESERVED))
+            tiles = -(-max(nrows, 1) // te)
+            return TilePlan(te, 2 * te * kcap * 4, stages, bulk, smem,
+                            max(1, min(tiles, sms * per_sm)))
+    return TilePlan(1, 2 * kcap * 4, 0, False, 0,
+                    max(1, min(nrows, sms * SM_THREADS // THREADS)))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def pins_matrix_kernel(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
@@ -74,13 +148,16 @@ def pins_rows(d: DeviceHypergraph, parts: torch.Tensor, caps: Caps,
     kernels.check(d.edge_pins, "edge_pins", torch.int32, (caps.p,), dev)
     kernels.check(d.edge_nsrc, "edge_nsrc", torch.int32, (caps.e,), dev)
     kernels.check(parts, "parts", torch.int32, (caps.n,), dev)
-    pins = torch.empty((nrows, kcap), dtype=torch.int32, device=dev)
-    pins_in = torch.empty_like(pins)
+    # one allocation for both row blocks, as refine.pins_matrix stacks them
+    pins, pins_in = torch.empty((2, nrows, kcap), dtype=torch.int32,
+                                device=dev).unbind(0)
     kernels.check(pins, "pins", torch.int32)
     whole = (row0, nrows) == (0, caps.e)
+    plan = tile_plan(kcap, nrows, _sm_count(dev))
     kernels.launch("pins_count_launch",
                    "pins_count" if whole else "pins_count_stripe",
                    d.edge_off.data_ptr(), d.edge_pins.data_ptr(),
                    d.edge_nsrc.data_ptr(), parts.data_ptr(), pins.data_ptr(),
-                   pins_in.data_ptr(), caps.e, caps.n, kcap, row0, nrows)
+                   pins_in.data_ptr(), caps.e, caps.n, kcap, row0, nrows,
+                   plan.te, plan.stages, plan.grid)
     return pins, pins_in

@@ -337,6 +337,35 @@ def test_pair_scores_fits_boundary(card, fits):
     assert tps_ops.fits_kernel(thg.build_neighbors(tp, td, tc), tp, tc) is fits
 
 
+@pytest.mark.parametrize("kcap", [1, 2, 3, 8, 1024, 4096, 29056, 40000])
+def test_pins_count_tile_plan(kcap):
+    """B2's launch shape: TE the largest power of two in [1, 128] whose two
+    [TE, kcap] int32 counter blocks fit the 16 KB buffer budget, shared
+    memory within the H100's 227 KB (232,448 B) a block, bulk stores only
+    on spans of whole 16 bytes, and the global-atomic path exactly where
+    one buffer of TE 1 (8 * kcap bytes) no longer fits."""
+    card_smem = 232_448
+    nrows = 122_880
+    plan = tpc_ops.tile_plan(kcap, nrows)
+    assert plan.te in [1 << i for i in range(9)]
+    assert plan.buffer == 2 * plan.te * kcap * 4
+    if plan.te > 1:
+        assert plan.buffer <= tpc_ops.STAGE_BYTES == 16 * 1024
+    if plan.te < tpc_ops.MAX_TE:
+        assert 2 * plan.buffer > tpc_ops.STAGE_BYTES
+    assert (plan.stages == 0) == (8 * kcap > card_smem)
+    if plan.stages:
+        assert plan.stages * plan.buffer <= plan.smem <= card_smem
+    else:
+        assert plan.smem == 0 and not plan.bulk
+    if plan.bulk:
+        assert plan.te * kcap % 4 == 0
+    tiles = -(-nrows // plan.te)
+    assert 1 <= plan.grid <= min(tiles, 132 * 8)
+    assert {2: 128, 1024: 2}.get(kcap, plan.te) == plan.te
+    assert tpc_ops.tile_plan(kcap, 5).grid <= 5
+
+
 @pytest.mark.parametrize("card,fits", [(8, True), (9, False)])
 def test_pins_count_fits_boundary(card, fits):
     jc, jd, tc, td = _one_edge(card, d_max=8)   # dbar = 8
@@ -407,6 +436,16 @@ def test_cuda_kernels_match_plain_versions():
     dbar = tpc_ops.tile_bounds(tc)[0]
     rp, rpi = tpc_ref.pins_matrix_ref(td, gparts, tc, kcap, dbar)
     assert torch.equal(pins, rp) and torch.equal(pins_in, rpi)
+    # a row count that is no multiple of TE, and a stripe whose row0 is
+    # none either, at one tile of 128 rows (kcap 8) and at tiles of 2
+    # (kcap 1024)
+    for k in (kcap, 1024):
+        for r0, n in ((0, tc.e - 1), (3, tc.e - 3)):
+            te = tpc_ops.tile_plan(k, n).te
+            assert n % te and (r0 == 0 or r0 % te)
+            got = tpc_ops.pins_rows(td, gparts, tc, k, r0, n)
+            want = tpc_ref.pins_rows_ref(td, gparts, tc, k, dbar, r0, n)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
     conn = tg_ops.conn_weights(td, gparts, pins, tc, kcap)
     assert torch.equal(conn, tg_ref.conn_weights_walk(
         td, gparts, pins, tc, kcap, tg_ops.h_bound(tc),
@@ -414,3 +453,5 @@ def test_cuda_kernels_match_plain_versions():
     assert tkernels.LAUNCHES["pair_scores"] == before["pair_scores"] + 2
     assert all(tkernels.LAUNCHES[k] == before[k] + 1
                for k in ("pins_count", "gains"))
+    assert tkernels.LAUNCHES["pins_count_stripe"] \
+        == before["pins_count_stripe"] + 4
