@@ -16,6 +16,11 @@ transport is fixed when it is built, never chosen by catching an error:
 
 The computation stays on the ranks' devices; only what a collective
 carries moves. Booleans travel as int32.
+
+`MetaComm` has ``Comm``'s methods for a group that exists only as a size
+and this rank's place in it (the dry run's ``Plan.abstract``): each
+returns a meta tensor of the shape the collective returns and records
+what it carries in the active cost counter (``launch.op_cost``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils import cost_hooks
 
 # host-staged collectives of this process, over every Comm: copies (device
 # to host and back), their bytes, and seconds spent in them
@@ -142,3 +149,56 @@ class Comm:
             dist.broadcast(y, src=dist.get_global_rank(self.group, src),
                            group=self.group)
             return self._back(y, x.dtype)
+
+
+class MetaComm:
+    """``Comm``'s collectives over a group of ``size`` ranks that exists
+    only as shapes: each returns a ``meta`` tensor of the shape and dtype
+    the real collective returns, and records its op and the bytes it
+    carries a rank (its output's, as ``Comm`` carries them: booleans as
+    int32) in the active ``launch.op_cost.OpCounter``, if any."""
+
+    transport = "meta"
+    device = torch.device("meta")
+
+    def __init__(self, size: int, rank: int = 0):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of a group of {size}")
+        self.size, self.rank = size, rank
+
+    def _record(self, op: str, x: torch.Tensor, out: torch.Tensor):
+        c = cost_hooks.active()
+        if c is not None:
+            size = lambda t: t.numel() * (4 if t.dtype == torch.bool
+                                          else t.element_size())
+            c.collective(op, size(out), size(x))
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if op not in _OPS:
+            raise KeyError(op)
+        return self._record("all-reduce", x, torch.empty_like(
+            x, device="meta"))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self._record("all-gather", x, x.new_empty(
+            (self.size,) + tuple(x.shape), device="meta"))
+
+    def all_to_all(self, x: torch.Tensor, send: list[int],
+                   recv: list[int]) -> torch.Tensor:
+        raise NotImplementedError(
+            "MetaComm.all_to_all: its split sizes come from the data, "
+            "which meta tensors do not hold")
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_floating_point():
+            raise TypeError("reduce_scatter takes integer partials")
+        if x.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter of {x.shape[0]} rows over "
+                             f"{self.size} ranks")
+        return self._record("reduce-scatter", x, x.new_empty(
+            (x.shape[0] // self.size,) + tuple(x.shape[1:]), device="meta"))
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        return self._record("collective-broadcast", x, torch.empty_like(
+            x, device="meta"))

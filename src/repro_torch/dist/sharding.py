@@ -28,6 +28,16 @@ changing what is computed. Weight sharding and the flags that change the
 computation (``seq_parallel_attn``, ``attn_p_bf16``, ``mla_flash``,
 ``moe_local``) are ROADMAP.md Queue A item 14i: ``check_ported`` raises
 for the flags.
+
+``Plan.abstract`` builds the plan of a mesh that exists only as its shape
+(``launch.mesh.make_production_mesh``: 16 x 16 ``("data", "model")`` or 2
+x 16 x 16 ``("pod", "data", "model")``) for one rank's coordinates: no
+process group, tensors on the ``meta`` device, each group a
+``comm.MetaComm`` of its size. The rules then follow the JAX ``Plan.make``
+on both meshes: "batch" over every dim but "model" (``("pod", "data")``
+on the multi-pod mesh), "embed" over "data" alone under FSDP. It is what
+the dry run (``launch.dryrun``) counts on. A process-group mesh with a
+"pod" dim is ROADMAP.md Queue A item 14k.
 """
 from __future__ import annotations
 
@@ -38,22 +48,29 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.dist.comm import Comm
+from repro_torch.dist.comm import Comm, MetaComm
 
 MESH_DIMS = ("data", "model")
+# the dims of a mesh Plan.abstract takes: the production meshes'
+ABSTRACT_DIMS = (MESH_DIMS, ("pod",) + MESH_DIMS)
 # the rules of computation-changing flags, each waiting for item 14i
 UNPORTED_RULES = ("attn_seq", "attn_p_bf16", "mla_flash",
                   "moe_local_dispatch")
 
 
-def lm_rules(*, fsdp: bool = True, seq_shard_kv: bool = True,
-             moe_local: bool = False, seq_parallel_attn: bool = False,
-             attn_p_bf16: bool = False, mla_flash: bool = False) -> dict:
-    """The JAX ``Plan.make``'s rules on a ``("data", "model")`` mesh."""
-    dp, tp = "data", "model"
+def lm_rules(*, dims: tuple = MESH_DIMS, fsdp: bool = True,
+             seq_shard_kv: bool = True, moe_local: bool = False,
+             seq_parallel_attn: bool = False, attn_p_bf16: bool = False,
+             mla_flash: bool = False) -> dict:
+    """The JAX ``Plan.make``'s rules on a mesh of ``dims``: "batch" over
+    every dim but "model" (one dim's name, or a tuple of them), FSDP's
+    "embed" over "data" alone."""
+    dp_dims = tuple(d for d in dims if d != "model")
+    dp = dp_dims[0] if len(dp_dims) == 1 else dp_dims
+    tp = "model" if "model" in dims else None
     return {
         "batch": dp,
-        "embed": dp if fsdp else None,
+        "embed": ("data" if "data" in dims else dp) if fsdp else None,
         "heads": tp,
         "kv_heads": tp,
         "mlp": tp,
@@ -76,6 +93,11 @@ class Plan:
     data: Comm
     model: Comm
     rules: dict[str, Any] = dataclasses.field(default_factory=lm_rules)
+    # a plan of ``abstract``: the mesh's dims, sizes and this rank's
+    # coordinates, where ``mesh`` is None
+    dims: tuple = MESH_DIMS
+    sizes: tuple | None = None
+    at: tuple | None = None
 
     @classmethod
     def make(cls, mesh: DeviceMesh, device=None, **flags) -> "Plan":
@@ -84,8 +106,11 @@ class Plan:
         ``seq_shard_kv``, ``moe_local``, ``seq_parallel_attn``,
         ``attn_p_bf16``, ``mla_flash``)."""
         if tuple(mesh.mesh_dim_names or ()) != MESH_DIMS:
-            raise ValueError(f"the mesh dims must be {MESH_DIMS}, got "
-                             f"{mesh.mesh_dim_names}")
+            raise ValueError(
+                f"the mesh dims must be {MESH_DIMS}, got "
+                f"{mesh.mesh_dim_names} (a process-group mesh with a "
+                f"\"pod\" dim is ROADMAP.md Queue A item 14k; "
+                f"Plan.abstract takes one as a shape)")
         rules = lm_rules(**flags)
         if device is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -94,12 +119,42 @@ class Plan:
                    data=Comm(mesh.get_group("data"), device),
                    model=Comm(mesh.get_group("model"), device), rules=rules)
 
+    @classmethod
+    def abstract(cls, shape: dict, coords: dict | None = None,
+                 **flags) -> "Plan":
+        """The plan of the rank at ``coords`` (every dim 0 unless given)
+        on a mesh that is only its ``shape`` ({dim: size}, the dims one of
+        ``ABSTRACT_DIMS``): no process group, tensors on the meta device,
+        the "data" comm a `MetaComm` over the batch's dims (their product
+        on a multi-pod mesh), the "model" comm one over "model"; ``flags``
+        as in `make`."""
+        dims = tuple(shape)
+        if dims not in ABSTRACT_DIMS:
+            raise ValueError(f"the mesh dims must be one of "
+                             f"{ABSTRACT_DIMS}, got {dims}")
+        at = {d: 0 for d in dims} if coords is None else dict(coords)
+        if set(at) != set(dims) or any(not 0 <= at[d] < shape[d]
+                                       for d in dims):
+            raise ValueError(f"coords {coords} on a mesh of {shape}")
+        rules = lm_rules(dims=dims, **flags)
+        dp = rules["batch"]
+        rank, size = 0, 1
+        for d in ((dp,) if isinstance(dp, str) else dp):
+            rank, size = rank * shape[d] + at[d], size * shape[d]
+        return cls(mesh=None, device=torch.device("meta"),
+                   data=MetaComm(size, rank),
+                   model=MetaComm(shape["model"], at["model"]), rules=rules,
+                   dims=dims, sizes=tuple(shape[d] for d in dims),
+                   at=tuple(at[d] for d in dims))
+
     def shape(self) -> dict:
-        return dict(zip(MESH_DIMS, self.mesh.mesh.shape))
+        sizes = self.sizes if self.mesh is None else self.mesh.mesh.shape
+        return dict(zip(self.dims, map(int, sizes)))
 
     def coords(self) -> dict:
         """This rank's coordinate along each mesh dim."""
-        return dict(zip(MESH_DIMS, self.mesh.get_coordinate()))
+        at = self.at if self.mesh is None else self.mesh.get_coordinate()
+        return dict(zip(self.dims, at))
 
     def pspec(self, *axes: str | None) -> tuple:
         """Logical axis names to the mesh dims each tensor dim splits over
@@ -132,7 +187,10 @@ class Plan:
         return n
 
     def n_devices(self) -> int:
-        return self.mesh.mesh.numel()
+        n = 1
+        for size in self.shape().values():
+            n *= size
+        return n
 
     def check_ported(self) -> None:
         """Raise for a rule whose computation is not ported yet."""
@@ -146,9 +204,9 @@ class Plan:
         return self.model.transport
 
     def describe(self) -> str:
-        sh = self.shape()
-        return (f"mesh data={sh['data']} model={sh['model']} "
-                f"device={self.device} transport={self.transport()}")
+        dims = " ".join(f"{d}={n}" for d, n in self.shape().items())
+        return (f"mesh {dims} device={self.device} "
+                f"transport={self.transport()}")
 
 
 def make_mesh(data: int, model: int, device=None, **flags) -> Plan:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attn import ref
+from repro_torch.utils import cost_hooks
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,7 +28,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """``[B,S,H,Dh]`` attention output in q's dtype. CUDA tensors launch
     the kernel; CPU tensors run the plain version."""
     if not q.is_cuda:
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        # under the dry run's cost counter (meta tensors) the kernel's own
+        # traffic: q, k and v read once, o written once
+        size = lambda t: t.numel() * t.element_size()
+        with cost_hooks.kernel("flash_attn", size(q) + size(k) + size(v),
+                               size(q)):
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           scale=scale)
     b, s, h, d = q.shape
     kv = k.shape[2]
     if tuple(k.shape) != (b, s, kv, d) or h % kv or d not in HEAD_DIMS \

@@ -5,7 +5,8 @@
       [--ckpt-dir /tmp/ck --resume]
 
 Runs on the card unless ``--device`` names another device. ``--mesh host``
-waits for ROADMAP.md Queue A item 14i (training on a mesh).
+(a plan over ``launch.mesh.make_host_mesh``) waits for ROADMAP.md Queue A
+item 14i (training on a mesh).
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ def main(argv=None):
 
     if args.mesh == "host":
         raise NotImplementedError(
-            "--mesh host is not ported yet: ROADMAP.md Queue A item 14i "
-            "(training on a mesh)")
+            "--mesh host (training on a mesh) is not ported yet: "
+            "ROADMAP.md Queue A item 14i")
     from repro_torch.train.loop import train, train_supervised
     cfg = get_config(args.arch)
     if args.smoke:

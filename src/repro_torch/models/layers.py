@@ -47,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models.common import Spec, SpecModule, apply_rope, rms_norm
+from repro_torch.utils import cost_hooks
 
 F32 = torch.float32
 
@@ -123,7 +124,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     m = torch.full((B, nq, KV, g, qc), float("-inf"), dtype=F32, device=dev)
     l = torch.zeros((B, nq, KV, g, qc), dtype=F32, device=dev)
     acc = torch.zeros((B, nq, KV, g, qc, Dv), dtype=F32, device=dev)
-    for ki in range(nk):
+    for ki in cost_hooks.chunks(nk):
         s = torch.einsum("bnqkgd,bckd->bnkgqc", qr,
                          kr[:, ki].float()) * scale
         if causal:
@@ -364,13 +365,15 @@ class Routing:
     ``g * K + k``), in the JAX package's terms: ``gates`` [G, E] f32,
     ``topv``/``topi`` [G, K] (``topi`` after ``expert_perm``), the lanes
     sorted stably by expert (``se`` the sorted ids, ``order`` the lane of
-    each sorted entry, JAX's ``payload``), ``pos`` each sorted lane's place
-    in its expert's group and ``keep = pos < cap``."""
+    each sorted entry, JAX's ``payload``), ``bounds`` [E + 1] where each
+    expert's group starts in ``se`` (`group_bounds`), ``pos`` each sorted
+    lane's place in its expert's group and ``keep = pos < cap``."""
     gates: torch.Tensor
     topv: torch.Tensor
     topi: torch.Tensor
     se: torch.Tensor
     order: torch.Tensor
+    bounds: torch.Tensor
     pos: torch.Tensor
     keep: torch.Tensor
     cap: int
@@ -397,11 +400,17 @@ def moe_route(p, xf, cfg: ArchConfig, expert_perm=None) -> Routing:
     se, order = torch.sort(topi.reshape(G * K), stable=True)
     # a sorted lane's place in its group: its index less the group's
     # first, which JAX finds by a max-scan of the group starts
-    counts = torch.bincount(se, minlength=E)
-    pos = torch.arange(G * K, device=xf.device) \
-        - (torch.cumsum(counts, 0) - counts)[se]
+    bounds = group_bounds(se, E)
+    pos = torch.arange(G * K, device=xf.device) - bounds[se]
     return Routing(gates=gates, topv=topv, topi=topi, se=se, order=order,
-                   pos=pos, keep=pos < cap, cap=cap)
+                   bounds=bounds, pos=pos, keep=pos < cap, cap=cap)
+
+
+def group_bounds(se, E: int):
+    """[E + 1]: where each expert's group starts in the sorted ids ``se``,
+    then their count: exact integers by a binary search, the same ops on
+    every device (the meta device included)."""
+    return torch.searchsorted(se, torch.arange(E + 1, device=se.device))
 
 
 def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
@@ -434,7 +443,11 @@ def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
     xf = x.reshape(G, D)
     r = moe_route(p, xf, cfg, expert_perm)
 
-    density = torch.bincount(r.topi[:, 0], minlength=E).float() / G
+    # each expert's count of first choices: lanes g * K (k = 0) counted
+    # through the sorted order, group by group
+    first = nn.functional.pad(torch.cumsum((r.order % K == 0).long(), 0),
+                              (1, 0))
+    density = (first[r.bounds[1:]] - first[r.bounds[:-1]]).float() / G
     aux = torch.sum(density * torch.mean(r.gates, dim=0)) * E \
         * mo.router_aux_coef
 

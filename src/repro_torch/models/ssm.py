@@ -22,6 +22,11 @@ only:
 
 The sLSTM is one step a token: a ``[B,D] x [D,4D]`` recurrent product and
 the gates, about nineteen device launches a step on the card.
+
+The chunk loops and the sLSTM's token loop go through
+``utils.cost_hooks.chunks``: ``range`` in every run that computes; under
+the dry run's cost counter on meta tensors one step of a run of equal
+steps, counted as many times as the run has steps.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import Spec, SpecModule
+from repro_torch.utils import cost_hooks
 from repro_torch.utils.segops import cumsum_f32
 
 F32 = torch.float32
@@ -113,7 +119,7 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
     h = torch.zeros((B, di, mb.d_state), dtype=F32, device=x.device) \
         if state is None else state[1].float()
     ys = []
-    for s0 in range(0, S, chunk):
+    for s0 in cost_hooks.chunks(S, chunk):
         sl = slice(s0, s0 + chunk)
         dA = torch.exp(dt[:, sl, :, None].float() * A)          # [B,c,di,ds]
         dBx = dtx[:, sl, :, None].float() * Bmat[:, sl, None, :].float()
@@ -124,7 +130,7 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
         h = hs[:, -1]
         ys.append(torch.einsum("bsen,bsn->bse", hs, Cmat[:, sl].float()))
         del hs
-    y = torch.cat(ys, dim=1).to(x.dtype)
+    y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).to(x.dtype)
     y = y + xc * p["d_skip"]
     out = (y * F.silu(z)) @ p["w_out"]
     return out, (new_tail, h)
@@ -178,7 +184,7 @@ def mlstm_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MLSTM_CHUNK):
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=x.device).tril()
     ys = []
-    for s0 in range(0, S, chunk):
+    for s0 in cost_hooks.chunks(S, chunk):
         sl = slice(s0, s0 + chunk)
         qb, kb, vb = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
         ib = logi[:, sl]
@@ -202,7 +208,7 @@ def mlstm_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MLSTM_CHUNK):
             "bjhd,bjhe->bhde", kb * dk[..., None], vb)
         n = n * torch.exp(ftot)[..., None] + torch.einsum(
             "bjh,bjhd->bhd", dk, kb)
-    y = torch.cat(ys, dim=1).reshape(B, S, D)
+    y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).reshape(B, S, D)
     og = torch.sigmoid(x @ p["w_og"])
     return (y * og) @ p["wo"], (C, n)
 
@@ -241,7 +247,7 @@ def slstm_apply(p, x, cfg: ArchConfig, state=None):
                       state[2].to(x.dtype), state[3].float())
     r = p["r_gates"]
     hs = []
-    for t in range(S):
+    for t in cost_hooks.chunks(S):
         zi, zf, zz, zo = (zx[:, t] + h @ r).float().chunk(4, dim=-1)
         zfm = zf + m
         m_new = torch.maximum(zfm, zi)
@@ -253,4 +259,5 @@ def slstm_apply(p, x, cfg: ArchConfig, state=None):
              * torch.sigmoid(zo)).to(x.dtype)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1) @ p["wo"], (c, n, h, m)
+    return torch.stack(cost_hooks.outputs(hs, S), dim=1) @ p["wo"], \
+        (c, n, h, m)

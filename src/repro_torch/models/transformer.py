@@ -457,6 +457,21 @@ def _write_prefill(leaf_, new, sh: Shards | None) -> None:
         leaf_[:, :n] = new[:, lo:lo + n].to(leaf_.dtype)
 
 
+def _local_rows(posv, lo: int, n: int):
+    """Each row's write into a rank's positions ``[lo, lo + n)``: (rows,
+    their local positions clamped into the shard, which rows fall in it).
+    A row outside writes back what it reads there, so every device runs
+    the same ops with no data-dependent shape."""
+    lpos = posv - lo
+    return (torch.arange(posv.shape[0], device=posv.device),
+            lpos.clamp(0, n - 1), (lpos >= 0) & (lpos < n))
+
+
+def _bcast(mask, x):
+    """A [B] mask shaped to broadcast over the [B, ...] tensor ``x``."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+
+
 def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
     """Write (k_new, v_new) at per-row ``pos`` (scalar or [B]) of the dense
     cache, in place, and attend. ``sh`` (this call's `Shards`, None off a
@@ -476,10 +491,10 @@ def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
         o = L.decode_attention(q, kcache, vcache, length=posv + 1)
         return o, kcache, vcache
     Sl = kcache.shape[1]
-    lpos = posv - sh.seq[0] * Sl
-    rows = ((lpos >= 0) & (lpos < Sl)).nonzero().squeeze(1)
-    kcache[rows, lpos[rows]] = k_new[rows, 0]
-    vcache[rows, lpos[rows]] = v_new[rows, 0]
+    rows, at, here = _local_rows(posv, sh.seq[0] * Sl, Sl)
+    for cache, new in ((kcache, k_new), (vcache, v_new)):
+        cache[rows, at] = torch.where(_bcast(here, new[:, 0]), new[:, 0],
+                                      cache[rows, at])
     gpos = sh.seq[0] * Sl + torch.arange(Sl, device=q.device)
     o = L.flash_decode(sh.plan.model, q, kcache, vcache,
                        gpos[None, :] <= posv[:, None])
@@ -592,10 +607,10 @@ def _mla_decode_update(sh, p, q_nope, q_rope, c_new, kr_new, c_cache,
         valid = torch.arange(cc.shape[1], device=dev)[None] <= posv[:, None]
     else:
         Sl = c_cache.shape[1]
-        lpos = posv - sh.seq[0] * Sl
-        rows = ((lpos >= 0) & (lpos < Sl)).nonzero().squeeze(1)
-        c_cache[rows, lpos[rows]] = c_new[rows, 0]
-        kr_cache[rows, lpos[rows]] = kr_new[rows, 0]
+        rows, at, here = _local_rows(posv, sh.seq[0] * Sl, Sl)
+        for cache, new in ((c_cache, c_new), (kr_cache, kr_new)):
+            cache[rows, at] = torch.where(_bcast(here, new[:, 0]),
+                                          new[:, 0], cache[rows, at])
         cc, krc = c_cache, kr_cache
         c_all, kr_all = cc, krc
         gpos = sh.seq[0] * Sl + torch.arange(Sl, device=dev)

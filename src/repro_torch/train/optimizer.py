@@ -80,9 +80,11 @@ def init_state(model: LM) -> TrainState:
 
 def abstract_state(cfg, compute_dtype=torch.bfloat16) -> TrainState:
     """The TrainState's structure, dtypes and shapes with no storage: its
-    tensors lie on the meta device. Takes the config (an LM needs it)
+    tensors lie on the meta device, the compute params taking gradients
+    as `init_state`'s do. Takes the config (an LM needs it)
     where the JAX function takes the parameter specs."""
     params = LM(cfg, device="meta", dtype=compute_dtype)
+    params.requires_grad_(True)
     f32 = lambda: {n: torch.empty(p.shape, dtype=F32, device="meta")
                    for n, p in params.named_parameters()}
     return TrainState(params=params, master=f32(), mu=f32(), nu=f32(),
