@@ -262,10 +262,25 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      prefill and decode tokens/s, peak memory and host-staged copies,
      bytes and seconds (collectives a decode step for static). No step
      is profiled.
+ 22. training on a mesh, run by phase 15's (2, 2) ranks after their
+     solves (one spawn for both phases), all four on this card over gloo:
+     qwen2-1.5b at full width and depth, each rank drawing its shard of
+     phase 16's seed-0 weights (the whole state never on one rank), two
+     bf16 steps of phase 16's batches (4 x 1,024 tokens) through
+     ``train(plan=)``: attention, the MLP, the embedding and the head
+     tensor-parallel over "model", FSDP over "data". The parent holds
+     the two losses within 2^-8 of phase 16's first two, after phase 16.
+     Each rank logs its state bytes (a quarter of the 24.9 GB whole, but
+     for the norms and biases, which stay whole over "data"), peak
+     memory, step seconds and host-staged copies, bytes and seconds a
+     step; no kernel launched. Then the smoke config's 2 + resume 2
+     steps on the same ranks (a mesh checkpoint written whole by rank 0,
+     restored as each rank's shards) end on the straight run's loss bit
+     for bit.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 21 run under
+the same parts. Phases 3 to 5 and 9 to 22 run under
 ``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
@@ -285,6 +300,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -402,6 +418,9 @@ SERVICE_PROFILE_LEVELS = 2
 # phase 16: training at qwen2-1.5b's full width and depth, uncut
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
+# phase 22: training on phase 15's (2, 2) mesh, the first MESH_TRAIN_STEPS
+# of phase 16's steps
+MESH_TRAIN_STEPS = 2
 # phase 16's checkpoint, resume and supervision checks: TRAIN_CKPT_STEPS
 # straight steps against half of them + a resume, on the smoke config,
 # not the full width: a full-width TrainState is about 24.9 GB of npz (14 B
@@ -1749,7 +1768,8 @@ def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs,
     ``apply_delta_sharded``, then a warm ``repartition`` from
     ``prev_parts``), "service" (one routed request through
     ``PartitionService(plan=..., shard_graph=True, race=False)``) or
-    "serve" (phase 21's serving runs, ``mesh_serve_runs``)."""
+    "serve" (phase 21's serving runs, ``mesh_serve_runs``) or "train"
+    (phase 22's, ``mesh_train_runs``, its checkpoints under ``ckpt``)."""
     sys.path.insert(0, src)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1781,6 +1801,10 @@ def dist_rank(rank, src, layers, omega, delta, theta, data, model, runs,
         if kind == "serve":
             out.append(dict(run=run,
                             serve=mesh_serve_runs(torch, plan, dev)))
+            continue
+        if kind == "train":
+            out.append(dict(run=run, train=mesh_train_runs(
+                torch, kernels, plan, run["ckpt"])))
             continue
         sharded = kind != "solve" or run["shard"]
         # the stripe this rank would store (no solve holds it here yet)
@@ -2007,7 +2031,7 @@ def _solve(race=False, seed=0, shard=False, comp=False) -> dict:
 
 
 def dist_phase(torch, kernels, card, layers, omega, delta, theta,
-               serve: bool = False):
+               serve: bool = False, train: bool = False):
     """Phase 15: the mesh V-cycle. ``partition(use_kernels=True)`` of the
     ``layers``-deep graph on one device, then the same solve by spawned
     ranks that all compute on this card over gloo (their collectives
@@ -2025,10 +2049,12 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta,
     process, gives the single-device parts. Each sharded rank stores at
     most ``9 * ceil(caps.p / model)`` bytes of pins arrays. B1-B3's
     stripe launches are held to their plain versions first. With ``serve``
-    the (1, 2) ranks then run phase 21's serving (``mesh_serve_runs``).
-    Returns the stripe rows of the kernels JSON, their launches those of
-    the replicated (1, 2) solve over both ranks, and the (1, 2) ranks'
-    serving results (None without ``serve``)."""
+    the (1, 2) ranks then run phase 21's serving (``mesh_serve_runs``),
+    with ``train`` the (2, 2) ranks phase 22's training
+    (``mesh_train_runs``). Returns the stripe rows of the kernels JSON,
+    their launches those of the replicated (1, 2) solve over both ranks,
+    the (1, 2) ranks' serving results and the (2, 2) ranks' training
+    results (None without ``serve`` or ``train``)."""
     from repro_torch.core import generate
     from repro_torch.core.hypergraph import Caps
     from repro_torch.core.partitioner import (WarmCache, partition,
@@ -2069,14 +2095,19 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta,
          and rw.audit["inbound_ok"], "[15] single-device warm repartition")
     src = str(Path(__file__).resolve().parent / "src")
     args = (src, layers, omega, delta, theta)
+    ckpt = tempfile.mkdtemp(prefix="mesh-train-")
     meshes = [((1, 2), "gloo", [_solve(), _solve(shard=True),
                                 _solve(comp=True), dict(kind="warm"),
                                 dict(kind="service")]
                 + [dict(kind="serve")] * serve),
               ((2, 2), "gloo", [_solve(), _solve(race=True, seed=5),
-                                _solve(race=True, seed=5, shard=True)]),
+                                _solve(race=True, seed=5, shard=True)]
+               + [dict(kind="train", ckpt=ckpt)] * train),
               ((1, 1), "nccl", [_solve()])]
-    stripe_launches, served = None, None
+    stripe_launches, served, trained = None, None, None
+    # the ranks' training needs the card's memory: what this process
+    # cached goes back first
+    torch.cuda.empty_cache()
     for (data, model), backend, runs in meshes:
         t0 = time.perf_counter()
         if data * model == 1:   # nobody to wait for: no spawn
@@ -2094,6 +2125,9 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta,
             per = [rank_out[i] for rank_out in res]
             if run["kind"] == "serve":
                 served = [o["serve"] for o in per]
+                continue
+            if run["kind"] == "train":
+                trained = [o["train"] for o in per]
                 continue
             a = per[0]
             for o in per[1:]:
@@ -2151,7 +2185,7 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta,
                     f"{'equal to' if (a['parts'] == r0.parts).all() else 'unlike'}"
                     f" the exact solve's")
         if (data, model) == (2, 2):
-            a, b, c = res[0]
+            a, b, c = res[0][:3]
             need((b["parts"] == c["parts"]).all() and b["audit"] == c["audit"],
                  "[15] the sharded raced solve equals the replicated raced "
                  "solve for its seed")
@@ -2165,16 +2199,18 @@ def dist_phase(torch, kernels, card, layers, omega, delta, theta,
             for name, n in stripe_launches.items():
                 need(n > 0, f"[15] {name} launched on stripes by the "
                      f"(1, 2) solve")
+    shutil.rmtree(ckpt, ignore_errors=True)
     for r in rows:
         r["launches"] = stripe_launches[r["name"]]
         r["kernel"], r["name"] = r["name"], r["name"] + "_stripe"
-    return rows, served
+    return rows, served, trained
 
 
-def train_phase(torch, kernels, card) -> None:
+def train_phase(torch, kernels, card) -> list:
     """Phase 16: ``train`` at full width twice (4 steps, then the first
     2 again), then the smoke config's resume, supervision and loss
-    decrease. Runs under ``torch.use_deterministic_algorithms(True)``."""
+    decrease. Runs under ``torch.use_deterministic_algorithms(True)``.
+    Returns the full-width run's losses (phase 22's reference)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -2286,6 +2322,89 @@ def train_phase(torch, kernels, card) -> None:
         f"{statistics.mean(runs['cpu'][:3]):.4f} -> "
         f"{statistics.mean(runs['cpu'][-3:]):.4f}, largest relative gap "
         f"{gap:.3g}); phase {t_phase:.1f} s on {card}")
+    return losses
+
+
+def mesh_train_runs(torch, kernels, plan, ckpt: str) -> dict:
+    """Phase 22 on one rank of phase 15's (2, 2) mesh: ``train(plan=)`` of
+    qwen2-1.5b at full width and depth, ``MESH_TRAIN_STEPS`` bf16 steps of
+    phase 16's batches from the rank's shard of phase 16's seed-0 weights,
+    the staging and launch counts reset just before and read just after;
+    then the smoke config's 4 straight steps and 2 + resume 2 steps with
+    mesh checkpoints under ``ckpt``. Returns plain numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+
+    cfg = get_config(TRAIN_ARCH)
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
+              seed=0, plan=plan, ocfg=opt.OptConfig(
+                  total_steps=TRAIN_STEPS, warmup=max(TRAIN_STEPS // 5, 1)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # what the rank's solves cached
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    res = loop.train(cfg, steps=MESH_TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    out = dict(losses=[l for _, l in res.losses], step_s=res.step_s,
+               wall=time.perf_counter() - t0, state_bytes=res.state_bytes,
+               peak=torch.cuda.max_memory_allocated(),
+               staged=dict(comm.STATS), launches=dict(kernels.LAUNCHES),
+               coords=plan.coords())
+    small = cfg.smoke()
+    kw = dict(global_batch=8, seq_len=32, log_every=1, seed=3, plan=plan,
+              ocfg=opt.OptConfig(total_steps=4, warmup=2))
+    straight = loop.train(small, steps=4, ckpt_dir=f"{ckpt}/a",
+                          ckpt_every=2, **kw)
+    loop.train(small, steps=2, ckpt_dir=f"{ckpt}/b", ckpt_every=2, **kw)
+    resumed = loop.train(small, steps=4, ckpt_dir=f"{ckpt}/b", ckpt_every=2,
+                         resume=True, **kw)
+    out["resume"] = (straight.losses, resumed.losses)
+    return out
+
+
+def mesh_train_phase(card, trained: list, ref: list) -> None:
+    """Phase 22's checks and log, in this process: each (2, 2) rank's
+    ``mesh_train_runs`` against phase 16's losses ``ref``."""
+    cfg_tokens = TRAIN_BATCH * TRAIN_SEQ
+    first = trained[0]
+    for o in trained:
+        need(o["losses"] == first["losses"],
+             f"[22] every rank the same losses: {o['losses']} against "
+             f"{first['losses']}")
+        need(not any(o["launches"].values()),
+             f"[22] training launches no kernel: {o['launches']}")
+        straight, resumed = o["resume"]
+        need(resumed == straight[2:],
+             f"[22] smoke config: 2 + resume 2 on the mesh end on the "
+             f"straight run's losses bit for bit: {resumed} against "
+             f"{straight[2:]}")
+    need(len(first["losses"]) == MESH_TRAIN_STEPS
+         and all(map(math.isfinite, first["losses"])),
+         f"[22] {MESH_TRAIN_STEPS} finite losses: {first['losses']}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(first["losses"], ref))
+    need(gap <= 2 ** -8, f"[22] the (2, 2) mesh's losses within 2^-8 of "
+         f"phase 16's: {first['losses']} against {ref[:MESH_TRAIN_STEPS]} "
+         f"({gap:.3g})")
+    log(f"[22] {TRAIN_ARCH} on (2, 2) over gloo, 4 ranks on this card: "
+        f"losses {json.dumps(first['losses'])} against phase 16's "
+        f"{json.dumps(ref[:MESH_TRAIN_STEPS])} (largest relative gap "
+        f"{gap:.3g}); {MESH_TRAIN_STEPS} steps of {cfg_tokens} tokens")
+    for o in trained:
+        n = MESH_TRAIN_STEPS
+        st = o["staged"]
+        log(f"[22] rank {o['coords']}: state {o['state_bytes']} B "
+            f"({o['state_bytes'] / 1e9:.3f} GB), peak device memory "
+            f"{o['peak'] / 2**30:.3f} GiB, step seconds "
+            f"{json.dumps([round(t, 3) for t in o['step_s']])}, wall "
+            f"{o['wall']:.2f} s; host-staged a step: "
+            f"{st['copies'] / n:.0f} copies, {st['bytes'] / n / 2**30:.3f} "
+            f"GiB, {st['seconds'] / n:.3f} s; on {card}")
+    log(f"[22] smoke config on the mesh: 4 straight steps and 2 + resume 2 "
+        f"end on loss {first['resume'][0][-1][1]:.6f} bit for bit")
 
 
 def moe_serve_phase(torch, kernels, card) -> dict:
@@ -3426,15 +3545,17 @@ def main(argv=None) -> int:
     log(f"[14] {time.perf_counter() - t_start:.1f} s from the start")
 
     # ---- 15. the mesh V-cycle; its (1, 2) ranks also serve phase 21 -----
-    rows, served = dist_phase(torch, kernels, card,
-                              min(args.layers, DIST_LAYERS), omega, delta,
-                              DIST_THETA, serve=True)
+    rows, served, trained = dist_phase(torch, kernels, card,
+                                       min(args.layers, DIST_LAYERS), omega,
+                                       delta, DIST_THETA, serve=True,
+                                       train=True)
     rows_used += rows
     log(f"[15] {time.perf_counter() - t_start:.1f} s from the start")
 
-    # ---- 16. training --------------------------------------------------
-    train_phase(torch, kernels, card)
+    # ---- 16. training; 22. training on phase 15's (2, 2) mesh ----------
+    losses16 = train_phase(torch, kernels, card)
     log(f"[16] {time.perf_counter() - t_start:.1f} s from the start")
+    mesh_train_phase(card, trained, losses16)
 
     # ---- 17. MoE serving at full width --------------------------------
     rows_used.append(moe_serve_phase(torch, kernels, card))

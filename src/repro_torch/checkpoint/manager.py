@@ -12,8 +12,11 @@ JAX path joined by "/" (a ``TrainState`` as ``.params/stack/slot0/...``,
 ``.master/...``, ``.mu/...``, ``.nu/...``, ``.step``, layer leaves stacked
 ``[n_superblocks, ...]``), bf16 stored as its ``uint16`` bits, and a
 ``manifest.json`` with ``step``, ``keys``, ``dtypes`` and ``extra``.
-Restoring with shardings on a mesh waits for ROADMAP.md Queue A item 14i;
-``restore(device=)`` places a TrainState on one device.
+``restore(device=)`` places a TrainState on one device. On a mesh
+(``plan=``, the counterpart of the JAX ``restore(shardings=)``) ``save``
+gathers each leaf of a rank-sharded TrainState whole and one rank writes
+it, in the same format, and ``restore`` gives each rank its shards: a
+checkpoint of one mesh restores on another mesh or on one device.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import convert
 from repro_torch.train.optimizer import TrainState
@@ -32,11 +36,12 @@ from repro_torch.train.optimizer import TrainState
 _FIELDS = ("params", "master", "mu", "nu", "step")
 
 
-def _tree(tree):
+def _tree(tree, plan=None):
     """A TrainState as the JAX flatten sees it (its fields are ".name"
-    path entries); any other tree as it is."""
+    path entries, its leaves whole); any other tree as it is."""
     if isinstance(tree, TrainState):
-        return {f".{k}": v for k, v in convert.state_to_jax(tree).items()}
+        return {f".{k}": v for k, v in
+                convert.state_to_jax(tree, plan).items()}
     return tree
 
 
@@ -78,10 +83,24 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree, extra: dict | None = None) -> str:
-        """tree: a TrainState, or nested dicts of arrays or tensors."""
+    def save(self, step: int, tree, extra: dict | None = None,
+             plan=None) -> str:
+        """tree: a TrainState, or nested dicts of arrays or tensors. Under
+        ``plan`` (every rank calls this) a TrainState of the ranks' shards
+        is gathered whole, global rank 0 writes it, and the ranks meet at
+        a barrier after the write."""
+        whole = _tree(tree, plan)
+        final = os.path.join(self.dir, f"step-{step:08d}")
+        if plan is not None and plan.mesh is not None:
+            if dist.get_rank() == 0:
+                self._write(step, whole, extra)
+            dist.barrier()
+            return final
+        return self._write(step, whole, extra)
+
+    def _write(self, step: int, tree, extra) -> str:
         flat, dtypes = {}, {}
-        for k, leaf in _flatten(_tree(tree)).items():
+        for k, leaf in _flatten(tree).items():
             flat[k], dtypes[k] = _to_numpy(leaf)
         tmp = tempfile.mkdtemp(prefix=f"tmp-{step}-", dir=self.dir)
         try:
@@ -122,12 +141,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None,
-                device=None) -> tuple[int, object, dict]:
+    def restore(self, tree_like, step: int | None = None, device=None,
+                plan=None) -> tuple[int, object, dict]:
         """tree_like gives the structure: a TrainState (real or
         ``optimizer.abstract_state``'s meta-device one), restored as a
-        TrainState on ``device`` (the CPU when None), or nested dicts,
-        restored as nested dicts of numpy arrays (bf16 leaves as torch
+        TrainState on ``device`` (the CPU when None), or under ``plan`` as
+        this rank's shards on ``plan.device``; or nested dicts, restored
+        as nested dicts of numpy arrays (bf16 leaves as torch
         tensors)."""
         if step is None:
             step = self.latest_step()
@@ -154,7 +174,7 @@ class CheckpointManager:
         state = convert.state_from_jax(cfg, {
             "step": fields["step"][""],
             **{k: _unflatten(fields[k]) for k in _FIELDS[:-1]}},
-            device=device or "cpu")
+            device=device or "cpu", plan=plan)
         return step, state, manifest.get("extra", {})
 
 

@@ -1,8 +1,10 @@
 """The collectives of the mesh path, over one process group.
 
-`Comm` wraps the collectives the sharded V-cycle uses (``all_reduce``,
-``all_gather``, ``all_to_all``, ``reduce_scatter`` over ``all_to_all`` and
-``broadcast``) for one group. Its
+`Comm` wraps the collectives the sharded V-cycle and the mesh train step
+use (``all_reduce``, ``all_gather``, ``all_to_all``, ``reduce_scatter``
+over ``all_to_all`` and ``broadcast``, and the float forms ``sum`` and
+``sum_scatter``, which add the ranks' partials in rank order) for one
+group. Its
 transport is fixed when it is built, never chosen by catching an error:
 
 * ``"nccl"``: tensors on the ranks' CUDA devices pass through unchanged;
@@ -142,6 +144,31 @@ class Comm:
             out += got[r]
         return out
 
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum over the group of float (or any) partials:
+        an ``all_gather``, then the parts added in rank order, so every
+        rank holds the same bits on every transport."""
+        parts = self.all_gather(x)
+        out = parts[0].clone()
+        for r in range(1, self.size):
+            out += parts[r]
+        return out
+
+    def sum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The float form of `reduce_scatter`: this rank's stripe (of dim
+        0, a multiple of the group size) of the elementwise sum over the
+        group, the stripes summed in rank order."""
+        if x.shape[0] % self.size:
+            raise ValueError(f"sum_scatter of {x.shape[0]} rows over "
+                             f"{self.size} ranks")
+        per = x.shape[0] // self.size
+        got = self.all_to_all(x, [per] * self.size, [per] * self.size)
+        got = got.reshape((self.size, per) + tuple(x.shape[1:]))
+        out = got[0].clone()
+        for r in range(1, self.size):
+            out += got[r]
+        return out
+
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """``x`` of group rank ``src`` on every rank."""
         with self._timed():
@@ -195,6 +222,17 @@ class MetaComm:
             raise TypeError("reduce_scatter takes integer partials")
         if x.shape[0] % self.size:
             raise ValueError(f"reduce_scatter of {x.shape[0]} rows over "
+                             f"{self.size} ranks")
+        return self._record("reduce-scatter", x, x.new_empty(
+            (x.shape[0] // self.size,) + tuple(x.shape[1:]), device="meta"))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        # Comm.sum: an all_gather, then the parts added
+        return self.all_gather(x).sum(0)
+
+    def sum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.size:
+            raise ValueError(f"sum_scatter of {x.shape[0]} rows over "
                              f"{self.size} ranks")
         return self._record("reduce-scatter", x, x.new_empty(
             (x.shape[0] // self.size,) + tuple(x.shape[1:]), device="meta"))

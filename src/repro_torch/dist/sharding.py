@@ -20,14 +20,23 @@ dims, key for key as the JAX ``Plan.make`` builds them:
 
 and the boolean flags ``attn_p_bf16``, ``mla_flash`` and
 ``moe_local_dispatch`` ride in the same dict. Resolution (divisibility
-fallback, one tensor dim a mesh dim) is ``models.common._resolve_pspec``.
-Serving on a mesh acts on the "batch", "kv_seq" and "kv_pages" splits
-(``models.common.CACHE_SPLIT_AXES``); the weights stay whole on every
-rank, where the JAX package lays them out by ``param_shardings`` without
-changing what is computed. Weight sharding and the flags that change the
+fallback, one tensor dim a mesh dim) is ``models.common._resolve_pspec``;
+``param_pspecs`` (and ``param_shardings``, the same splits: the port's
+sharding of a tensor is its split) resolves a Spec tree, ``constraint``
+an activation's logical axes at its shape, where the JAX package
+constrains a layout: the port computes its splits explicitly and reads
+there which dims the JAX layout splits.
+
+Training on a mesh holds every state leaf as its shard under
+``param_pspecs`` (``models.transformer.materialize_lm`` with a plan)
+and computes attention, the SwiGLU MLP, the embedding and the head tensor-parallel
+over "model" where ``constraint`` splits their heads, hidden or vocab dims
+(``models.transformer``); serving keeps the weights whole on every rank
+and acts on the "batch", "kv_seq" and "kv_pages" splits
+(``models.common.CACHE_SPLIT_AXES``). The flags that change the
 computation (``seq_parallel_attn``, ``attn_p_bf16``, ``mla_flash``,
-``moe_local``) are ROADMAP.md Queue A item 14i: ``check_ported`` raises
-for the flags.
+``moe_local``) are ROADMAP.md Queue A item 14l: ``check_ported`` raises
+for them.
 
 ``Plan.abstract`` builds the plan of a mesh that exists only as its shape
 (``launch.mesh.make_production_mesh``: 16 x 16 ``("data", "model")`` or 2
@@ -49,11 +58,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.dist.comm import Comm, MetaComm
+from repro_torch.models import common
 
 MESH_DIMS = ("data", "model")
 # the dims of a mesh Plan.abstract takes: the production meshes'
 ABSTRACT_DIMS = (MESH_DIMS, ("pod",) + MESH_DIMS)
-# the rules of computation-changing flags, each waiting for item 14i
+# the rules of computation-changing flags, each waiting for item 14l
 UNPORTED_RULES = ("attn_seq", "attn_p_bf16", "mla_flash",
                   "moe_local_dispatch")
 
@@ -178,6 +188,42 @@ class Plan:
             entries.pop()
         return tuple(entries)
 
+    def param_pspecs(self, spec_tree):
+        """Each Spec's resolved split (``common._resolve_pspec``)."""
+        return common.pspecs(spec_tree, self.rules, self.shape())
+
+    # the port's sharding of a tensor is its split
+    param_shardings = param_pspecs
+
+    def constraint(self, x, *axes: str | None) -> tuple:
+        """The split the JAX ``Plan.constraint`` imposes on ``x`` by its
+        logical ``axes`` (the resolver at ``x``'s shape: a dim its mesh
+        dims do not divide stays whole). The port computes on explicit
+        shards, so this changes nothing and returns the split, which the
+        tensor-parallel paths read. ``x`` may be a shape."""
+        shape = tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+        return common._resolve_pspec(common.Spec(shape, tuple(axes)),
+                                     self.rules, self.shape())
+
+    def splits(self, pspec, ax: int, dim: str) -> bool:
+        """Whether the split ``pspec`` splits tensor dim ``ax`` over the
+        mesh dim ``dim`` (of more than one rank)."""
+        return (ax < len(pspec) and pspec[ax] is not None
+                and dim in pspec[ax] and self.shape()[dim] > 1)
+
+    def comm(self, dim: str):
+        """The collectives over one mesh dim: ``model``, or ``data`` where
+        the batch splits over "data" alone; on an abstract multi-pod mesh
+        a `MetaComm` over that one dim ("data" or "pod")."""
+        if dim == "model":
+            return self.model
+        if self.rules["batch"] == dim:
+            return self.data
+        if self.mesh is None and dim in self.dims:
+            return MetaComm(self.shape()[dim], self.coords()[dim])
+        raise ValueError(f"no collectives over {dim!r} on a mesh of "
+                         f"{self.dims}")
+
     def dp_size(self) -> int:
         dp = self.rules["batch"]
         sh = self.shape()
@@ -198,7 +244,7 @@ class Plan:
         if set_:
             raise NotImplementedError(
                 f"plan rules {set_} are not ported yet: ROADMAP.md Queue A "
-                f"item 14i (training on a mesh)")
+                f"item 14l (the flags that change the computation)")
 
     def transport(self) -> str:
         return self.model.transport

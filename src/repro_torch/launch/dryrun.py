@@ -14,29 +14,34 @@ data-dependent code fails here. Usage:
       --shape decode_32k [--mesh single,multi] [--json out.json]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
 
-What a rank's figures mean. On a mesh the port keeps the weights whole on
-every rank (tensor parallelism and FSDP are ROADMAP.md Queue A item 14i),
-so a rank computes its rows of the batch (over "data", or over "pod" and
-"data") through the whole model, its positions of the KV cache over
-"model". Its ``hlo_flops`` are its rows' whole-model work, and
-``useful_flop_ratio`` (the model's FLOPs over the chips, against the
-rank's) shows that redundancy; nothing is scaled to look like the JAX
-package's figures. A MoE layer gathers every "data" rank's rows before
-its dispatch (the capacity is batch-global), so its expert FLOPs are the
-whole batch's on every rank. ``memory`` holds a rank's argument bytes
-(the whole weights, the whole batch's inputs and the rank's cache shard),
-its output bytes (the logits and the cache, updated in place: that is
+What a rank's figures mean. A prefill or decode cell keeps the weights
+whole on every rank (tensor-parallel weights in serving are ROADMAP.md
+Queue A item 14n), so a rank computes its rows of the batch (over
+"data", or over "pod" and "data") through the whole model, its positions
+of the KV cache over "model". A ``train_4k`` cell runs the mesh train
+step (``make_train_step(plan)``: the state at the rank's shard shapes,
+autograd on meta tensors with every loop step run, the remat recompute
+and the FSDP gathers counted as they run, the collectives of
+``dist.autograd`` over ``MetaComm``s): attention, the MLP, the embedding
+and the head tensor-parallel over "model" where their dims split, every
+other layer whole on each "model" rank. ``hlo_flops`` is the rank's work
+and ``useful_flop_ratio`` (the model's FLOPs over the chips, against the
+rank's) shows the redundancy that remains; nothing is scaled to look like
+the JAX package's figures. A MoE layer gathers every "data" rank's rows
+before its dispatch (the capacity is batch-global), so its expert FLOPs
+are the whole batch's on every rank. ``memory`` holds a rank's argument
+bytes (the weights or state shards, the whole batch's inputs and the
+rank's cache shard), its output bytes (updated in place: that is
 ``alias_size_in_bytes``, the JAX donation) and ``peak_bytes``, the
 arguments plus the most bytes the step held at once. ``--no-donate``
-changes nothing: the port's steps always update the cache in place.
+changes nothing: the port's steps always update in place.
 
 The record keeps the JAX package's keys: ``hlo_flops`` and ``hlo_bytes``
 are the counter's ``flops`` and ``bytes``, ``xla_cost_*`` are None (no
 compiler), ``t_lower_s`` is the seconds to build the inputs and count the
 step (the port's lowering) and ``t_compile_s`` None. It adds
-``"counted_on": "meta"`` and the rank's ``coords``. Train shapes, and
-the flags ``Plan.check_ported`` refuses, raise ``NotImplementedError``
-(item 14i).
+``"counted_on": "meta"`` and the rank's ``coords``. The flags
+``Plan.check_ported`` refuses raise ``NotImplementedError`` (item 14l).
 """
 from __future__ import annotations
 
@@ -119,7 +124,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
 
 
 def _count_cell(arch, shape, multi_pod, coords, flags) -> dict:
-    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.configs.registry import get_config
     from repro_torch.dist.sharding import Plan
     from repro_torch.launch import op_cost, steps
     from repro_torch.launch.mesh import make_production_mesh
@@ -127,10 +132,6 @@ def _count_cell(arch, shape, multi_pod, coords, flags) -> dict:
     t0 = time.time()
     plan = Plan.abstract(make_production_mesh(multi_pod=multi_pod), coords,
                          **flags)
-    if SHAPES[shape]["kind"] == "train":
-        raise NotImplementedError(
-            f"the dry run of {shape} (a train step on a mesh) is not "
-            f"ported yet: ROADMAP.md Queue A item 14i (training on a mesh)")
     plan.check_ported()
     spec = steps.input_specs(arch, shape, plan)
     fn = steps.make_step(arch, shape, plan)
@@ -180,13 +181,13 @@ def main(argv=None):
     ap.add_argument("--no-seq-shard-kv", action="store_true")
     ap.add_argument("--no-donate", action="store_true")
     ap.add_argument("--moe-local", action="store_true",
-                    help="rank-local MoE dispatch (item 14i)")
+                    help="rank-local MoE dispatch (item 14l)")
     ap.add_argument("--sp-attn", action="store_true",
-                    help="sequence-parallel attention (item 14i)")
+                    help="sequence-parallel attention (item 14l)")
     ap.add_argument("--p-bf16", action="store_true",
-                    help="bf16 PV probabilities (item 14i)")
+                    help="bf16 PV probabilities (item 14l)")
     ap.add_argument("--mla-flash", action="store_true",
-                    help="chunked latent MLA attention (item 14i)")
+                    help="chunked latent MLA attention (item 14l)")
     ap.add_argument("--q-chunk", type=int, default=0)
     ap.add_argument("--k-chunk", type=int, default=0)
     args = ap.parse_args(argv)

@@ -49,6 +49,8 @@ carried state keeps) counts once.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import contextlib
 from collections import defaultdict
 
@@ -77,12 +79,15 @@ def nbytes(t: torch.Tensor) -> int:
 
 
 def _leaves(tree):
-    """The tensors of a nest of dicts, lists and tuples, an ``nn.Module``
-    standing for its parameters."""
+    """The tensors of a nest of dicts, lists, tuples and dataclasses (a
+    ``TrainState``), an ``nn.Module`` standing for its parameters."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, torch.nn.Module):
         yield from tree.parameters()
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)

@@ -8,10 +8,10 @@ parameters and caches, int32 tokens, labels and ``pos``; the parameters
 an ``LM`` on the meta device), and resolved specs, the port's tuples of
 mesh dims (``dist.Plan.pspec``, ``models.common.pspecs``), where it has
 ``NamedSharding``s. The specs are the JAX layout's, resolved as the JAX
-package resolves them; the port's own layout on a mesh keeps the weights
-whole on each rank and splits a cache at ``common.CACHE_SPLIT_AXES``
-only, which `rank_args` gives a rank. Training on a mesh (``plan=`` on
-`make_train_step`) is ROADMAP.md Queue A item 14i.
+package resolves them. The port's train step on a mesh holds the state
+at those splits; its serving keeps the weights whole on each rank and
+splits a cache at ``common.CACHE_SPLIT_AXES`` only. `rank_args` gives a
+rank its arguments either way.
 """
 from __future__ import annotations
 
@@ -40,24 +40,67 @@ def make_train_step(cfg: ArchConfig, plan=None,
     batch (tokens and labels, with ``vision`` or ``enc_frames`` where the
     config takes them), its autograd gradients with respect to the
     compute params, then ``adamw_update`` (in place, see
-    ``train.optimizer``)."""
+    ``train.optimizer``).
+
+    Under ``plan`` the state is this rank's shards and ``batch`` the
+    global batch; the loss is ``loss_fn(plan=)``'s (the global loss on
+    every rank) and its backward leaves each rank its part of each
+    gradient: complete where the leaf splits over the batch's mesh dims
+    (FSDP's gathers sum-scatter in the backward), a partial sum elsewhere,
+    which `_sync_grads` sums over those dims in one collective."""
     if plan is not None:
-        raise NotImplementedError(
-            "make_train_step on a mesh (plan=) is not ported yet: "
-            "ROADMAP.md Queue A item 14i (training on a mesh)")
+        plan.check_ported()
 
     def train_step(state: opt.TrainState, batch: dict):
-        names, params = zip(*state.params.named_parameters())
-        loss, metrics = T.loss_fn(state.params, batch, cfg,
-                                  expert_perm=expert_perm)
-        # a parameter the batch does not reach (``vis_proj`` without
-        # vision inputs) gets a zero gradient, as under ``jax.grad``
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
-        new_state = opt.adamw_update(state, dict(zip(names, grads)), ocfg)
-        return new_state, {"loss": loss.detach(),
-                           **{k: v.detach() for k, v in metrics.items()}}
+        loss, metrics, grads = loss_and_grads(state.params, batch, cfg,
+                                              plan, expert_perm)
+        new_state = opt.adamw_update(state, grads, ocfg, plan)
+        return new_state, {"loss": loss, **metrics}
     return train_step
+
+
+def loss_and_grads(model, batch: dict, cfg: ArchConfig, plan=None,
+                   expert_perm=None):
+    """``(loss, metrics, grads)`` of `make_train_step`'s step: the loss and
+    its metrics detached, the gradients by parameter name (on a mesh this
+    rank's shards of the whole ones)."""
+    names, params = zip(*model.named_parameters())
+    loss, metrics = T.loss_fn(model, batch, cfg, plan=plan,
+                              expert_perm=expert_perm)
+    # a parameter the batch does not reach (``vis_proj`` without vision
+    # inputs) gets a zero gradient, as under ``jax.grad``
+    grads = dict(zip(names, [
+        torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]))
+    if plan is not None:
+        grads = _sync_grads(grads, common.param_pspecs(model, plan), plan)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _sync_grads(grads: dict, pspecs: dict, plan) -> dict:
+    """Each gradient summed over the batch's mesh dims its leaf does not
+    split over (a leaf whole over "data" took only this rank's rows), the
+    leaves of one group and dtype in one ``Comm.sum``."""
+    dp = plan.rules["batch"]
+    dims = (dp,) if isinstance(dp, str) else tuple(dp)
+    groups: dict = {}
+    for n, g in grads.items():
+        split = {d for e in pspecs[n] if e for d in e}
+        miss = tuple(d for d in dims if d not in split)
+        if miss:
+            groups.setdefault((miss, g.dtype), []).append(n)
+    out = dict(grads)
+    for (miss, _), names in groups.items():
+        comm = plan.data if len(miss) == len(dims) else plan.comm(miss[0])
+        if comm.size == 1:
+            continue
+        flat = comm.sum(torch.cat([grads[n].reshape(-1) for n in names]))
+        off = 0
+        for n in names:
+            k = grads[n].numel()
+            out[n] = flat[off:off + k].view_as(grads[n])
+            off += k
+    return out
 
 
 def make_prefill_step(cfg: ArchConfig, plan=None, expert_perm=None):
@@ -176,11 +219,15 @@ def abstract_inputs(cfg: ArchConfig, kind: str, B: int, S: int,
 
 def rank_args(spec: dict, plan=None) -> tuple:
     """The arguments a rank of ``plan`` passes the step of ``spec`` (an
-    `input_specs` result, prefill or decode): the same weights and inputs,
-    whole, and the rank's ``ShardTree`` of the cache, allocated at its
-    shard's shape by ``common.shard_zeros`` (on the meta device under
-    ``Plan.abstract``)."""
+    `input_specs` result): a train step's state at the rank's shard
+    shapes (``optimizer.shard_state``) and the global batch; a prefill's
+    or decode's weights and inputs whole and the rank's ``ShardTree`` of
+    the cache, allocated at its shard's shape by ``common.shard_zeros``
+    (on the meta device under ``Plan.abstract``)."""
     if plan is None:
         return spec["args"]
+    if spec["kind"] == "train":
+        state, batch = spec["args"]
+        return opt.shard_state(state, plan), batch
     return spec["args"][:-1] + (common.shard_zeros(
         spec["cache_specs"], plan, plan.device, BF16),)

@@ -19,10 +19,20 @@ only the mesh's shape. A serving cache takes the splits of
 ``CACHE_SPLIT_AXES`` ("batch" over "data", "kv_seq" and "kv_pages" over
 "model"); ``shard_zeros`` allocates a rank's shards of a cache tree as a
 ``ShardTree`` (the tree with its Specs and resolved splits), and
-``shard_of`` slices a whole leaf to a rank's shard. Splits over other axes
-(heads, mlp, embed) are tensor parallelism and FSDP, which change only the
-layout in the JAX package: they wait for ROADMAP.md Queue A item 14i, and
-such leaves stay whole on every rank.
+``shard_of`` slices a whole leaf to a rank's shard. A serving cache keeps
+its head, mlp and embed splits whole (tensor-parallel weights in serving
+are ROADMAP.md Queue A item 14n).
+
+Training on a mesh holds every parameter at its resolved split, which
+gives a rank the JAX layout's bytes: ``init_shards_`` draws each leaf
+whole in ``init_params_``'s generator order (the bits of one device's)
+and keeps the rank's shard, so the whole state is never on one rank;
+``param_pspecs`` gives a module's splits by parameter name, ``whole_of``
+gathers a shard whole (a checkpoint's save) and ``mesh_weights`` hands a
+block its weights for one forward: each leaf split over "data" gathered
+(FSDP, the backward a sum-scatter), each leaf split over "model" kept as
+the rank's shard (tensor parallelism) or gathered whole (a layer that
+every "model" rank computes whole; see ``dist.autograd``).
 """
 from __future__ import annotations
 
@@ -198,6 +208,147 @@ def shard_zeros(tree, plan, device, dtype=torch.float32) -> ShardTree:
     return ShardTree(out, tree, ps)
 
 
+# ---------------------------------------------------------------------------
+# parameters on a mesh
+# ---------------------------------------------------------------------------
+def module_specs(module: nn.Module):
+    """``(name, parameter, Spec)`` of every parameter of the SpecModules in
+    ``module``, in ``named_parameters`` order."""
+    specs = {}
+    for prefix, m in module.named_modules():
+        if isinstance(m, SpecModule):
+            for n, s in m.specs.items():
+                specs[f"{prefix}.{n}" if prefix else n] = s
+    return [(n, p, specs[n]) for n, p in module.named_parameters()]
+
+
+def param_pspecs(module: nn.Module, plan) -> dict[str, tuple]:
+    """Each parameter's resolved split under ``plan``, by name."""
+    sh = plan.shape()
+    return {n: _resolve_pspec(s, plan.rules, sh)
+            for n, _, s in module_specs(module)}
+
+
+def set_param(module: nn.Module, name: str, t: torch.Tensor,
+              requires_grad: bool = False) -> None:
+    """Replace the parameter ``name`` (dotted) of ``module`` by ``t``."""
+    *path, last = name.split(".")
+    for k in path:
+        module = getattr(module, k)
+    setattr(module, last, nn.Parameter(t, requires_grad=requires_grad))
+
+
+@torch.no_grad()
+def init_shards_(module: nn.Module, generator: torch.Generator, plan,
+                 dtype=torch.float32) -> None:
+    """Give every parameter of ``module`` (made on any device, the meta
+    device for one) this rank's shard under ``plan`` on ``plan.device``,
+    filled as ``init_params_`` fills the whole: each leaf is drawn whole in
+    its generator order, the shard kept and the rest freed."""
+    sh, at = plan.shape(), plan.coords()
+    for m in module.modules():
+        if not isinstance(m, SpecModule):
+            continue
+        for name, s in m.specs.items():
+            ps = _resolve_pspec(s, plan.rules, sh)
+            local = local_shape(s, ps, sh)
+            if s.init == "zeros":
+                t = torch.zeros(local, dtype=dtype, device=plan.device)
+            elif s.init == "ones":
+                t = torch.ones(local, dtype=dtype, device=plan.device)
+            else:
+                whole = torch.empty(s.shape, dtype=dtype,
+                                    device=plan.device)
+                whole.normal_(0.0, init_scale(s), generator=generator)
+                t = shard_of(whole, ps, sh, at).clone()
+                del whole
+            setattr(m, name, nn.Parameter(t, requires_grad=False))
+
+
+def whole_of(x: torch.Tensor, pspec: tuple, plan) -> torch.Tensor:
+    """The whole leaf of which ``x`` is this rank's shard under
+    ``pspec``: gathered over each mesh dim that splits it (no
+    autograd)."""
+    for ax, dims in enumerate(pspec):
+        for d in dims or ():
+            comm = plan.comm(d)
+            if comm.size > 1:
+                x = torch.cat(comm.all_gather(x).unbind(0), dim=ax)
+    return x
+
+
+class Tree(dict):
+    """A nested dict of a module's tensors, keys also read as attributes
+    (``tree.encoder.pos``); a ``ModuleList``'s children are a list."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+
+def _tree(flat: dict):
+    root: dict = {}
+    for name, t in flat.items():
+        *path, last = name.split(".")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = t
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [build(node[k]) for k in sorted(node, key=int)]
+        return Tree({k: build(v) for k, v in node.items()})
+    return build(root)
+
+
+def mesh_weights(module: nn.Module, plan, how=None, only=None):
+    """``module``'s weights for one forward on this rank of ``plan``, as a
+    `Tree`: every leaf split over "data" all-gathered (one collective for
+    all of them; the backward sums the gradients and scatters), then each
+    leaf by ``how(name)`` over "model": "shard" keeps the rank's part
+    (tensor parallelism), "same" (the default) gathers a split leaf whole
+    for a computation that every "model" rank does alike (the backward
+    keeps the rank's stripe), "diff" gathers it whole where the ranks use
+    it differently (the backward sums; a leaf already whole goes through
+    ``copy_to``, whose backward sums). ``only(name)`` picks the leaves
+    (all by default)."""
+    from repro_torch.dist import autograd as DA
+    how = how or (lambda name: "same")
+    leaves = [(n, p, _resolve_pspec(s, plan.rules, plan.shape()))
+              for n, p, s in module_specs(module)
+              if only is None or only(n)]
+    out = {n: p for n, p, _ in leaves}
+
+    def axis(ps, dim):
+        for ax, dims in enumerate(ps):
+            if dims and dim in dims:
+                return ax
+        return None
+
+    def gather(names, dim, comm, reduce):
+        names = [(n, axis(ps, dim)) for n, ps in names]
+        got = DA.gather([out[n] for n, _ in names], [a for _, a in names],
+                        comm, reduce)
+        out.update(zip((n for n, _ in names), got))
+
+    gather([(n, ps) for n, _, ps in leaves
+            if axis(ps, "data") is not None], "data", plan.comm("data"),
+           True)
+    for mode in ("same", "diff"):
+        gather([(n, ps) for n, _, ps in leaves if how(n) == mode
+                and axis(ps, "model") is not None], "model", plan.model,
+               mode == "diff")
+    for n, _, ps in leaves:
+        if how(n) == "diff" and axis(ps, "model") is None:
+            out[n] = DA.copy_to(out[n], plan.model)
+    return _tree(out)
+
+
 class SpecModule(nn.Module):
     """A module whose parameters are the leaves of a dict of Specs (nested
     dicts become child SpecModules). ``p["name"]`` reads a parameter or a
@@ -284,6 +435,12 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
     lse = torch.logsumexp(logits, dim=-1)
     idx = labels.long().clamp(min=0)[..., None]
     ll = torch.gather(logits, -1, idx)[..., 0]
+    return ce_from_terms(lse, ll, labels, z_loss)
+
+
+def ce_from_terms(lse, ll, labels, z_loss: float = 0.0):
+    """`softmax_cross_entropy` from each token's log-sum-exp ``lse`` and
+    label logit ``ll`` (f32): the mean over the labels >= 0."""
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

@@ -125,12 +125,14 @@ def tree_from_flat(cfg: ArchConfig, flat: dict) -> dict:
     return tree
 
 
-def state_from_jax(cfg: ArchConfig, state, device="cpu"):
+def state_from_jax(cfg: ArchConfig, state, device="cpu", plan=None):
     """The port's ``train.optimizer.TrainState`` from a JAX one as numpy
     arrays (``jax.tree.map(np.asarray, state)``) or from a mapping with
     the keys params, master, mu, nu and step: the compute params an
     ``LM`` in their dtype with gradients on, the f32 trees keyed by the
-    port's parameter names."""
+    port's parameter names. Under ``plan`` (``device`` then
+    ``plan.device``) every leaf is this rank's shard, cut on the host."""
+    from repro_torch.models import common
     from repro_torch.models.transformer import LM
     from repro_torch.train.optimizer import TrainState
 
@@ -138,27 +140,46 @@ def state_from_jax(cfg: ArchConfig, state, device="cpu"):
         return state[k] if isinstance(state, dict) else getattr(state, k)
 
     sd = params_from_jax(cfg, get("params"))
-    model = LM(cfg, device=device, dtype=next(iter(sd.values())).dtype)
-    model.load_state_dict(sd)
+    model = LM(cfg, device="meta" if plan is not None else device,
+               dtype=next(iter(sd.values())).dtype)
+    cut = lambda n, t: t
+    if plan is None:
+        model.load_state_dict(sd)
+    else:
+        device = plan.device
+        ps = common.param_pspecs(model, plan)
+        sizes, at = plan.shape(), plan.coords()
+        cut = lambda n, t: common.shard_of(t, ps[n], sizes, at).clone()
+        for n, t in sd.items():
+            common.set_param(model, n, cut(n, t).to(device))
     model.requires_grad_(True)
 
     def f32(k):
-        return {n: t.to(device) for n, t in
+        return {n: cut(n, t).to(device) for n, t in
                 params_from_jax(cfg, get(k)).items()}
 
     return TrainState(params=model, master=f32("master"), mu=f32("mu"),
                       nu=f32("nu"), step=int(np.asarray(get("step"))))
 
 
-def state_to_jax(state) -> dict:
+def state_to_jax(state, plan=None) -> dict:
     """A port ``TrainState`` in the JAX layout: {"params", "master", "mu",
-    "nu": trees of CPU tensors with stacked layer leaves, "step": int32}."""
+    "nu": trees of CPU tensors with stacked layer leaves, "step": int32}.
+    Under ``plan`` the state holds this rank's shards, each gathered whole
+    here (every rank of the mesh calls this)."""
     cfg = state.params.cfg
-    return {"params": tree_from_flat(cfg, dict(
-                state.params.named_parameters())),
-            "master": tree_from_flat(cfg, state.master),
-            "mu": tree_from_flat(cfg, state.mu),
-            "nu": tree_from_flat(cfg, state.nu),
+    whole = lambda flat: flat
+    if plan is not None:
+        from repro_torch.models import common
+        ps = common.param_pspecs(state.params, plan)
+        whole = lambda flat: {n: common.whole_of(t.detach(), ps[n],
+                                                 plan).cpu()
+                              for n, t in flat.items()}
+    return {"params": tree_from_flat(cfg, whole(dict(
+                state.params.named_parameters()))),
+            "master": tree_from_flat(cfg, whole(state.master)),
+            "mu": tree_from_flat(cfg, whole(state.mu)),
+            "nu": tree_from_flat(cfg, whole(state.nu)),
             "step": np.asarray(state.step, np.int32)}
 
 

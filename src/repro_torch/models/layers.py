@@ -20,13 +20,15 @@ q_rope . k_rope`` over the compressed cache, the values combined in
 latent space and then up-projected, in plain tensor ops in every mode (the
 JAX package computes it outside any Pallas kernel). Its chunked form
 ``mla_attention_flash`` (the JAX mesh plan's ``mla_flash`` rule) waits for
-ROADMAP.md Queue A item 14i.
+ROADMAP.md Queue A item 14l; ``chunked_attention`` already takes values
+narrower than the queries, as it needs (fault C2 mended on the port's
+side).
 
 The MoE layer is the JAX package's sort-based capacity dispatch: its
 routing integers are the JAX ones, and its scatter and combine give every
 lane a row of its own, so the card adds no float atomically.
 ``moe_apply_local_dispatch`` (the shard-local dispatch on a mesh) waits
-for ROADMAP.md Queue A item 14i.
+for ROADMAP.md Queue A item 14l.
 
 On a mesh, decode attention over a cache whose keys are split over the
 "model" ranks is flash-decoding (``flash_decode``): each rank scores its
@@ -97,8 +99,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     """Chunked attention with online softmax, the JAX package's
     ``layers.flash_attention`` in plain tensor ops (the training path).
 
-    q [B,Sq,H,Dh], k/v [B,Sk,KV,Dh], query head h reads KV head
-    ``h // (H/KV)``. Query chunks of ``q_chunk`` are one batched dim; key
+    q [B,Sq,H,Dh], k [B,Sk,KV,Dh], v [B,Sk,KV,Dv] (Dv may differ from
+    Dh), query head h reads KV head ``h // (H/KV)``. Query chunks of ``q_chunk`` are one batched dim; key
     chunks of ``k_chunk`` stream through a loop carrying the running max,
     sum and f32 accumulator. Scores and both products take f32 operands
     (the JAX einsums' ``preferred_element_type=F32``: a product of two bf16
@@ -116,7 +118,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
 
     qr = q.reshape(B, nq, qc, KV, g, Dh).float()
     kr = k.reshape(B, nk, kc, KV, Dh)
-    vr = v.reshape(B, nk, kc, KV, Dh)
+    vr = v.reshape(B, nk, kc, KV, Dv)
     ik = torch.arange(kc, device=dev)
     qpos = ((torch.arange(nq, device=dev) * qc)[:, None]
             + torch.arange(qc, device=dev)[None, :])          # [nq,qc]
@@ -431,7 +433,7 @@ def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
 
     ``plan`` (a mesh plan with whole weights) changes nothing computed, as
     in the JAX function, whose plan only constrains layouts; its
-    ``moe_local_dispatch`` rule raises (item 14i). On a mesh whose ranks
+    ``moe_local_dispatch`` rule raises (item 14l). On a mesh whose ranks
     hold parts of the batch, the caller gathers the rows first: the
     capacity is batch-global."""
     if plan is not None:

@@ -52,16 +52,39 @@ positions. Frames and vision embeddings are cast to the parameters'
 dtype (the JAX package promotes instead: f32 inputs to bf16 weights
 compute in f32 there).
 
-On a mesh (``plan=`` on ``prefill``, ``decode_step`` and ``forward``,
-serving only) each rank holds the whole weights and its shard of the
-cache (``common.ShardTree``), and `Shards` says where this call's rows
-and cache lie: rows over "data" where the batch divides the data-parallel
-size, the dense cache's positions over "model" (``kv_seq``, the JAX
-``shard_map`` branch of ``_decode_attn_update`` and
-``_mla_decode_update``: flash-decoding) and the paged pool's pages over
-"model" (``kv_pages``: each rank scores its own pages, combined the same
-way). Training on a mesh and tensor-parallel weights are ROADMAP.md
-Queue A item 14i.
+On a mesh (``plan=`` on ``prefill``, ``decode_step`` and ``forward``)
+serving holds the whole weights on each rank and its shard of the cache
+(``common.ShardTree``), and `Shards` says where this call's rows and cache
+lie: rows over "data" where the batch divides the data-parallel size, the
+dense cache's positions over "model" (``kv_seq``, the JAX ``shard_map``
+branch of ``_decode_attn_update`` and ``_mla_decode_update``:
+flash-decoding) and the paged pool's pages over "model" (``kv_pages``:
+each rank scores its own pages, combined the same way).
+
+Training on a mesh (``forward(mode="train", plan=)``, ``loss_fn(plan=)``)
+takes the global batch, computes this rank's rows (over "data", where the
+batch divides the data-parallel size) and holds each weight as its shard
+(`materialize_lm` with ``plan``). Each block's
+weights come from ``common.mesh_weights`` inside the block's remat
+checkpoint, so an FSDP gather over "data" is made again in the recompute
+and no gathered weight outlives its block. Attention and the SwiGLU MLP
+are Megatron tensor-parallel over "model" where ``Plan.constraint``
+splits their heads or hidden dim (`_tp_of`): the input copied to the
+"model" ranks (``dist.autograd.copy_to``), the column-parallel
+projections on the rank's heads or hidden slice, the row-parallel output
+summed over "model" in rank order (``sum_over``). Where "model" divides
+the heads but not the kv heads, the kv projections are gathered whole and
+each rank takes the kv heads its query heads read (``h // g``). The
+embedding and the head are vocab-parallel where the vocab splits: a
+rank's rows of the table, the lookups summed over "model"; the CE's max,
+sum of exponentials and label logit combined over "model"
+(`_ce_chunk_mesh`). Every other layer (MLA, MoE, the recurrent mixers,
+the encoder, the cross blocks, ``vis_proj``) gathers its weights whole and
+computes the same on every "model" rank (tensor-parallel compute for them
+is ROADMAP.md Queue A item 14m). A MoE layer gathers the rows over "data"
+first (its capacity is batch-global), and its balance loss, whole on
+every "data" rank, enters each rank's loss divided by the data-parallel
+size; the CE is normalised by the global label count.
 """
 from __future__ import annotations
 
@@ -75,6 +98,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.dist import autograd as DA
+from repro_torch.models import common as C
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.common import (ShardTree, Spec, SpecModule,
@@ -84,11 +109,6 @@ from repro_torch.models.common import (ShardTree, Spec, SpecModule,
                                        stack_specs)
 
 F32 = torch.float32
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue A item {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -398,14 +418,16 @@ def _paged_update(cache, new, posv, table, psize: int, pages=None):
     JAX scatter drops them; a logical page past the table clamps, as a JAX
     gather does. With ``pages`` (this rank's (r, m) of a pool striped over
     "model") ``cache`` holds the pages ``[r*NP/m, (r+1)*NP/m)`` and only
-    rows on them are written."""
+    rows on them are written (`_own_writes`)."""
     B, P = table.shape
+    NP = cache.shape[0]
     page = table[torch.arange(B, device=cache.device),
                  (posv // psize).clamp(max=P - 1)].long()
     if pages is not None:
-        page = page - pages[0] * cache.shape[0]
-    rows = ((page >= 0) & (page < cache.shape[0])).nonzero().squeeze(1)
-    cache[page[rows], (posv % psize)[rows]] = new[rows, 0]
+        page = page - pages[0] * NP
+    _own_writes(cache.view((-1,) + cache.shape[2:]),
+                page.clamp(0, NP - 1) * psize + posv % psize, new[:, 0],
+                (page >= 0) & (page < NP))
     return cache
 
 
@@ -457,19 +479,32 @@ def _write_prefill(leaf_, new, sh: Shards | None) -> None:
         leaf_[:, :n] = new[:, lo:lo + n].to(leaf_.dtype)
 
 
-def _local_rows(posv, lo: int, n: int):
-    """Each row's write into a rank's positions ``[lo, lo + n)``: (rows,
-    their local positions clamped into the shard, which rows fall in it).
-    A row outside writes back what it reads there, so every device runs
-    the same ops with no data-dependent shape."""
+def _own_writes(flat, slot, new, keep) -> None:
+    """A rank writes only its rows: ``new[i]`` into ``flat[slot[i]]`` (a
+    cache's [slots, ...] view, in place) for the rows ``keep`` marks, with
+    no host read and no data-dependent shape. Every other row goes to a
+    dump slot that no kept row writes (the first such of the slots 0..B;
+    kept rows write distinct slots, so one is free while a row is
+    skipped, unless the kept rows fill every slot of a pool smaller than
+    the batch) and writes back what the slot holds: every write to a
+    slot written twice carries the same value."""
+    B = slot.shape[0]
+    cand = torch.arange(min(B + 1, flat.shape[0]), device=slot.device)
+    taken = ((cand[:, None] == slot[None, :]) & keep[None, :]).any(dim=1)
+    at = torch.where(keep, slot, torch.argmin(taken.int()))
+    flat[at] = torch.where(keep.reshape((B,) + (1,) * (new.ndim - 1)),
+                           new, flat[at])
+
+
+def _seq_writes(cache, new, posv, lo: int) -> None:
+    """Each row's ``new`` [B, ...] at its position ``posv`` into a rank's
+    positions ``[lo, lo + Sl)`` of the dense cache [B, Sl, ...], in place:
+    the rows whose position falls there (`_own_writes`)."""
+    B, Sl = cache.shape[:2]
     lpos = posv - lo
-    return (torch.arange(posv.shape[0], device=posv.device),
-            lpos.clamp(0, n - 1), (lpos >= 0) & (lpos < n))
-
-
-def _bcast(mask, x):
-    """A [B] mask shaped to broadcast over the [B, ...] tensor ``x``."""
-    return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+    _own_writes(cache.view((-1,) + cache.shape[2:]),
+                torch.arange(B, device=posv.device) * Sl
+                + lpos.clamp(0, Sl - 1), new, (lpos >= 0) & (lpos < Sl))
 
 
 def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
@@ -491,10 +526,8 @@ def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
         o = L.decode_attention(q, kcache, vcache, length=posv + 1)
         return o, kcache, vcache
     Sl = kcache.shape[1]
-    rows, at, here = _local_rows(posv, sh.seq[0] * Sl, Sl)
     for cache, new in ((kcache, k_new), (vcache, v_new)):
-        cache[rows, at] = torch.where(_bcast(here, new[:, 0]), new[:, 0],
-                                      cache[rows, at])
+        _seq_writes(cache, new[:, 0], posv, sh.seq[0] * Sl)
     gpos = sh.seq[0] * Sl + torch.arange(Sl, device=q.device)
     o = L.flash_decode(sh.plan.model, q, kcache, vcache,
                        gpos[None, :] <= posv[:, None])
@@ -607,10 +640,8 @@ def _mla_decode_update(sh, p, q_nope, q_rope, c_new, kr_new, c_cache,
         valid = torch.arange(cc.shape[1], device=dev)[None] <= posv[:, None]
     else:
         Sl = c_cache.shape[1]
-        rows, at, here = _local_rows(posv, sh.seq[0] * Sl, Sl)
         for cache, new in ((c_cache, c_new), (kr_cache, kr_new)):
-            cache[rows, at] = torch.where(_bcast(here, new[:, 0]),
-                                          new[:, 0], cache[rows, at])
+            _seq_writes(cache, new[:, 0], posv, sh.seq[0] * Sl)
         cc, krc = c_cache, kr_cache
         c_all, kr_all = cc, krc
         gpos = sh.seq[0] * Sl + torch.arange(Sl, device=dev)
@@ -651,7 +682,9 @@ def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None):
 
 
 def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
-                 pages=None, sh=None):
+                 pages=None, sh=None, tp=None):
+    if tp is not None and tp.attn:
+        return _tp_attn(p, x, cfg, positions, sh.plan, tp.kv), None
     if spec.mixer in _RECURRENT:
         return _apply_recurrent(spec, p, x, cfg, mode, cache,
                                 sh.plan if sh is not None else None)
@@ -676,15 +709,18 @@ def _cross_attention(p, x, enc_out, cfg):
 
 
 def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
-                 pages=None, expert_perm=None, enc_out=None, sh=None):
+                 pages=None, expert_perm=None, enc_out=None, sh=None,
+                 tp=None):
     """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
     zero for other layers). With ``enc_out`` the cross block runs after
     the mixer. Where the rows split over "data" (``sh.rows``), a MoE layer
-    gathers them first: its capacity is batch-global."""
+    gathers them first: its capacity is batch-global. ``tp`` (a `_TP`,
+    training on a mesh) runs the attention or the MLP tensor-parallel
+    on ``p``'s shards."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
-                                  cache, pos, pages, sh)
+                                  cache, pos, pages, sh, tp)
     x = x + mix
     if enc_out is not None:
         x = x + _cross_attention(p, x, enc_out, cfg)
@@ -694,13 +730,16 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     if spec.ffn == "moe":
         plan = sh.plan if sh is not None else None
         if sh is not None and sh.rows is not None:
-            hs = sh.plan.data.all_gather(h)
-            out, a = L.moe_apply(p["ffn"], hs.reshape(-1, *h.shape[1:]),
-                                 cfg, expert_perm, plan)
+            # the backward sums the rows' gradients over "data"
+            hs = DA.gather([h], [0], sh.plan.data)[0]
+            out, a = L.moe_apply(p["ffn"], hs, cfg, expert_perm, plan)
             out = _rows(out, sh)
         else:
             out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm, plan)
         aux = aux + a
+    elif tp is not None and tp.mlp:
+        out = DA.sum_over(L.mlp_apply(p["ffn"], DA.copy_to(
+            h, sh.plan.model)), sh.plan.model)
     else:
         out = L.mlp_apply(p["ffn"], h)
     return x + out, new_cache, aux
@@ -742,16 +781,21 @@ def _encoder_forward(model: LM, frames, cfg: ArchConfig,
     enc = model.encoder
     x = frames.to(enc.pos.dtype) + enc.pos[:frames.shape[1]]
     for blk in enc.layers:
-        h = _norm(blk.norm1, x, cfg)
-        q, k, v = L.qkv_project(blk.mixer, h, h, cfg)
-        if train:
-            o = L.chunked_attention(q, k, v, causal=False,
-                                    q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-        else:
-            o = L.flash_attention(q, k, v, causal=False)
-        x = x + _attn_out(blk.mixer, o)
-        x = x + L.mlp_apply(blk.ffn, _norm(blk.norm2, x, cfg))
+        x = _enc_layer(blk, x, cfg, train)
     return _norm(enc.final_norm, x, cfg)
+
+
+def _enc_layer(blk, x, cfg: ArchConfig, train: bool):
+    """One encoder layer of ``_encoder_forward``."""
+    h = _norm(blk.norm1, x, cfg)
+    q, k, v = L.qkv_project(blk.mixer, h, h, cfg)
+    if train:
+        o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                k_chunk=cfg.k_chunk)
+    else:
+        o = L.flash_attention(q, k, v, causal=False)
+    x = x + _attn_out(blk.mixer, o)
+    return x + L.mlp_apply(blk.ffn, _norm(blk.norm2, x, cfg))
 
 
 def _store_enc_out(cache, enc_out) -> None:
@@ -794,22 +838,24 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     the scanned layer body), which gives the same bits as keeping its
     activations. Prefill and decode record no gradient.
 
-    ``plan`` (a ``dist.Plan``; prefill and decode) runs the call on this
-    rank of its mesh with the weights whole, over a cache that is this
+    ``plan`` (a ``dist.Plan``) runs the call on this rank of its mesh.
+    Prefill and decode take the weights whole, over a cache that is this
     rank's ``ShardTree`` (or a plain dict, whole on every rank; see
     `shards_for`). Every rank takes the whole batch's inputs; where the
     rows split over "data" it computes its own rows (the slices of
     ``tokens``, ``pos``, ``page_table``, ``vision`` and ``enc_frames``)
     and returns their hidden states. Attention and MLA decode over
     positions or pages split over "model" combine by flash-decoding; a
-    prefill writes only this rank's positions."""
+    prefill writes only this rank's positions. Train mode on a plan takes
+    the model's shards (`materialize_lm` with ``plan``) and runs
+    `_forward_train_mesh`."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if plan is not None:
-        if mode == "train":
-            _unported("the training forward on a mesh (plan=)",
-                      "14i (training on a mesh)")
         plan.check_ported()
+        if mode == "train":
+            return _forward_train_mesh(model, tokens, cfg, plan, remat,
+                                       expert_perm, vision, enc_frames)
     sh = shards_for(plan, cache, tokens.shape[0])
     if sh is not None and sh.rows is not None:
         tokens, page_table, vision, enc_frames = (
@@ -859,6 +905,192 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
 
 
 # ---------------------------------------------------------------------------
+# training on a mesh
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """A block's tensor-parallel parts on a mesh: ``attn`` (its attention's
+    heads over "model"), ``kv`` (where "model" does not split the kv heads
+    with the heads: the range ``(lo, hi)`` of kv heads this rank's query
+    heads read, gathered whole) and ``mlp`` (its SwiGLU hidden dim over
+    "model")."""
+    attn: bool = False
+    kv: tuple | None = None
+    mlp: bool = False
+
+    def how(self, name: str) -> str:
+        """``common.mesh_weights``'s mode of the block's leaf ``name``."""
+        head, _, leaf_ = name.partition(".")
+        if self.attn and head == "mixer":
+            return ("diff" if self.kv is not None and leaf_ in
+                    ("wk", "wv", "bk", "bv") else "shard")
+        if self.mlp and head == "ffn":
+            return "shard"
+        return "same"
+
+
+def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int) -> _TP:
+    """Which of ``block``'s layers run tensor-parallel: attention where the
+    JAX layout splits q's heads over "model" (``plan.constraint(q,
+    "batch", None, "heads", None)``) and the weights' heads dims with
+    them, the MLP where it splits the hidden dim."""
+    m = plan.shape()["model"]
+    if m == 1:
+        return _TP()
+    ps = C.param_pspecs(block, plan)
+    attn = mlp = False
+    kv = None
+    if block.spec.mixer == "attn":
+        H, KV, DH = cfg.n_heads, cfg.n_kv, cfg.d_head
+        attn = (plan.splits(plan.constraint((B, S, H, DH), "batch", None,
+                                            "heads", None), 2, "model")
+                and plan.splits(ps["mixer.wq"], 1, "model")
+                and plan.splits(ps["mixer.wo"], 0, "model"))
+        if attn and not (plan.splits(plan.constraint(
+                (B, S, KV, DH), "batch", None, "kv_heads", None), 2,
+                "model") and plan.splits(ps["mixer.wk"], 1, "model")):
+            hl, g, r = H // m, H // KV, plan.model.rank
+            kv = (r * hl // g, ((r + 1) * hl - 1) // g + 1)
+    if block.spec.ffn == "mlp":
+        mlp = (plan.splits(plan.constraint((B, S, cfg.d_ff), "batch", None,
+                                           "mlp"), 2, "model")
+               and plan.splits(ps["ffn.w_gate"], 1, "model")
+               and plan.splits(ps["ffn.w_down"], 0, "model"))
+    return _TP(attn=attn, kv=kv, mlp=mlp)
+
+
+def _tp_attn(p, h, cfg: ArchConfig, positions, plan, kv):
+    """Megatron attention on this rank's query heads (``H / m``
+    contiguous): ``h`` copied to the "model" ranks, the column-parallel
+    q, k, v projections (``p``'s shards; with ``kv`` the k and v
+    projections whole and the kv heads ``kv`` kept), chunked attention, the
+    row-parallel output projection summed over "model"."""
+    DH = cfg.d_head
+    x = DA.copy_to(h, plan.model)
+    B, S = x.shape[:2]
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, -1, DH)
+    k, v = k.reshape(B, S, -1, DH), v.reshape(B, S, -1, DH)
+    if kv is not None:
+        hl, g = q.shape[2], cfg.n_heads // cfg.n_kv
+        first = plan.model.rank * hl
+        k, v = k[:, :, kv[0]:kv[1]], v[:, :, kv[0]:kv[1]]
+        if hl % k.shape[2] or any((first + j) // g - kv[0]
+                                  != j // (hl // k.shape[2])
+                                  for j in range(hl)):
+            # the query heads do not fall in equal groups: one kv head
+            # a query head
+            idx = [(first + j) // g - kv[0] for j in range(hl)]
+            k, v = k[:, :, idx], v[:, :, idx]
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = L.chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                            k_chunk=cfg.k_chunk)
+    return DA.sum_over(o.reshape(B, S, -1) @ p["wo"], plan.model)
+
+
+def _train_rows(plan, B: int) -> Shards:
+    """This rank's rows of a train batch of ``B``: split over "data" where
+    ``B`` divides the data-parallel size, else every row."""
+    dp = _dp_or_none(plan, B)
+    if dp is None or plan.dp_size() == 1:
+        return Shards(plan)
+    i, n = part((dp,) if isinstance(dp, str) else dp, plan.shape(),
+                plan.coords())
+    return Shards(plan, rows=(i, n))
+
+
+def _vocab_split(module, name: str, plan) -> bool:
+    """Whether the embed leaf ``name``'s vocab dim splits over "model"."""
+    spec = module.specs[name]
+    return plan.splits(C._resolve_pspec(spec, plan.rules, plan.shape()),
+                       spec.axes.index("vocab"), "model")
+
+
+def _embed_mesh(model: "LM", tokens, cfg: ArchConfig, plan, positions):
+    """The embedding of this rank's rows: vocab-parallel where the table's
+    vocab dim splits over "model" (each rank looks up the tokens in its
+    rows, the rest zero, summed over "model": one rank holds each row, so
+    the sum gives its bits), else the whole table's lookup."""
+    vp = _vocab_split(model.embed, "tok", plan)
+    p = C.mesh_weights(model.embed, plan,
+                       lambda n: "shard" if vp else "same",
+                       only=lambda n: n in ("tok", "pos"))
+    if not vp:
+        return L.embed_apply(p, tokens, cfg, positions)
+    vl = p["tok"].shape[0]
+    ids = tokens.long() - plan.model.rank * vl
+    inr = ((ids >= 0) & (ids < vl))[..., None]
+    x = nn.functional.embedding(ids.clamp(0, vl - 1), p["tok"])
+    x = DA.sum_over(torch.where(inr, x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device)),
+                    plan.model)
+    if cfg.pos == "learned":
+        x = x + p["pos"][positions]
+    return x
+
+
+def _mesh_block(block, x, cfg, positions, expert_perm, enc_out, sh, tp):
+    """One block of the mesh's train forward, its weights gathered here
+    (inside the caller's remat checkpoint)."""
+    p = C.mesh_weights(block, sh.plan, tp.how)
+    x, _, aux = _apply_layer(block.spec, p, x, cfg, "train", positions,
+                             None, None, None, expert_perm,
+                             enc_out if block.has_cross else None, sh, tp)
+    return x, aux
+
+
+def _mesh_enc_layer(blk, x, cfg, plan):
+    return _enc_layer(C.mesh_weights(blk, plan), x, cfg, True)
+
+
+def _forward_train_mesh(model: "LM", tokens, cfg: ArchConfig, plan, remat,
+                        expert_perm, vision, enc_frames):
+    """``forward(mode="train", plan=)``: this rank's rows of the global
+    batch through the layers on the rank's weight shards (see the module's
+    docstring); returns (hidden [B_rank, S, D], None, aux)."""
+    sh = _train_rows(plan, tokens.shape[0])
+    tokens, vision, enc_frames = (_rows(t, sh)
+                                  for t in (tokens, vision, enc_frames))
+    B, S = tokens.shape
+    dev = tokens.device
+    if cfg.encoder_layers and enc_frames is None:
+        raise ValueError(f"{cfg.name}: train needs enc_frames (the "
+                         f"encoder's input)")
+    if expert_perm is not None:
+        expert_perm = torch.as_tensor(expert_perm, device=dev).long()
+    run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) \
+        if remat else (lambda fn, *a: fn(*a))
+    x = _embed_mesh(model, tokens, cfg, plan, _positions(None, S, dev)
+                    if cfg.pos == "learned" else None)
+    if vision is not None and cfg.vision_dim:
+        w = C.mesh_weights(model.embed, plan,
+                           only=lambda n: n == "vis_proj")["vis_proj"]
+        x = torch.cat([vision.to(w.dtype) @ w, x], dim=1)
+        S = x.shape[1]
+    positions = _positions(None, S, dev)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc = model.encoder
+        top = C.mesh_weights(enc, plan,
+                             only=lambda n: not n.startswith("layers."))
+        enc_out = enc_frames.to(top.pos.dtype) + \
+            top.pos[:enc_frames.shape[1]]
+        for blk in enc.layers:
+            enc_out = run(_mesh_enc_layer, blk, enc_out, cfg, plan)
+        enc_out = _norm(top.final_norm, enc_out, cfg)
+    aux = torch.zeros((), dtype=F32, device=dev)
+    for _, block in model.blocks():
+        x, a = run(_mesh_block, block, x, cfg, positions, expert_perm,
+                   enc_out, sh, _tp_of(block, cfg, plan, B, S))
+        aux = aux + a
+    return _norm(C.mesh_weights(model.final_norm, plan), x, cfg), None, aux
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 def _ce_chunk(w, xc, lc, z_loss: float):
@@ -886,16 +1118,82 @@ def chunked_ce_loss(x, embed, labels, cfg: ArchConfig, chunk: int = 512,
     return tot / torch.clamp(cnt, min=1)
 
 
+def _ce_chunk_mesh(embed, xc, lc, cfg: ArchConfig, plan, vp: bool,
+                   z_loss: float):
+    """One chunk's summed CE on a mesh, the head's weight gathered here
+    (inside the chunk's checkpoint). Vocab-parallel (``vp``): the rank's
+    logits over its vocab slice, the row max over "model" (a max is
+    exact), then the sum of exponentials and the label's logit (zero on
+    the ranks that do not hold it) summed over "model" in one collective;
+    else the whole head's `_ce_chunk`."""
+    name = "tok" if cfg.tie_embeddings else "unembed"
+    w = C.mesh_weights(embed, plan, lambda n: "shard" if vp else "same",
+                       only=lambda n: n == name)[name]
+    w = w.T if cfg.tie_embeddings else w
+    if not vp:
+        return _ce_chunk(w, xc, lc, z_loss)
+    logits = (DA.copy_to(xc, plan.model) @ w).float()
+    vl = logits.shape[-1]
+    mx = plan.model.all_reduce(logits.detach().amax(dim=-1), "max")
+    idx = lc.long() - plan.model.rank * vl
+    inr = (idx >= 0) & (idx < vl)
+    ll = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = torch.where(inr, ll, torch.zeros((), device=ll.device))
+    se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+    both = DA.sum_over(torch.stack([se, ll], dim=-1), plan.model)
+    lse = mx + torch.log(both[..., 0])
+    n = torch.clamp((lc >= 0).sum(), min=1)
+    return C.ce_from_terms(lse, both[..., 1], lc, z_loss) * n
+
+
+def _loss_mesh(model: LM, batch, cfg: ArchConfig, plan, expert_perm,
+               remat: bool, chunk: int = 512, z_loss: float = 1e-4):
+    """`loss_fn` on a mesh: this rank's rows' CE sum (``chunked_ce_loss``'s
+    chunks, each recomputed in the backward) over the global label count,
+    plus the balance loss over the data-parallel size, summed over "data"
+    (``sum_over``: every rank holds the global loss, and its backward
+    seeds each rank's own part)."""
+    vision = batch.get("vision")
+    x, _, aux = forward(model, batch["tokens"], cfg, mode="train",
+                        remat=remat, expert_perm=expert_perm, vision=vision,
+                        enc_frames=batch.get("enc_frames"), plan=plan)
+    sh = _train_rows(plan, batch["labels"].shape[0])
+    lbl = _rows(batch["labels"], sh)
+    if vision is not None and cfg.vision_dim:
+        pad = torch.full((lbl.shape[0], x.shape[1] - lbl.shape[1]), -1,
+                         dtype=lbl.dtype, device=lbl.device)
+        lbl = torch.cat([pad, lbl], dim=1)
+    S = x.shape[1]
+    chunk = math.gcd(min(chunk, S), S)
+    vp = _vocab_split(model.embed, "tok" if cfg.tie_embeddings
+                      else "unembed", plan)
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for xc, lc in zip(x.split(chunk, dim=1), lbl.split(chunk, dim=1)):
+        tot = tot + checkpoint(_ce_chunk_mesh, model.embed, xc, lc, cfg,
+                               plan, vp, z_loss, use_reentrant=False)
+        cnt = cnt + (lc >= 0).sum()
+    dp = plan.dp_size()
+    if sh.rows is not None:   # the global label count, an exact integer
+        ce = tot / torch.clamp(plan.data.all_reduce(cnt), min=1)
+    else:                     # every "data" rank holds every row
+        ce = tot / torch.clamp(cnt, min=1) / dp
+    both = DA.sum_over(torch.stack([ce + aux / dp, ce]), plan.data)
+    return both[0], {"ce": both[1].detach(), "aux": aux.detach()}
+
+
 def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
             remat: bool = True):
     """batch: dict(tokens [B,S], labels [B,S], + optional vision [B,
     vision_tokens, vision_dim] / enc_frames [B, T, d_model]). Returns
     (ce + aux, {"ce", "aux"}); aux is the MoE balance loss (0 without
     MoE, where ``expert_perm`` changes nothing, as in JAX). The labels
-    are padded with -1 over the vision positions."""
+    are padded with -1 over the vision positions. Under ``plan`` the
+    model holds this rank's shards and every rank returns the global
+    batch's loss (`_loss_mesh`)."""
     if plan is not None:
-        _unported("the training loss on a mesh (plan=)",
-                  "14i (training on a mesh)")
+        plan.check_ported()
+        return _loss_mesh(model, batch, cfg, plan, expert_perm, remat)
     vision = batch.get("vision")
     x, _, aux = forward(model, batch["tokens"], cfg, mode="train",
                         remat=remat, expert_perm=expert_perm, vision=vision,
@@ -939,9 +1237,17 @@ def decode_step(model: LM, token, pos, cache, cfg: ArchConfig,
     return logits[:, 0], cache
 
 
-def materialize_lm(cfg: ArchConfig, seed: int, device,
-                   dtype=F32) -> LM:
-    """An LM with seeded random weights, made and drawn on ``device``."""
+def materialize_lm(cfg: ArchConfig, seed: int, device, dtype=F32,
+                   plan=None) -> LM:
+    """An LM with seeded random weights, made and drawn on ``device``.
+    Under ``plan`` (``device`` then ``plan.device``) each parameter is
+    this rank's shard of the one-device weights (``common.init_shards_``:
+    every leaf drawn whole in turn, the shard kept)."""
+    if plan is not None:
+        model = LM(cfg, device="meta", dtype=dtype)
+        gen = torch.Generator(device=plan.device).manual_seed(seed)
+        C.init_shards_(model, gen, plan, dtype)
+        return model
     model = LM(cfg, device=device, dtype=dtype)
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
     return model.init_(gen)

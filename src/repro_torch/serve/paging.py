@@ -23,8 +23,8 @@ spec splits "kv_pages" over "model" holds pages ``[r*NP/m, (r+1)*NP/m)``
 on rank r, a "batch" leaf split over "data" its rank's slots, and the
 insert writes only what this rank holds. A pool leaf that resolves to a
 head split ("kv_heads", when "model" does not divide the pages) stays
-whole on every rank: the head split comes with tensor parallelism,
-ROADMAP.md Queue A item 14i.
+whole on every rank: the head split comes with tensor-parallel weights
+in serving, ROADMAP.md Queue A item 14n.
 """
 from __future__ import annotations
 

@@ -3,10 +3,10 @@ feedback, port of ``repro.train.grad_compress``.
 
 Grads are quantized to int8 with a per-tensor scale, all-reduced in low
 precision, dequantized, and the quantization residual is carried as
-error-feedback state so the compression bias vanishes over steps. Here is
-the functional core, which the JAX tests and the mesh path share; the
-all-reduce over a mesh (``make_compressed_allreduce``) waits for ROADMAP.md
-Queue A item 14i (training on a mesh).
+error-feedback state so the compression bias vanishes over steps:
+``compressed_psum_grads`` is the functional core, which the JAX tests and
+the mesh path share, and ``make_compressed_allreduce`` the all-reduce over
+one dim of a ``dist.Plan``'s mesh, as the JAX ``shard_map`` computes it.
 """
 from __future__ import annotations
 
@@ -47,8 +47,26 @@ def compressed_psum_grads(grads, residuals, mesh=None):
     return _map2(one, grads, residuals)
 
 
-def make_compressed_allreduce(mesh, axis: str = "data"):
-    """The int8 all-reduce over a mesh axis: not ported yet."""
-    raise NotImplementedError(
-        "make_compressed_allreduce is not ported yet: ROADMAP.md Queue A "
-        "item 14i (training on a mesh)")
+def make_compressed_allreduce(plan, axis: str = "data"):
+    """``sync(grads, residuals) -> (grads, residuals)`` over the ranks of
+    ``plan``'s mesh dim ``axis``, on each rank's partial gradients (trees
+    of one structure), as the JAX function's ``shard_map`` body computes
+    it: each leaf plus its residual quantized to int8, the int8 values
+    summed in int32 (exact), the scales summed and divided by the rank
+    count ``n`` (a conservative shared scale), the result over ``n``; the
+    new residual is what the rank's own quantization lost."""
+    comm = plan.comm(axis)
+
+    def one(g, r):
+        g32 = g.to(torch.float32) + r
+        q, scale = quantize_int8(g32)
+        qsum = comm.all_reduce(q.to(torch.int32))
+        ssum = comm.sum(scale)
+        n = torch.tensor(float(comm.size), dtype=torch.float32,
+                         device=g32.device)
+        deq = qsum.to(torch.float32) * (ssum / n)
+        return deq / n, g32 - dequantize_int8(q, scale)
+
+    def sync(grads, residuals):
+        return _map2(one, grads, residuals)
+    return sync

@@ -17,7 +17,8 @@
 - ``MetaComm``'s collectives on ``Plan.abstract((1, 2))`` equal what the
   real ``Comm`` carries on gloo ranks for the same decode step, and a
   rank's cache argument bytes what ``shard_zeros`` allocates there.
-- ``run_cell``: the JAX keys, the refusals naming item 14i, and one cell
+- ``run_cell``: the JAX keys, a ``train_4k`` cell counted on the mesh
+  train step, the flags' refusals naming item 14l, and one cell
   against the JAX ``run_cell`` run in a subprocess on a
   ``jax.sharding.Mesh`` of 256 forced host devices.
 """
@@ -608,12 +609,28 @@ def test_run_cell_full_size(arch, shape):
                                   "seq_parallel_attn", "attn_p_bf16",
                                   "mla_flash"])
 def test_run_cell_refusals_name_14i(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        if flag == "train_4k":
-            dryrun.run_cell("qwen2-1.5b", "train_4k", multi_pod=False)
-        else:
+    """The flags that change the computation raise, naming item 14l; a
+    ``train_4k`` cell counts the mesh train step: the state at a rank's
+    shards, FSDP's gathers and their sum-scatters, the vocab-parallel
+    CE's max, a useful ratio above the whole-weight decode cell's."""
+    if flag != "train_4k":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
             dryrun.run_cell("deepseek-v2-236b", "decode_32k",
                             multi_pod=False, **{flag: True})
+        return
+    arch = "phi4-mini-3.8b"
+    r = dryrun.run_cell(arch, "train_4k", multi_pod=False)
+    dec = dryrun.run_cell(arch, "decode_32k", multi_pod=False)
+    assert r["status"] == "ok" and r["n_chips"] == 256
+    counts = r["collective_counts"]
+    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
+    assert counts["all-reduce"] > 0
+    assert r["useful_flop_ratio"] > 1.5 * dec["useful_flop_ratio"] > 0
+    n_params = dryrun.count_params(TT.lm_shapes(treg.get_config(arch)),
+                                   treg.get_config(arch))[0]
+    # a rank's state: 14 B a parameter, split over the 256 ranks but for
+    # the leaves a dim of which the mesh does not divide
+    assert r["memory"]["argument_size_in_bytes"] < 14 * n_params / 64
 
 
 def test_main_prints_and_writes_json(tmp_path, capsys):

@@ -22,6 +22,7 @@ from repro.models import transformer as JT
 from repro.serve import paging as jpaging
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import list_configs
+from repro_torch.dist.sharding import Plan, lm_rules
 from repro_torch.models import common as TC
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -147,16 +148,18 @@ def test_full_width_llama4_parameter_count():
 
 
 def test_train_mode_raises():
-    """Train mode runs on one device; what it does not run yet raises and
-    names its ROADMAP item, and an unknown mode raises. An
+    """A plan flag train mode does not run yet raises and names its
+    ROADMAP item (14l), and an unknown mode raises. An
     ``expert_perm`` on a config without MoE changes nothing, as in
     JAX."""
     cfg = tget("qwen2-1.5b").smoke()
     model = TT.materialize_lm(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     batch = {"tokens": toks, "labels": toks}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        TT.loss_fn(model, batch, cfg, plan=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
+        TT.loss_fn(model, batch, cfg, plan=Plan(
+            mesh=None, device=torch.device("cpu"), data=None, model=None,
+            rules=lm_rules(seq_parallel_attn=True)))
     plain, _ = TT.loss_fn(model, batch, cfg)
     permuted, m = TT.loss_fn(model, batch, cfg,
                              expert_perm=torch.arange(4).flip(0))
@@ -347,6 +350,33 @@ def test_softmax_cross_entropy_matches_jax():
     none = np.full_like(labels, -1)
     assert float(TC.softmax_cross_entropy(_t(logits), _t(none))) == 0.0
 
+
+
+def test_chunked_attention_takes_values_narrower_than_queries():
+    """Values of another head dim than the queries' (MLA's latent values
+    against its ``kv_lora + d_rope`` queries): the chunked attention
+    against a plain softmax attention written here, causal and not, the
+    keys in several chunks (the JAX function reshapes v with q's head dim
+    and raises here, ROADMAP.md Queue C2)."""
+    rng = np.random.default_rng(12)
+    B, S, H, KV, Dh, Dv = 2, 48, 4, 2, 24, 16
+    q, k = (torch.from_numpy(rng.normal(size=(B, S, n, Dh)).astype(
+        np.float32)) for n in (H, KV))
+    v = torch.from_numpy(rng.normal(size=(B, S, KV, Dv)).astype(np.float32))
+    g = H // KV
+    for causal in (True, False):
+        got = TL.chunked_attention(q, k, v, causal=causal, q_chunk=16,
+                                   k_chunk=16)
+        assert got.shape == (B, S, H, Dv)
+        s_ = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(g, 2))
+        s_ = s_ / Dh ** 0.5
+        if causal:
+            s_ = s_.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                                float("-inf"))
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, -1),
+                            v.repeat_interleave(g, 2))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_chunked_ce_loss_matches_jax(name):

@@ -134,13 +134,13 @@ def test_moe_apply_matches_jax(n_experts, top_k, with_perm):
 
 def test_moe_apply_on_a_mesh_raises():
     """The shard-local dispatch (the plan's ``moe_local_dispatch`` rule)
-    waits for item 14i; a plan without it computes as without a plan."""
+    waits for item 14l; a plan without it computes as without a plan."""
     _, cfg = _cfgs()
     p = TL.MoE(cfg, device="cpu")
     p.load_state_dict({k: 0.1 * torch.ones_like(v)
                        for k, v in p.state_dict().items()})
     x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
         TL.moe_apply(p, x, cfg, plan=_plan(moe_local=True))
     got, want = (TL.moe_apply(p, x, cfg, plan=_plan()),
                  TL.moe_apply(p, x, cfg))

@@ -489,9 +489,9 @@ def test_unported_flags_raise(rule):
     plan = Plan(mesh=None, device=torch.device("cpu"), data=None,
                 model=None, rules=lm_rules(**{rule: True}))
     model = TT.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
         ServeEngine(cfg, model, cache_len=CL, plan=plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
         TT.prefill(model, torch.ones((1, 3), dtype=torch.long),
                    TC.zeros(TT.cache_shapes(cfg, 1, 8), "cpu"), cfg,
                    plan=plan)

@@ -189,12 +189,12 @@ def test_split_sequence_equals_one_pass(mixer):
 
 
 def test_mamba_plan_raises():
-    """A plan rule of item 14i raises; a plan without one computes as
+    """A plan rule of item 14l raises; a plan without one computes as
     without a plan (whole weights: the JAX plan only constrains
     layouts)."""
     _, tfn, _, cfg, _, _, tp = _mixer_params("mamba")
     x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
         tfn(tp, x, cfg, plan=Plan(mesh=None, device=torch.device("cpu"),
                                   data=None, model=None,
                                   rules=lm_rules(attn_p_bf16=True)))

@@ -40,6 +40,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config as tget
 from repro_torch.data import pipeline as tpipe
 from repro_torch.dist.ft import StepWatchdog, TrainSupervisor
+from repro_torch.dist.sharding import Plan, lm_rules
 from repro_torch.launch import train as tcli
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import common as TC
@@ -468,8 +469,25 @@ def test_int8_compression_exact_against_jax():
             a.numpy(), np.asarray(b)), tdeq, jdeq)
         jax.tree.map(lambda a, b: np.testing.assert_array_equal(
             a.numpy(), np.asarray(b)), tr, jr)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        tgc.make_compressed_allreduce(None)
+    # the mesh all-reduce over a group of one rank gives the core's bits
+    class _OneRank:
+        size, rank = 1, 0
+
+        def all_reduce(self, x, op="sum"):
+            return x.clone()
+
+        def sum(self, x):
+            return x.clone()
+    sync = tgc.make_compressed_allreduce(Plan(
+        mesh=None, device=torch.device("cpu"), data=_OneRank(),
+        model=_OneRank()))
+    tr = jax.tree.map(torch.from_numpy, res)
+    mr = jax.tree.map(torch.from_numpy, res)
+    for _ in range(3):
+        tdeq, tr = tgc.compressed_psum_grads(tg, tr)
+        mdeq, mr = sync(tg, mr)
+        jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+            a.numpy(), b.numpy()), (tdeq, tr), (mdeq, mr))
 
 
 def test_grad_compression_error_feedback_converges():
@@ -657,15 +675,22 @@ def test_supervisor_restarts_from_checkpoint():
 
 
 def test_unported_training_arguments_raise():
+    """A plan flag that changes the computation (item 14l) raises in
+    ``train``, ``make_train_step`` and ``loss_fn``; without a device the
+    loop needs the card."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        tloop.train(cfg, steps=1, global_batch=2, seq_len=8, plan=object(),
+    plan = Plan(mesh=None, device=torch.device("cpu"), data=None,
+                model=None, rules=lm_rules(attn_p_bf16=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
+        tloop.train(cfg, steps=1, global_batch=2, seq_len=8, plan=plan,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        make_train_step(cfg, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14i"):
-        tcli.main(["--arch", ARCH, "--smoke", "--mesh", "host",
-                   "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
+        make_train_step(cfg, plan)
+    toks = torch.zeros((2, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
+        TT.loss_fn(TT.LM(cfg, device="meta"), {"tokens": toks,
+                                               "labels": toks}, cfg,
+                   plan=plan)
     if not torch.cuda.is_available():   # the card unless told otherwise
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tloop.train(cfg, steps=1, global_batch=2, seq_len=8)
