@@ -25,8 +25,10 @@ import os
 import re
 import shutil
 import tempfile
+import zipfile
 
 import numpy as np
+from numpy.lib import format as npformat
 import torch
 import torch.distributed as dist
 
@@ -36,13 +38,21 @@ from repro_torch.train.optimizer import TrainState
 _FIELDS = ("params", "master", "mu", "nu", "step")
 
 
-def _tree(tree, plan=None):
-    """A TrainState as the JAX flatten sees it (its fields are ".name"
-    path entries, its leaves whole); any other tree as it is."""
-    if isinstance(tree, TrainState):
-        return {f".{k}": v for k, v in
-                convert.state_to_jax(tree, plan).items()}
-    return tree
+def _items(tree, plan=None, keep: bool = True):
+    """The tree's leaves as the writer takes them: ``(key, n, parts)``,
+    the key the flattened JAX path, ``n`` a stacked leaf's layer count
+    (None for any other) and ``parts`` an iterator of its pieces. A
+    TrainState goes one leaf at a time (``convert.state_leaves``: under
+    ``plan`` each piece gathered whole as it is reached); any other tree
+    leaf by leaf as it is."""
+    if not isinstance(tree, TrainState):
+        return ((k, None, iter([v])) for k, v in _flatten(tree).items())
+
+    def gen():
+        for field, path, n, parts in convert.state_leaves(tree, plan, keep):
+            yield "/".join((f".{field}",) + path), n, parts
+        yield ".step", None, iter([np.asarray(tree.step, np.int32)])
+    return gen()
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -67,6 +77,32 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _bytes(a: np.ndarray) -> memoryview:
+    return np.ascontiguousarray(a).reshape(-1).data
+
+
+def _write_npz(path: str, items) -> dict:
+    """Writes ``items`` (see `_items`) as ``np.savez`` does, one ``.npy``
+    member a leaf, each piece written as it comes (a stacked leaf's
+    header first, its layers after it), so no more than one piece is
+    held; returns the dtype names by key."""
+    dtypes = {}
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, n, parts in items:
+            first, dtypes[key] = _to_numpy(next(parts))
+            shape = first.shape if n is None else (n,) + first.shape
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                npformat.write_array_header_1_0(f, {
+                    "descr": npformat.dtype_to_descr(first.dtype),
+                    "fortran_order": False, "shape": shape})
+                f.write(_bytes(first))
+                del first
+                for part in parts:
+                    f.write(_bytes(_to_numpy(part)[0]))
+    return dtypes
+
+
 def _from_numpy(a: np.ndarray, dtype: str | None):
     """A stored array back: bf16 as a torch tensor (numpy has no bf16
     here), anything else as numpy."""
@@ -87,25 +123,26 @@ class CheckpointManager:
              plan=None) -> str:
         """tree: a TrainState, or nested dicts of arrays or tensors. Under
         ``plan`` (every rank calls this) a TrainState of the ranks' shards
-        is gathered whole, global rank 0 writes it, and the ranks meet at
-        a barrier after the write."""
-        whole = _tree(tree, plan)
+        is gathered whole one leaf at a time, global rank 0 writes each
+        leaf as it comes and the other ranks drop it, and the ranks meet
+        at a barrier after the write."""
         final = os.path.join(self.dir, f"step-{step:08d}")
-        if plan is not None and plan.mesh is not None:
-            if dist.get_rank() == 0:
-                self._write(step, whole, extra)
-            dist.barrier()
-            return final
-        return self._write(step, whole, extra)
+        if plan is None or plan.mesh is None:
+            return self._write(step, _items(tree), extra)
+        if dist.get_rank() == 0:
+            self._write(step, _items(tree, plan), extra)
+        else:   # the writer's gathers, in its order
+            for _, _, parts in _items(tree, plan, keep=False):
+                for _ in parts:
+                    pass
+        dist.barrier()
+        return final
 
-    def _write(self, step: int, tree, extra) -> str:
-        flat, dtypes = {}, {}
-        for k, leaf in _flatten(tree).items():
-            flat[k], dtypes[k] = _to_numpy(leaf)
+    def _write(self, step: int, items, extra) -> str:
         tmp = tempfile.mkdtemp(prefix=f"tmp-{step}-", dir=self.dir)
         try:
-            np.savez(os.path.join(tmp, "arrays.npz"), **flat)
-            manifest = dict(step=step, keys=sorted(flat), dtypes=dtypes,
+            dtypes = _write_npz(os.path.join(tmp, "arrays.npz"), items)
+            manifest = dict(step=step, keys=sorted(dtypes), dtypes=dtypes,
                             extra=extra or {})
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
@@ -163,18 +200,14 @@ class CheckpointManager:
                 return step, _unflatten(
                     {k: _from_numpy(arrays[k], dtypes.get(k))
                      for k in keys}), manifest.get("extra", {})
-            fields: dict = {}
-            for key in arrays.files:
-                head, _, rest = key.partition("/")
-                if head.lstrip(".") not in _FIELDS:
-                    continue
-                fields.setdefault(head.lstrip("."), {})[rest] = \
-                    _from_numpy(arrays[key], dtypes.get(key))
-        cfg = tree_like.params.cfg
-        state = convert.state_from_jax(cfg, {
-            "step": fields["step"][""],
-            **{k: _unflatten(fields[k]) for k in _FIELDS[:-1]}},
-            device=device or "cpu", plan=plan)
+            leaves = ((key.partition("/")[0].lstrip("."),
+                       tuple(key.split("/")[1:]),
+                       _from_numpy(arrays[key], dtypes.get(key)))
+                      for key in arrays.files
+                      if key.partition("/")[0].lstrip(".") in _FIELDS[:-1])
+            state = convert.state_from_leaves(
+                tree_like.params.cfg, leaves, int(arrays[".step"]),
+                device=device or "cpu", plan=plan)
         return step, state, manifest.get("extra", {})
 
 

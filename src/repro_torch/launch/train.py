@@ -6,12 +6,12 @@
 
 Runs on the card unless ``--device`` names another device. ``--mesh host``
 trains on a ``("data", "model")`` mesh of the launcher's ranks
-(``launch.mesh.make_host_mesh(--model-parallel)``), the process group
+(``launch.mesh.make_host_mesh()``: every rank on "data"), the process group
 taken from the launcher's environment:
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch qwen2-1.5b --smoke --steps 4 --batch 4 --seq 16 \
-      --mesh host [--model-parallel 2] --device cpu
+      --mesh host --device cpu
 
 (gloo on the CPU with ``--device cpu``; without it NCCL with one card a
 rank, ``cuda:LOCAL_RANK``). Rank 0 prints and writes ``--json``.
@@ -38,8 +38,6 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "host"], default="none")
-    ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the mesh's model dim under --mesh host")
     ap.add_argument("--deadline-s", type=float, default=0.0)
     ap.add_argument("--max-restarts", type=int, default=0,
                     help="supervise the run: restart from the last "
@@ -55,7 +53,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
 
-    plan, own_group = host_plan(args.model_parallel, args.device) \
+    plan, own_group = host_plan(args.device) \
         if args.mesh == "host" else (None, False)
     kw = dict(steps=args.steps, global_batch=args.batch,
               seq_len=args.seq, plan=plan, ckpt_dir=args.ckpt_dir,
@@ -82,7 +80,7 @@ def main(argv=None):
     return 0
 
 
-def host_plan(model_parallel: int, device=None):
+def host_plan(device=None):
     """``(plan, made)``: the `Plan` of the launcher's ranks
     (``make_host_mesh``), and whether this call initialised the default
     process group (from the environment, where no group was yet): gloo
@@ -106,7 +104,7 @@ def host_plan(model_parallel: int, device=None):
     made = not dist.is_initialized()
     if made:
         dist.init_process_group(backend)
-    return Plan.make(make_host_mesh(model_parallel), device), made
+    return Plan.make(make_host_mesh(), device), made
 
 
 def dataclasses_asdict(res):

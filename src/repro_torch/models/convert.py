@@ -90,76 +90,106 @@ def leaf_groups(cfg: ArchConfig, names) -> list[tuple[tuple[str, ...],
             for path, v in sorted(groups.items())]
 
 
+def _layers(cfg: ArchConfig, path: tuple[str, ...], t: torch.Tensor):
+    """(port name, tensor) of the JAX leaf ``t`` at ``path``: a stacked
+    leaf split into its layers (copies), any other leaf as it is."""
+    if not _stacked(path):
+        yield ".".join(path), t
+        return
+    n_slot = len(cfg.pattern)
+    for j in range(t.shape[0]):
+        if path[0] == "encoder":
+            name = f"encoder.layers.{j}." + ".".join(path[2:])
+        else:
+            i = int(path[1].removeprefix("slot"))
+            name = f"layers.{j * n_slot + i}." + ".".join(path[2:])
+        yield name, t[j].clone()
+
+
 def params_from_jax(cfg: ArchConfig, tree: dict) -> dict[str, torch.Tensor]:
     """A state dict for ``models.transformer.LM`` from the JAX parameter
     tree as numpy arrays (or tensors), with the stacked axes unstacked."""
-    n_slot = len(cfg.pattern)
-    state = {}
-    for path, arr in _flat(tree):
-        parts = tuple(path.split("."))
-        if not _stacked(parts):
-            state[path] = _tensor(arr)
-            continue
-        t = _tensor(arr)
-        for j in range(t.shape[0]):
-            if parts[0] == "encoder":
-                name = f"encoder.layers.{j}." + ".".join(parts[2:])
-            else:
-                i = int(parts[1].removeprefix("slot"))
-                name = f"layers.{j * n_slot + i}." + ".".join(parts[2:])
-            state[name] = t[j].clone()
-    return state
+    return {n: t for path, arr in _flat(tree)
+            for n, t in _layers(cfg, tuple(path.split(".")), _tensor(arr))}
 
 
-def tree_from_flat(cfg: ArchConfig, flat: dict) -> dict:
-    """The JAX-layout tree of tensors keyed by the port's parameter names:
-    nested dicts, each stacked leaf one ``[n, ...]`` tensor on the
-    CPU."""
-    tree: dict = {}
-    for path, names in leaf_groups(cfg, flat):
-        ts = [flat[n].detach().cpu() for n in names]
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = torch.stack(ts) if _stacked(path) else ts[0]
-    return tree
+_STATE_FIELDS = ("params", "master", "mu", "nu")
 
 
 def state_from_jax(cfg: ArchConfig, state, device="cpu", plan=None):
     """The port's ``train.optimizer.TrainState`` from a JAX one as numpy
     arrays (``jax.tree.map(np.asarray, state)``) or from a mapping with
-    the keys params, master, mu, nu and step: the compute params an
-    ``LM`` in their dtype with gradients on, the f32 trees keyed by the
-    port's parameter names. Under ``plan`` (``device`` then
-    ``plan.device``) every leaf is this rank's shard, cut on the host."""
+    the keys params, master, mu, nu and step (see `state_from_leaves`)."""
+    def get(k):
+        return state[k] if isinstance(state, dict) else getattr(state, k)
+
+    return state_from_leaves(
+        cfg, ((f, tuple(path.split(".")), arr) for f in _STATE_FIELDS
+              for path, arr in _flat(get(f))),
+        int(np.asarray(get("step"))), device, plan)
+
+
+def state_from_leaves(cfg: ArchConfig, leaves, step: int, device="cpu",
+                      plan=None):
+    """A ``TrainState`` from ``leaves``, which yields ``(field, path,
+    array)`` for every JAX leaf of the fields params, master, mu and nu:
+    the compute params an ``LM`` in their dtype with gradients on, the f32
+    trees keyed by the port's parameter names. Under ``plan`` (``device``
+    then ``plan.device``) every leaf is this rank's shard: each is cut
+    before the next is read, so no rank holds more than one whole leaf."""
     from repro_torch.models import common
     from repro_torch.models.transformer import LM
     from repro_torch.train.optimizer import TrainState
 
-    def get(k):
-        return state[k] if isinstance(state, dict) else getattr(state, k)
-
-    sd = params_from_jax(cfg, get("params"))
-    model = LM(cfg, device="meta" if plan is not None else device,
-               dtype=next(iter(sd.values())).dtype)
-    cut = lambda n, t: t
-    if plan is None:
-        model.load_state_dict(sd)
-    else:
+    model = LM(cfg, device="meta")
+    if plan is not None:
         device = plan.device
-        ps = common.param_pspecs(model, plan)
-        sizes, at = plan.shape(), plan.coords()
-        cut = lambda n, t: common.shard_of(t, ps[n], sizes, at).clone()
-        for n, t in sd.items():
-            common.set_param(model, n, cut(n, t).to(device))
-    model.requires_grad_(True)
+        ps, sizes, at = (common.param_pspecs(model, plan), plan.shape(),
+                         plan.coords())
+    trees: dict = {f: {} for f in _STATE_FIELDS[1:]}
+    for field, path, arr in leaves:
+        for n, t in _layers(cfg, path, _tensor(arr)):
+            if plan is not None:
+                t = common.shard_of(t, ps[n], sizes, at)
+            t = t.to(device, copy=True)   # shares no storage with arr
+            if field == "params":
+                common.set_param(model, n, t, requires_grad=True)
+            else:
+                trees[field][n] = t
+    missing = [n for n, t in model.named_parameters() if t.is_meta]
+    if missing:
+        raise KeyError(f"{cfg.name}: no params leaf for {missing}")
+    return TrainState(params=model, step=step, **trees)
 
-    def f32(k):
-        return {n: cut(n, t).to(device) for n, t in
-                params_from_jax(cfg, get(k)).items()}
 
-    return TrainState(params=model, master=f32("master"), mu=f32("mu"),
-                      nu=f32("nu"), step=int(np.asarray(get("step"))))
+def state_leaves(state, plan=None, keep: bool = True):
+    """The JAX leaves of a port ``TrainState``'s params, master, mu and nu
+    in ``jax.tree`` order, one at a time: ``(field, path, n, parts)``,
+    ``n`` a stacked leaf's layer count (None for any other) and ``parts``
+    an iterator of its whole per-layer CPU tensors (one for an unstacked
+    leaf). Under ``plan`` the state holds this rank's shards and each part
+    is gathered whole as the iterator reaches it: every rank of the mesh
+    walks every part in this order, and with ``keep`` False a rank gathers
+    and drops each (a part is then None)."""
+    from repro_torch.models import common
+
+    cfg = state.params.cfg
+    ps = common.param_pspecs(state.params, plan) if plan is not None \
+        else None
+
+    def parts(flat, names):
+        for n in names:
+            t = flat[n].detach()
+            if plan is not None:
+                t = common.whole_of(t, ps[n], plan)
+            yield t.cpu() if keep else None
+
+    for field, flat in (("params", dict(state.params.named_parameters())),
+                        ("master", state.master), ("mu", state.mu),
+                        ("nu", state.nu)):
+        for path, names in leaf_groups(cfg, flat):
+            yield (field, path, len(names) if _stacked(path) else None,
+                   parts(flat, names))
 
 
 def state_to_jax(state, plan=None) -> dict:
@@ -167,20 +197,15 @@ def state_to_jax(state, plan=None) -> dict:
     "nu": trees of CPU tensors with stacked layer leaves, "step": int32}.
     Under ``plan`` the state holds this rank's shards, each gathered whole
     here (every rank of the mesh calls this)."""
-    cfg = state.params.cfg
-    whole = lambda flat: flat
-    if plan is not None:
-        from repro_torch.models import common
-        ps = common.param_pspecs(state.params, plan)
-        whole = lambda flat: {n: common.whole_of(t.detach(), ps[n],
-                                                 plan).cpu()
-                              for n, t in flat.items()}
-    return {"params": tree_from_flat(cfg, whole(dict(
-                state.params.named_parameters()))),
-            "master": tree_from_flat(cfg, whole(state.master)),
-            "mu": tree_from_flat(cfg, whole(state.mu)),
-            "nu": tree_from_flat(cfg, whole(state.nu)),
-            "step": np.asarray(state.step, np.int32)}
+    out: dict = {}
+    for field, path, n, parts in state_leaves(state, plan):
+        node = out.setdefault(field, {})
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        ts = list(parts)
+        node[path[-1]] = torch.stack(ts) if n is not None else ts[0]
+    out["step"] = np.asarray(state.step, np.int32)
+    return out
 
 
 def cache_to_arrays(cache) -> dict:

@@ -75,14 +75,16 @@ def attn_shapes(cfg: ArchConfig, cross: bool = False) -> dict:
 
 
 def qkv_project(p, x, xkv, cfg: ArchConfig):
-    H, KV, DH = cfg.n_heads, cfg.n_kv, cfg.d_head
+    """q [B,S,H,Dh], k and v [B,Skv,KV,Dh]; the head counts are the
+    weights' (a rank's shards on a mesh hold a slice of the heads)."""
+    DH = cfg.d_head
     q, k, v = x @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[:2]
     Skv = xkv.shape[1]
-    return (q.reshape(B, S, H, DH), k.reshape(B, Skv, KV, DH),
-            v.reshape(B, Skv, KV, DH))
+    return (q.reshape(B, S, -1, DH), k.reshape(B, Skv, -1, DH),
+            v.reshape(B, Skv, -1, DH))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -535,10 +535,14 @@ def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
 
 
 def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None,
-                sh=None):
+                sh=None, kv=None):
     """One attention mixer. ``cache`` is this layer's ``{"k", "v"}``
-    (views into the stacked cache), updated in place."""
+    (views into the stacked cache), updated in place. ``kv`` (training on
+    a mesh, `_TP.kv`) indexes the kv heads this rank's query heads read
+    out of the whole k and v."""
     q, k, v = L.qkv_project(p, x, x, cfg)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -684,7 +688,11 @@ def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None):
 def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  pages=None, sh=None, tp=None):
     if tp is not None and tp.attn:
-        return _tp_attn(p, x, cfg, positions, sh.plan, tp.kv), None
+        # Megatron: the column-parallel q, k, v on this rank's heads, the
+        # row-parallel output projection summed over "model"
+        o, _ = _apply_attn(p, DA.copy_to(x, sh.plan.model), cfg, "train",
+                           positions, None, None, kv=tp.kv)
+        return DA.sum_over(o, sh.plan.model), None
     if spec.mixer in _RECURRENT:
         return _apply_recurrent(spec, p, x, cfg, mode, cache,
                                 sh.plan if sh is not None else None)
@@ -911,11 +919,12 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
 class _TP:
     """A block's tensor-parallel parts on a mesh: ``attn`` (its attention's
     heads over "model"), ``kv`` (where "model" does not split the kv heads
-    with the heads: the range ``(lo, hi)`` of kv heads this rank's query
-    heads read, gathered whole) and ``mlp`` (its SwiGLU hidden dim over
-    "model")."""
+    with the heads: the index, into the kv heads gathered whole, of those
+    this rank's query heads read; a slice where they fall in equal
+    groups, else one kv head a query head) and ``mlp`` (its SwiGLU hidden
+    dim over "model")."""
     attn: bool = False
-    kv: tuple | None = None
+    kv: slice | list | None = None
     mlp: bool = False
 
     def how(self, name: str) -> str:
@@ -950,46 +959,17 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int) -> _TP:
                 (B, S, KV, DH), "batch", None, "kv_heads", None), 2,
                 "model") and plan.splits(ps["mixer.wk"], 1, "model")):
             hl, g, r = H // m, H // KV, plan.model.rank
-            kv = (r * hl // g, ((r + 1) * hl - 1) // g + 1)
+            idx = [(r * hl + j) // g for j in range(hl)]
+            lo, n = idx[0], idx[-1] + 1 - idx[0]
+            equal = hl % n == 0 and all(i - lo == j // (hl // n)
+                                        for j, i in enumerate(idx))
+            kv = slice(lo, lo + n) if equal else idx
     if block.spec.ffn == "mlp":
         mlp = (plan.splits(plan.constraint((B, S, cfg.d_ff), "batch", None,
                                            "mlp"), 2, "model")
                and plan.splits(ps["ffn.w_gate"], 1, "model")
                and plan.splits(ps["ffn.w_down"], 0, "model"))
     return _TP(attn=attn, kv=kv, mlp=mlp)
-
-
-def _tp_attn(p, h, cfg: ArchConfig, positions, plan, kv):
-    """Megatron attention on this rank's query heads (``H / m``
-    contiguous): ``h`` copied to the "model" ranks, the column-parallel
-    q, k, v projections (``p``'s shards; with ``kv`` the k and v
-    projections whole and the kv heads ``kv`` kept), chunked attention, the
-    row-parallel output projection summed over "model"."""
-    DH = cfg.d_head
-    x = DA.copy_to(h, plan.model)
-    B, S = x.shape[:2]
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, -1, DH)
-    k, v = k.reshape(B, S, -1, DH), v.reshape(B, S, -1, DH)
-    if kv is not None:
-        hl, g = q.shape[2], cfg.n_heads // cfg.n_kv
-        first = plan.model.rank * hl
-        k, v = k[:, :, kv[0]:kv[1]], v[:, :, kv[0]:kv[1]]
-        if hl % k.shape[2] or any((first + j) // g - kv[0]
-                                  != j // (hl // k.shape[2])
-                                  for j in range(hl)):
-            # the query heads do not fall in equal groups: one kv head
-            # a query head
-            idx = [(first + j) // g - kv[0] for j in range(hl)]
-            k, v = k[:, :, idx], v[:, :, idx]
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    o = L.chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                            k_chunk=cfg.k_chunk)
-    return DA.sum_over(o.reshape(B, S, -1) @ p["wo"], plan.model)
 
 
 def _train_rows(plan, B: int) -> Shards:
@@ -1118,18 +1098,13 @@ def chunked_ce_loss(x, embed, labels, cfg: ArchConfig, chunk: int = 512,
     return tot / torch.clamp(cnt, min=1)
 
 
-def _ce_chunk_mesh(embed, xc, lc, cfg: ArchConfig, plan, vp: bool,
-                   z_loss: float):
-    """One chunk's summed CE on a mesh, the head's weight gathered here
-    (inside the chunk's checkpoint). Vocab-parallel (``vp``): the rank's
-    logits over its vocab slice, the row max over "model" (a max is
-    exact), then the sum of exponentials and the label's logit (zero on
-    the ranks that do not hold it) summed over "model" in one collective;
-    else the whole head's `_ce_chunk`."""
-    name = "tok" if cfg.tie_embeddings else "unembed"
-    w = C.mesh_weights(embed, plan, lambda n: "shard" if vp else "same",
-                       only=lambda n: n == name)[name]
-    w = w.T if cfg.tie_embeddings else w
+def _ce_chunk_mesh(w, xc, lc, plan, vp: bool, z_loss: float):
+    """One chunk's summed CE on a mesh against the head ``w`` ([D, V], or
+    with ``vp`` this rank's vocab slice [D, V / m]). Vocab-parallel: the
+    rank's logits over its vocab slice, the row max over "model" (a max
+    is exact), then the sum of exponentials and the label's logit (zero
+    on the ranks that do not hold it) summed over "model" in one
+    collective; else the whole head's `_ce_chunk`."""
     if not vp:
         return _ce_chunk(w, xc, lc, z_loss)
     logits = (DA.copy_to(xc, plan.model) @ w).float()
@@ -1149,10 +1124,10 @@ def _ce_chunk_mesh(embed, xc, lc, cfg: ArchConfig, plan, vp: bool,
 def _loss_mesh(model: LM, batch, cfg: ArchConfig, plan, expert_perm,
                remat: bool, chunk: int = 512, z_loss: float = 1e-4):
     """`loss_fn` on a mesh: this rank's rows' CE sum (``chunked_ce_loss``'s
-    chunks, each recomputed in the backward) over the global label count,
-    plus the balance loss over the data-parallel size, summed over "data"
-    (``sum_over``: every rank holds the global loss, and its backward
-    seeds each rank's own part)."""
+    chunks, each recomputed in the backward, against the head gathered
+    once) over the global label count, plus the balance loss over the
+    data-parallel size, summed over "data" (``sum_over``: every rank holds
+    the global loss, and its backward seeds each rank's own part)."""
     vision = batch.get("vision")
     x, _, aux = forward(model, batch["tokens"], cfg, mode="train",
                         remat=remat, expert_perm=expert_perm, vision=vision,
@@ -1165,13 +1140,18 @@ def _loss_mesh(model: LM, batch, cfg: ArchConfig, plan, expert_perm,
         lbl = torch.cat([pad, lbl], dim=1)
     S = x.shape[1]
     chunk = math.gcd(min(chunk, S), S)
-    vp = _vocab_split(model.embed, "tok" if cfg.tie_embeddings
-                      else "unembed", plan)
+    name = "tok" if cfg.tie_embeddings else "unembed"
+    vp = _vocab_split(model.embed, name, plan)
+    # the head gathered over "data" once a step, its gradient summed back
+    # once: the chunks' checkpoints keep the gathered head as an input
+    w = C.mesh_weights(model.embed, plan, lambda n: "shard" if vp else "same",
+                       only=lambda n: n == name)[name]
+    w = w.T if cfg.tie_embeddings else w
     tot = torch.zeros((), dtype=F32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for xc, lc in zip(x.split(chunk, dim=1), lbl.split(chunk, dim=1)):
-        tot = tot + checkpoint(_ce_chunk_mesh, model.embed, xc, lc, cfg,
-                               plan, vp, z_loss, use_reentrant=False)
+        tot = tot + checkpoint(_ce_chunk_mesh, w, xc, lc, plan, vp, z_loss,
+                               use_reentrant=False)
         cnt = cnt + (lc >= 0).sum()
     dp = plan.dp_size()
     if sh.rows is not None:   # the global label count, an exact integer

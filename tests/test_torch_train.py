@@ -567,6 +567,37 @@ def test_checkpoints_cross_between_packages(tmp_path):
     _assert_trees_equal(state_to_jax(ts), _jax_state_dict(jrest))
 
 
+def test_checkpoint_members_are_np_save_bytes(tmp_path):
+    """The writer streams each leaf into the npz, a stacked leaf layer by
+    layer after its header: every member holds the bytes ``np.save``
+    writes for the whole leaf, under ``np.savez``'s member names."""
+    import io
+    import zipfile
+
+    _, cfg = _cfgs()
+    ts = state_from_jax(cfg, _jax_state_dict(_jax_state(2)))
+    CheckpointManager(str(tmp_path)).save(3, ts)
+    want = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}/{k}")
+            return
+        a = node.view(torch.uint16).numpy() if isinstance(
+            node, torch.Tensor) and node.dtype == torch.bfloat16 \
+            else np.asarray(node)
+        buf = io.BytesIO()
+        np.save(buf, a)
+        want[key + ".npy"] = buf.getvalue()
+    for field, tree in state_to_jax(ts).items():
+        walk(tree, f".{field}")
+    with zipfile.ZipFile(tmp_path / "step-00000003" / "arrays.npz") as zf:
+        assert sorted(zf.namelist()) == sorted(want)
+        for name, b in want.items():
+            assert zf.read(name) == b, name
+
+
 # ------------------------------------------------------------ the loop
 def _ocfg8():
     # one LR schedule for all runs (the schedule depends on total_steps)

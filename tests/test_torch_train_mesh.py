@@ -226,8 +226,8 @@ def _rank(rank, data, model, d):
         out["remesh"] = {k: v for k, v in _state_arrays(st, None).items()}
         out["cli"] = tcli.main([
             "--arch", ARCH, "--smoke", "--steps", "3", "--batch", "4",
-            "--seq", "16", "--mesh", "host", "--model-parallel", "2",
-            "--device", "cpu", "--json", d["cli_json"]])
+            "--seq", "16", "--mesh", "host", "--device", "cpu",
+            "--json", d["cli_json"]])
     return out
 
 
@@ -620,12 +620,15 @@ def test_compressed_allreduce_is_exact(mesh_2x2):
 
 def test_mesh_host_cli_runs_on_two_cpu_ranks(mesh_1x2, dirs):
     """``python -m repro_torch.launch.train --mesh host`` under a launcher
-    of two gloo ranks (here the spawned ranks' process group): rank 0
-    writes the run's losses, which equal ``train(plan=)``'s own on
-    (1, 2)."""
+    of two gloo ranks (here the spawned ranks' process group), which
+    ``make_host_mesh()`` lays out as (2, 1): rank 0 writes the run's
+    losses, within 2^-8 of the same run on one device."""
     assert [r["cli"] for r in mesh_1x2] == [0, 0]
     with open(dirs["cli_json"]) as f:
         rec = json.load(f)
     assert rec["steps"] == 3 and rec["restarts"] == 0
-    assert [s for s, _ in rec["losses"]] == [0, 2]
-    assert all(np.isfinite(l) for _, l in rec["losses"])
+    one = tloop.train(tget(ARCH).smoke(), steps=3, global_batch=4,
+                      seq_len=16, seed=0, device="cpu").losses
+    assert [s for s, _ in rec["losses"]] == [s for s, _ in one] == [0, 2]
+    for (_, a), (_, b) in zip(rec["losses"], one):
+        assert abs(a - b) <= 2 ** -8 * abs(b), (a, b)
