@@ -219,8 +219,14 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      training steps within 2^-8 of the CPU's (aux > 0 for jamba's MoE,
      0 for xlstm).
  20. encoder-decoder and vision tokens, both configs uncut, f32, seeded.
-     First B4 against its plain version at the shapes no earlier phase
-     ran, f32, within 2e-5: non-causal at whisper's encoder (S
+     First B4's two plan modes against its plain version, each timed
+     beside its bound, the plain version and SDPA (``flash_mode_rows``):
+     the offset mode at 12/2 heads x 128 (a rank's half of a 2,048-token
+     prefill: 1,024 query rows at offset 1,024 against 2,048 keys), f32
+     within 2e-5 and bf16 within 2e-2; p_bf16 (bf16 probabilities before
+     the PV product) at 12/2 and 40/8 heads, bf16, within 2e-2. Then B4
+     against its plain version at the shapes no earlier phase ran, f32,
+     within 2e-5: non-causal at whisper's encoder (S
      ``WHISPER_FRAMES`` 1,500, 6/6 heads x 64, a GQA group of 1), causal
      at whisper's longest and shortest decoder prompt, and causal at
      internvl's 16/8 x 128 at its longest and shortest prefill (prompt +
@@ -261,7 +267,14 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      cache holds half the whole cache's bytes; each run logs the ranks'
      prefill and decode tokens/s, peak memory and host-staged copies,
      bytes and seconds (collectives a decode step for static). No step
-     is profiled.
+     is profiled. (c) The plan flags on the same ranks, each prefill
+     against the same prefill without its flag: deepseek's first layer
+     with ``mla_flash`` over one prompt of 3,072 tokens (MLA's chunked
+     absorbed form: the logits within 1e-4, no kernel, both peaks
+     logged) and qwen2-1.5b uncut in bf16
+     with ``attn_p_bf16`` over phase 8's first four prompts (flash_attn
+     28 times in its p_bf16 mode on each rank, the logits' difference
+     logged).
  22. training on a mesh, run by phase 15's (2, 2) ranks after their
      solves (one spawn for both phases), all four on this card over gloo:
      qwen2-1.5b at full width and depth, each rank drawing its shard of
@@ -276,7 +289,18 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      step; no kernel launched. Then the smoke config's 2 + resume 2
      steps on the same ranks (a mesh checkpoint written whole by rank 0,
      restored as each rank's shards) end on the straight run's loss bit
-     for bit.
+     for bit. Then the plan flags on the same ranks: llama4-scout at full
+     width cut to 1 of 48 layers, bf16 (8.5 GB of whole weights a rank),
+     a prefill of 4 rows with ``moe_local`` (each rank's MoE layer
+     dispatches its own 2 rows): each rank's logits equal a one-device
+     prefill of its rows on the same weights, whose batch-global capacity
+     is the local one; and a (1, 4) ``DeviceMesh`` over the same four
+     processes: whisper-tiny at full width and depth (6 heads, which
+     "model" 4 does not divide) with query chunks of 32, a prefill of 2 x
+     128 tokens over 1,500 frames and one f32 step's loss, each with
+     ``attn_seq`` and without: each rank attends from its 32 query rows
+     (B4 in its offset mode once a decoder layer), the prefill's logits
+     equal, the losses within 1e-5 relative.
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
@@ -315,6 +339,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 REPLACES = {
     "pair_scores": "src/repro/kernels/pair_scores/kernel.py:57",
     "pins_count": "src/repro/kernels/pins_count/kernel.py:45",
@@ -374,6 +399,8 @@ MESH_STATIC_LEN = 32768
 MESH_STATIC_ROWS = 4
 DS_MESH_LAYERS = 1
 DS_MESH_STATIC_LEN = 4096
+# phase 21's mla_flash prefill: one prompt of this many tokens
+MLA_FLASH_LEN = 3072
 # phase 13's SNN suite at a quarter scale (the ISPD suite stays whole): at
 # 1.0 the host baselines took 152 s of the phase's 286 s on an H100 80GB
 # HBM3 (700 W), 106 s of it seq-ml and overlap on rand-l alone, and 34 s at
@@ -421,6 +448,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # phase 22: training on phase 15's (2, 2) mesh, the first MESH_TRAIN_STEPS
 # of phase 16's steps
 MESH_TRAIN_STEPS = 2
+# phase 22's plan flags on the same ranks: llama4-scout's moe_local prefill
+# at full width cut to MOE_LOCAL_LAYERS layer (8.5 GB of bf16 weights a
+# rank), MOE_LOCAL_ROWS rows of 512-1,024 tokens; whisper-tiny's attn_seq
+# on a (1, 4) mesh, SP_ROWS rows of SP_SEQ tokens in query chunks of
+# SP_CHUNK (4 chunks, one a "model" rank)
+MOE_LOCAL_LAYERS, MOE_LOCAL_ROWS = 1, 4
+SP_ROWS, SP_SEQ, SP_CHUNK = 2, 128, 32
 # phase 16's checkpoint, resume and supervision checks: TRAIN_CKPT_STEPS
 # straight steps against half of them + a resume, on the smoke config,
 # not the full width: a full-width TrainState is about 24.9 GB of npz (14 B
@@ -705,6 +739,84 @@ def flash_row(torch, fa_ops, fa_ref, tag, card, cfg, s_len, causal, name,
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
         f"{row['bound_by']}, SDPA {row['library_ms']:.4f} ms) on {card}")
     return row
+
+
+def flash_mode_row(torch, fa_ops, fa_ref, card, name, heads, kv_heads, dh,
+                   dtype, q_offset: int = 0, p_bf16: bool = False,
+                   s_len: int = 2048) -> dict:
+    """B4 in a plan mode at the heads ``heads``/``kv_heads`` x ``dh``:
+    ``q_offset`` (a rank's query rows ``[q_offset, s_len)`` of a causal
+    prefill of ``s_len`` against all ``s_len`` keys, sequence-parallel
+    attention's call) and ``p_bf16`` (bf16 probabilities before the PV
+    product). Held to its plain version on the same inputs (f32 within
+    2e-5, as phase 7; bf16 within 2e-2, phase 7's bf16 tolerance: the
+    output's own rounding is 2^-9 of values near 4, and the kernel rounds
+    P against each tile's running max where the plain version rounds it
+    against the row's), then timed beside its bound, the plain version
+    and SDPA with the same mask (a boolean ``attn_mask`` where the rows
+    sit at an offset). The bound: q, k, v read once and o written once;
+    the products over the (query, key) pairs the mask keeps, 2 operations
+    a multiply-add, at f32 as three TF32 products (the 3xTF32 split, as
+    `flash_times`) and at bf16 as one product at the bf16 rate. Returns
+    its kernels-JSON row; its launches come from the main path's run."""
+    q, k, v = attn_inputs(torch, s_len, heads, kv_heads, dh, dtype)
+    q = q[:, q_offset:].contiguous()
+    sq = s_len - q_offset
+    kw = dict(causal=True, q_offset=q_offset, p_bf16=p_bf16)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    f32 = dtype == torch.float32
+    tol = 2e-5 if f32 else 2e-2
+    what = (f"flash_attn {heads}/{kv_heads} x {dh} {dtype} q [1,{sq}] at "
+            f"offset {q_offset}, k/v [1,{s_len}], p_bf16={p_bf16}")
+    need(err <= tol, f"[20] {what} within {tol:g} of its plain version: "
+         f"{err:.3g}")
+    nbytes = q.element_size() * (2 * sq * heads * dh
+                                 + 2 * s_len * kv_heads * dh)
+    pairs = (s_len * (s_len + 1) - q_offset * (q_offset + 1)) / 2
+    ops = 2.0 * 2 * pairs * dh * heads
+    b, by = (bound(nbytes, 3 * ops, TF32_OPS_PER_S) if f32 else
+             bound(nbytes, ops, BF16_OPS_PER_S))
+    ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), 20)
+    plain = cuda_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
+                    5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (q_offset + torch.arange(sq, device=q.device))[:, None] >= \
+        torch.arange(s_len, device=q.device)[None, :]
+    # SDPA's fused forward kernels, which deterministic mode turns off
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=True), 20)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    log(f"[20] {what}: max abs err {err:.3g} (tolerance {tol:g}); "
+        f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b:.4f} ms by {by}, "
+        f"SDPA {lib:.4f} ms) on {card}")
+    return dict(name=name, kernel="flash_attn", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                launches=None)
+
+
+def flash_mode_rows(torch, fa_ops, fa_ref, card) -> list:
+    """Phase 20's checks of B4's two plan modes: q_offset at qwen2's 12/2 x
+    128 heads (a rank's half of a 2,048-token prefill, 1,024 rows at
+    offset 1,024) in f32 and bf16; p_bf16 at 12/2 and llama4's 40/8 x 128
+    in bf16 over the whole causal prefill."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = [flash_mode_row(torch, fa_ops, fa_ref, card, name, h, kv, 128,
+                           dt, off, pb)
+            for name, h, kv, dt, off, pb in (
+                ("flash_attn_q_offset", 12, 2, f32, 1024, False),
+                ("flash_attn_q_offset_bf16", 12, 2, bf16, 1024, False),
+                ("flash_attn_p_bf16", 12, 2, bf16, 0, True),
+                ("flash_attn_p_bf16_40x8", 40, 8, bf16, 0, True))]
+    torch.cuda.empty_cache()
+    return rows
 
 
 def attn_inputs(torch, s_len, heads, kv_heads, dh, dtype):
@@ -2363,12 +2475,136 @@ def mesh_train_runs(torch, kernels, plan, ckpt: str) -> dict:
     resumed = loop.train(small, steps=4, ckpt_dir=f"{ckpt}/b", ckpt_every=2,
                          resume=True, **kw)
     out["resume"] = (straight.losses, resumed.losses)
+    out["moe_local"] = moe_local_runs(torch, plan)
+    out["attn_seq"] = attn_seq_runs(torch, plan)
     return out
 
 
-def mesh_train_phase(card, trained: list, ref: list) -> None:
+def moe_local_runs(torch, plan) -> dict:
+    """Phase 22's ``moe_local`` on one rank of the (2, 2) mesh:
+    llama4-scout at full width cut to ``MOE_LOCAL_LAYERS`` layer, bf16,
+    its whole weights drawn from seed 0 on the rank, a prefill of
+    ``MOE_LOCAL_ROWS`` rows whose MoE layer dispatches this rank's rows
+    alone (its cache a ``ShardTree``, so the rows split over "data"),
+    against the one-device prefill of the same rows on the same weights
+    (their batch-global capacity is the local one: G is ``ndp`` times the
+    rank's own). Returns plain numbers."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import Plan
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+
+    dev = plan.device
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LOCAL_LAYERS)
+    lm = T.materialize_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    toks = torch.as_tensor(static_block(serve_traffic(
+        cfg.vocab, MOE_LOCAL_ROWS, 512, 1024, seed=1)), device=dev)
+    ml = Plan.make(plan.mesh, dev, moe_local=True)
+    cache = common.shard_zeros(T.cache_shapes(cfg, *toks.shape), ml, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    got, _ = T.prefill(lm, toks, cache, cfg, plan=ml)
+    torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0, launches=dict(kernels.LAUNCHES),
+               staged=dict(comm.STATS), peak=torch.cuda.max_memory_allocated(),
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in lm.parameters()),
+               rows=tuple(toks.shape))
+    del cache
+    i, b = ml.coords()["data"], toks.shape[0] // ml.dp_size()
+    mine = toks[i * b:(i + 1) * b]
+    want, _ = T.prefill(lm, mine, common.zeros(
+        T.cache_shapes(cfg, *mine.shape), dev), cfg)
+    torch.cuda.synchronize()
+    out.update(equal=bool(torch.equal(got, want)),
+               diff=float((got.float() - want.float()).abs().max()),
+               finite=bool(torch.isfinite(got).all()), own_rows=(i, b))
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_seq_runs(torch, plan) -> dict:
+    """Phase 22's ``attn_seq`` on one rank of a (1, 4) ``DeviceMesh`` over
+    the (2, 2) mesh's four processes: whisper-tiny at full width and
+    depth (6 heads, which "model" 4 does not divide) with query chunks of
+    ``SP_CHUNK``, a prefill of ``SP_ROWS`` x ``SP_SEQ`` tokens over
+    ``WHISPER_FRAMES`` seeded frames and one f32 step's loss and
+    gradients, each with ``seq_parallel_attn`` and without, the launch
+    counts reset just before each and read just after. Returns plain
+    numbers."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import MESH_DIMS, Plan
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+
+    dev = plan.device
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=MESH_DIMS)
+    on = Plan.make(mesh, dev, seq_parallel_attn=True)
+    off = Plan.make(mesh, dev)
+    cfg = get_config(WHISPER_ARCH).scaled(q_chunk=SP_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(2, cfg.vocab, (SP_ROWS, SP_SEQ), generator=gen,
+                         device=dev)
+    frames = torch.randn((SP_ROWS, WHISPER_FRAMES, cfg.d_model),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1),
+             "enc_frames": frames}
+    lm = T.materialize_lm(cfg, seed=0, device=dev)
+    out = dict(seq=T.attn_flags(cfg, on, SP_ROWS, SP_SEQ)[0],
+               rank=on.model.rank)
+    res = {}
+    for tag, pl in (("on", on), ("off", off)):
+        kernels.reset_launches()
+        comm.reset_stats()
+        logits, _ = T.prefill(lm, toks, common.zeros(T.cache_shapes(
+            cfg, SP_ROWS, WHISPER_FRAMES), dev), cfg, enc_frames=frames,
+            plan=pl)
+        launched = dict(kernels.LAUNCHES)
+        shards = T.materialize_lm(cfg, seed=0, device=dev, plan=pl)
+        shards.requires_grad_(True)
+        loss, _, grads = steps.loss_and_grads(shards, batch, cfg, pl)
+        torch.cuda.synchronize()
+        res[tag] = dict(logits=logits, loss=float(loss), grads=grads,
+                        launches=launched, staged=dict(comm.STATS))
+    out.update(
+        prefill_equal=bool(torch.equal(res["on"]["logits"],
+                                       res["off"]["logits"])),
+        prefill_diff=float((res["on"]["logits"] - res["off"]["logits"])
+                           .abs().max()),
+        losses=(res["on"]["loss"], res["off"]["loss"]),
+        grad_diff=max(float((g - res["off"]["grads"][k]).abs().max())
+                      for k, g in res["on"]["grads"].items()),
+        launches={t: r["launches"] for t, r in res.items()},
+        staged={t: r["staged"] for t, r in res.items()})
+    del lm, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(card, trained: list, ref: list) -> int:
     """Phase 22's checks and log, in this process: each (2, 2) rank's
-    ``mesh_train_runs`` against phase 16's losses ``ref``."""
+    ``mesh_train_runs`` against phase 16's losses ``ref``; then the plan
+    flags on the same ranks: llama4's ``moe_local`` prefill, each rank's
+    logits equal to the one-device prefill of its rows, and whisper's
+    ``attn_seq`` on (1, 4), the prefill equal and the f32 loss within
+    1e-5 of the same without it, B4 launched in its offset mode. Returns
+    the ranks' launches of B4 in that mode."""
+    from repro_torch.configs import get_config
+    wh = get_config(WHISPER_ARCH)
     cfg_tokens = TRAIN_BATCH * TRAIN_SEQ
     first = trained[0]
     for o in trained:
@@ -2405,6 +2641,57 @@ def mesh_train_phase(card, trained: list, ref: list) -> None:
             f"GiB, {st['seconds'] / n:.3f} s; on {card}")
     log(f"[22] smoke config on the mesh: 4 straight steps and 2 + resume 2 "
         f"end on loss {first['resume'][0][-1][1]:.6f} bit for bit")
+    # ---- moe_local: llama4's first layer, each rank its own rows
+    for o in trained:
+        m = o["moe_local"]
+        la = m["launches"]
+        need(m["finite"] and m["equal"],
+             f"[22] llama4 moe_local: rank {o['coords']}'s logits equal the "
+             f"one-device prefill of its rows {m['own_rows']} on the same "
+             f"weights (largest difference {m['diff']:.3g})")
+        need(la["flash_attn"] == MOE_LOCAL_LAYERS
+             and not any(v for k, v in la.items() if k != "flash_attn"),
+             f"[22] llama4 moe_local: flash_attn once a layer, no other "
+             f"kernel: {la}")
+        st = m["staged"]
+        log(f"[22] llama4 moe_local, {MOE_LOCAL_LAYERS} of 48 layers, bf16, "
+            f"{m['weight_bytes'] / 1e9:.2f} GB of whole weights, rank "
+            f"{o['coords']}: rows {m['own_rows']} of {m['rows']}, logits "
+            f"equal to the one-device prefill's; {m['wall']:.2f} s, peak "
+            f"{m['peak'] / 2**30:.3f} GiB, host-staged {st['copies']} "
+            f"copies ({st['bytes'] / 2**20:.3f} MiB, {st['seconds']:.3f} s); "
+            f"on {card}")
+    # ---- attn_seq: whisper on (1, 4)
+    offset_launches = 0
+    for o in trained:
+        a = o["attn_seq"]
+        r = a["rank"]
+        n = SP_SEQ // 4
+        need(a["seq"] == (r * n, n),
+             f"[22] whisper attn_seq on (1, 4): rank {r} takes query rows "
+             f"[{r * n}, {(r + 1) * n}): {a['seq']}")
+        la, lb = a["launches"]["on"], a["launches"]["off"]
+        dec, enc = wh.n_layers, wh.encoder_layers
+        need(la["flash_attn_offset"] == dec and la["flash_attn"] == dec + enc
+             and lb["flash_attn_offset"] == 0
+             and lb["flash_attn"] == dec + enc,
+             f"[22] whisper attn_seq: flash_attn in the offset mode once a "
+             f"decoder layer (the rank's rows against every key), the "
+             f"encoder's whole: {la}, {lb}")
+        need(a["prefill_equal"],
+             f"[22] whisper attn_seq: the prefill's logits equal the prefill "
+             f"without it ({a['prefill_diff']:.3g})")
+        on, off = a["losses"]
+        need(abs(on - off) <= 1e-5 * abs(off),
+             f"[22] whisper attn_seq: the f32 loss within 1e-5 relative of "
+             f"the loss without it: {on} against {off}")
+        offset_launches += la["flash_attn_offset"]
+        log(f"[22] whisper attn_seq on (1, 4), rank {r}: query rows "
+            f"{a['seq']}, prefill logits equal; f32 loss {on!r} against "
+            f"{off!r}, gradients within {a['grad_diff']:.3g}; launches "
+            f"{la}; staged {a['staged']['on']['copies']} copies with it, "
+            f"{a['staged']['off']['copies']} without; on {card}")
+    return offset_launches
 
 
 def moe_serve_phase(torch, kernels, card) -> dict:
@@ -2883,9 +3170,12 @@ def encdec_vlm_phase(torch, kernels, card) -> list:
     CPU, serving twice through ``ServeEngine`` (whisper's encoder over
     ``WHISPER_FRAMES`` frames, internvl's 256 vision positions before each
     prompt), and each smoke config's serving and four bf16 training steps
-    on the card against the CPU. Runs under
+    on the card against the CPU. First B4's two plan modes against its
+    plain version (`flash_mode_rows`). Runs under
     ``torch.use_deterministic_algorithms(True)``. Returns B4's
-    kernels-JSON rows at whisper's encoder heads and internvl's heads."""
+    kernels-JSON rows at whisper's encoder heads and internvl's heads,
+    then those of its modes (their launches None: the main path's runs
+    are phases 21 and 22)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
@@ -2893,6 +3183,7 @@ def encdec_vlm_phase(torch, kernels, card) -> list:
     from repro_torch.models.common import param_count
 
     t_phase = time.perf_counter()
+    modes = flash_mode_rows(torch, fa_ops, fa_ref, card)
     wh, iv = get_config(WHISPER_ARCH), get_config(VLM_ARCH)
     wh_prompts = serve_traffic(wh.vocab, SERVE_REQUESTS, 4, 224, seed=0)
     iv_prompts = serve_traffic(iv.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
@@ -2985,7 +3276,7 @@ def encdec_vlm_phase(torch, kernels, card) -> list:
         smoke_serving_equal(torch, small, tag)
         smoke_train_equal(torch, small, tag)
     log(f"[20] phase {time.perf_counter() - t_phase:.1f} s on {card}")
-    return rows
+    return rows + modes
 
 
 def mesh_serve_runs(torch, plan, dev) -> dict:
@@ -3059,10 +3350,62 @@ def mesh_serve_runs(torch, plan, dev) -> dict:
                 s, common.cache_pspec(s, plan.rules, sizes), sizes))
                 for _, s in common.spec_leaves(specs)),
             whole_bytes=4 * common.param_count(specs))
+        if tag == "deepseek":
+            # one prompt of MLA_FLASH_LEN tokens: three query and key
+            # chunks of 1,024, where the plain form holds [1,128,S,S]
+            # f32 scores
+            out["mla_flash"] = flag_prefill(
+                torch, cfg, lm, serve_traffic(cfg.vocab, 1, MLA_FLASH_LEN,
+                                              MLA_FLASH_LEN, seed=2),
+                plan, dev, mla_flash=True)
         del lm
         torch.cuda.empty_cache()
+    # qwen2-1.5b uncut in bf16: the prefill with attn_p_bf16 against the
+    # prefill without it
+    cfg = get_config(SERVE_ARCH)
+    lm = T.materialize_lm(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    prompts = serve_traffic(cfg.vocab, SERVE_REQUESTS, 128, 2048, seed=0)
+    out["p_bf16"] = flag_prefill(torch, cfg, lm, prompts[:MESH_STATIC_ROWS],
+                                 plan, dev, attn_p_bf16=True)
+    del lm
+    torch.cuda.empty_cache()
     out["wall"] = time.perf_counter() - t_all
     return out
+
+
+def flag_prefill(torch, cfg, lm, prompts, plan, dev, **flag) -> dict:
+    """On one rank of ``plan``'s mesh: the prefill of ``prompts`` (one
+    zero-padded block, a whole cache on the rank) under ``plan`` with the
+    one ``flag`` and without it, the launch and staging counts and the peak
+    reset just before each and read just after. Returns their logits'
+    largest difference and the counts."""
+    from repro_torch import kernels
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import Plan
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(static_block(prompts), device=dev)
+    flagged = Plan.make(plan.mesh, dev, **flag)
+    res = {}
+    for tag, pl in (("on", flagged), ("off", plan)):
+        cache = common.zeros(T.cache_shapes(cfg, *toks.shape), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(lm, toks, cache, cfg, plan=pl)
+        torch.cuda.synchronize()
+        res[tag] = dict(logits=logits.float(), wall=time.perf_counter() - t0,
+                        launches=dict(kernels.LAUNCHES),
+                        staged=dict(comm.STATS),
+                        peak=torch.cuda.max_memory_allocated())
+        del cache
+    on, off = res["on"].pop("logits"), res["off"].pop("logits")
+    return dict(res, diff=float((on - off).abs().max()),
+                scale=float(off.abs().max()),
+                finite=bool(torch.isfinite(on).all()), rows=tuple(toks.shape))
 
 
 def mesh_serve_phase(torch, card, ref8: dict, fa_row: dict, served: list):
@@ -3079,7 +3422,13 @@ def mesh_serve_phase(torch, card, ref8: dict, fa_row: dict, served: list):
     MLP) continuous and static at ``DS_MESH_STATIC_LEN``, its tokens the
     single-device engine's on the same weights and traffic, no kernel
     launched. Each rank's cache holds half the whole one's bytes. Returns
-    B4's kernels-JSON row of the mesh, its launches both ranks'."""
+    B4's kernels-JSON row of the mesh, its launches both ranks', and the
+    ranks' launches of B4 in its p_bf16 mode. Then the plan flags on the
+    same ranks (`flag_prefill`): deepseek's first layer with
+    ``mla_flash`` (the logits within 1e-4 of the prefill without it, no
+    kernel, both peaks logged) and qwen2-1.5b uncut in bf16 with
+    ``attn_p_bf16`` (flash_attn 28 times in that mode, the logits'
+    difference from the prefill without it logged)."""
     import dataclasses
 
     import numpy as np
@@ -3161,9 +3510,43 @@ def mesh_serve_phase(torch, card, ref8: dict, fa_row: dict, served: list):
                f" over {per[0]['decode_tokens']:.0f} decode tokens")
             + f"; flash_attn {fa}; tokens equal the single-device "
             f"engine's; on {card}")
+    # ---- the plan flags that change the computation
+    pb_launches = 0
+    for o in served:
+        ml, pb = o["mla_flash"], o["p_bf16"]
+        need(ml["finite"] and ml["diff"] <= 1e-4,
+             f"[21] deepseek mla_flash: the prefill's logits within 1e-4 of "
+             f"the prefill's without it: {ml['diff']:.3g}")
+        need(not any(v for r in (ml["on"], ml["off"])
+                     for v in r["launches"].values()),
+             "[21] deepseek mla_flash: no kernel launched (MLA is plain "
+             "tensor ops)")
+        log(f"[21] deepseek mla_flash, {ml['rows'][0]} rows x "
+            f"{ml['rows'][1]}: logits within {ml['diff']:.3g} of the "
+            f"prefill without it (largest {ml['scale']:.3g}); peak "
+            f"{ml['on']['peak'] / 2**30:.3f} GiB against "
+            f"{ml['off']['peak'] / 2**30:.3f} GiB; wall "
+            f"{ml['on']['wall']:.2f} s against {ml['off']['wall']:.2f} s; "
+            f"on {card}")
+        la, lb = pb["on"]["launches"], pb["off"]["launches"]
+        need(pb["finite"] and pb["diff"] > 0,
+             f"[21] qwen2 bf16 attn_p_bf16: finite logits that the flag "
+             f"changes ({pb['diff']:.3g})")
+        need(la["flash_attn"] == la["flash_attn_p_bf16"] == 28
+             and lb["flash_attn"] == 28 and lb["flash_attn_p_bf16"] == 0,
+             f"[21] qwen2 bf16 attn_p_bf16: flash_attn launched 28 times "
+             f"in that mode, and without the flag in the other: {la}, {lb}")
+        pb_launches += la["flash_attn_p_bf16"]
+        log(f"[21] qwen2 bf16 attn_p_bf16, {pb['rows'][0]} rows x "
+            f"{pb['rows'][1]}: logits differ from the prefill without it by "
+            f"{pb['diff']:.3g} at most (largest {pb['scale']:.3g}, relative "
+            f"{pb['diff'] / pb['scale']:.3g}); flash_attn_p_bf16 "
+            f"{la['flash_attn_p_bf16']} launches; wall "
+            f"{pb['on']['wall']:.2f} s against {pb['off']['wall']:.2f} s; "
+            f"peak {pb['on']['peak'] / 2**30:.3f} GiB; on {card}")
     log(f"[21] phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return dict(fa_row, name="flash_attn_mesh", kernel="flash_attn",
-                launches=fa_mesh)
+                launches=fa_mesh), pb_launches
 
 
 def main(argv=None) -> int:
@@ -3555,7 +3938,7 @@ def main(argv=None) -> int:
     # ---- 16. training; 22. training on phase 15's (2, 2) mesh ----------
     losses16 = train_phase(torch, kernels, card)
     log(f"[16] {time.perf_counter() - t_start:.1f} s from the start")
-    mesh_train_phase(card, trained, losses16)
+    offset_launches = mesh_train_phase(card, trained, losses16)
 
     # ---- 17. MoE serving at full width --------------------------------
     rows_used.append(moe_serve_phase(torch, kernels, card))
@@ -3574,8 +3957,19 @@ def main(argv=None) -> int:
     log(f"[20] {time.perf_counter() - t_start:.1f} s from the start")
 
     # ---- 21. serving on a mesh: qwen2 and deepseek's first layer ------
-    rows_used.append(mesh_serve_phase(torch, card, serve_ref, fa_row,
-                                      served))
+    row, pb_launches = mesh_serve_phase(torch, card, serve_ref, fa_row,
+                                        served)
+    rows_used.append(row)
+    # B4's plan modes, timed in phase 20, launched on the main path by
+    # phases 21 (p_bf16) and 22 (the offset)
+    for r in rows_used:
+        if r["name"].startswith("flash_attn_q_offset"):
+            r["launches"] = offset_launches
+        elif r["name"].startswith("flash_attn_p_bf16"):
+            r["launches"] = pb_launches
+    need(offset_launches > 0 and pb_launches > 0,
+         f"B4 launched in its offset ({offset_launches}) and p_bf16 "
+         f"({pb_launches}) modes on the main path")
     log(f"[21] {time.perf_counter() - t_start:.1f} s from the start")
     torch.use_deterministic_algorithms(False)
 

@@ -6,7 +6,13 @@
 // kernel computes that ops-level function on the [B, S, H, Dh] layout:
 //
 //   o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / g]) v[b, j, h / g]
-//   g = H / KV,   j <= i when causal
+//   g = H / KV,   j <= q_offset + i when causal
+//
+// q/o hold Sq positions and k/v Sk. Query row i sits at position
+// q_offset + i of the causal mask, as in the JAX layers.flash_attention's
+// q_offset: a rank of sequence-parallel prefill passes its own block of
+// query rows and every key, and the tiles past its last row's position
+// are never loaded.
 //
 // with the TPU kernel's arithmetic: f32 scores, masked scores at -1e30, the
 // running max / correction / denominator update of kernel.py:50-58, and
@@ -26,23 +32,28 @@
 // for three tensor-core products: 3 x 12.9 GFLOP, 0.078 ms at the TF32
 // rate. bf16 values are exact in TF32, so bf16 inputs skip the small parts
 // of q, k and v: one product for QK^T and two for PV, whose P is f32.
+// With p_bf16 (the JAX attn_p_bf16 flag, bf16 inputs only) each tile's P
+// is rounded to bf16, to nearest even as astype does, before the PV
+// product, which then takes one product; the denominator l sums the
+// unrounded f32 P.
 //
 // Design: one block of 4 warps per (b * h, 64 query rows), each warp 16
 // rows; heavy causal tiles are launched first. The block stages its Q tile
 // once and loops over 32-key tiles of K and V, double-buffered with
-// cp.async (16-byte copies, rows past S zero-filled) so the next tile loads
-// while this one multiplies. Shared memory holds f32 tiles only; rows are
-// padded (Q and K by 4 words, V by 8) so the fragment loads hit 32
-// distinct banks. Fragments are split in registers as they are loaded. A
-// warp's score tile [16 x 32] comes out in the accumulator layout (rows g
-// and g + 8, keys 2t and 2t + 1 of each 8-key slice), where quad shuffles
-// take the row maxima and sums; the probabilities reach the A layout of
-// the PV product (keys t and t + 4) through eight shuffles a slice. Tiles
-// wholly above a warp's rows are skipped (on the TPU they add exactly 0
-// with correction 1); partial tiles are masked, so any prompt length
-// works. bf16 inputs are converted to f32 as they are staged, with plain
-// loads. ptxas -v (sm_90a): 167 registers a thread at Dh 128 in f32, 168
-// in bf16, no spills; 100 KB of shared memory a block, two blocks an SM.
+// cp.async (16-byte copies, rows past Sq or Sk zero-filled) so the next
+// tile loads while this one multiplies. Shared memory holds f32 tiles
+// only; rows are padded (Q and K by 4 words, V by 8) so the fragment loads
+// hit 32 distinct banks. Fragments are split in registers as they are
+// loaded. A warp's score tile [16 x 32] comes out in the accumulator
+// layout (rows g and g + 8, keys 2t and 2t + 1 of each 8-key slice), where
+// quad shuffles take the row maxima and sums; the probabilities reach the
+// A layout of the PV product (keys t and t + 4) through eight shuffles a
+// slice. Tiles wholly above a warp's rows' positions are skipped (on the
+// TPU they add exactly 0 with correction 1); partial tiles are masked, so
+// any prompt length works. bf16 inputs are converted to f32 as they are
+// staged, with plain loads. ptxas -v (sm_90a): 167 registers a thread at
+// Dh 128 in f32, 168 in bf16, no spills; 100 KB of shared memory a block,
+// two blocks an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,14 +139,21 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
   }
 }
 
-template <typename T, int D>
+// x rounded to bf16 (nearest even), as TF32 bits: exact in TF32
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
+}
+
+template <typename T, int D, bool PB>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int S,
-                      int H, int KV, int causal, float scale) {
+                      const T* __restrict__ v, T* __restrict__ o, int Sq,
+                      int Sk, int H, int KV, int causal, int q_off,
+                      float scale) {
   using L = Smem<D>;
   // bf16 values are exact in TF32: their small parts are 0
   constexpr bool kSmall = std::is_same<T, float>::value;
+  static_assert(!(PB && kSmall), "p_bf16 takes bf16 inputs");
   constexpr int NT = kBK / 8;  // 8-key slices of a tile
   constexpr int DT = D / 8;    // 8-wide slices of the head dimension
   extern __shared__ float smem[];
@@ -152,16 +170,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t = lane & 3;
   const int64_t q_step = static_cast<int64_t>(H) * D;  // one position
   const int64_t kv_step = static_cast<int64_t>(KV) * D;
-  const T* qb = q + static_cast<int64_t>(b) * S * q_step + h * D;
-  const T* kb = k + static_cast<int64_t>(b) * S * kv_step + kvh * D;
-  const T* vb = v + static_cast<int64_t>(b) * S * kv_step + kvh * D;
-  T* ob = o + static_cast<int64_t>(b) * S * q_step + h * D;
+  const T* qb = q + static_cast<int64_t>(b) * Sq * q_step + h * D;
+  const T* kb = k + static_cast<int64_t>(b) * Sk * kv_step + kvh * D;
+  const T* vb = v + static_cast<int64_t>(b) * Sk * kv_step + kvh * D;
+  T* ob = o + static_cast<int64_t>(b) * Sq * q_step + h * D;
 
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
-  stage<D, L::QS, kBQ>(qs, qb, q_step, q0, S);
-  stage<D, L::KS, kBK>(smem + L::K_OFF, kb, kv_step, 0, S);
-  stage<D, L::VS, kBK>(smem + L::V_OFF, vb, kv_step, 0, S);
+  // a causal block reads the key tiles up to its last row's position
+  int n_kt = (Sk + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q_off + q0 + kBQ - 1) / kBK + 1);
+  stage<D, L::QS, kBQ>(qs, qb, q_step, q0, Sq);
+  stage<D, L::KS, kBK>(smem + L::K_OFF, kb, kv_step, 0, Sk);
+  stage<D, L::VS, kBK>(smem + L::V_OFF, vb, kv_step, 0, Sk);
   cp_async_commit();
 
   const int r_lo = q0 + 16 * warp + g;  // this thread's rows: r_lo, r_lo + 8
@@ -172,15 +191,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int buf = kt & 1;
     if (kt + 1 < n_kt) {
       stage<D, L::KS, kBK>(smem + L::K_OFF + (buf ^ 1) * kBK * L::KS, kb,
-                           kv_step, (kt + 1) * kBK, S);
+                           kv_step, (kt + 1) * kBK, Sk);
       stage<D, L::VS, kBK>(smem + L::V_OFF + (buf ^ 1) * kBK * L::VS, vb,
-                           kv_step, (kt + 1) * kBK, S);
+                           kv_step, (kt + 1) * kBK, Sk);
     }
     cp_async_commit();
     cp_async_wait_one();  // every group but the newest: tile kt is in
     __syncthreads();
     const int k0 = kt * kBK;
-    if (!causal || k0 <= q0 + 16 * warp + 15) {
+    if (!causal || k0 <= q_off + q0 + 16 * warp + 15) {
       const float* ks = smem + L::K_OFF + buf * kBK * L::KS;
       const float* vs = smem + L::V_OFF + buf * kBK * L::VS;
 
@@ -217,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int row = r_lo + 8 * (c >> 1);
           const int col = k0 + nt * 8 + 2 * t + (c & 1);
           float s = sc[nt][c] * scale;
-          if (col >= S || (causal && col > row)) s = kNeg;
+          if (col >= Sk || (causal && col > q_off + row)) s = kNeg;
           sc[nt][c] = s;
           mx[c >> 1] = fmaxf(mx[c >> 1], s);
         }
@@ -268,11 +287,17 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float z1 = __shfl_sync(kFull, sc[kk][1], src1);
         const float w0 = __shfl_sync(kFull, sc[kk][2], src1);
         const float w1 = __shfl_sync(kFull, sc[kk][3], src1);
+        const float pf[4] = {odd ? x1 : x0, odd ? y1 : y0, odd ? z1 : z0,
+                             odd ? w1 : w0};
         uint32_t pb[4], ps[4];
-        split(odd ? x1 : x0, pb[0], ps[0]);
-        split(odd ? y1 : y0, pb[1], ps[1]);
-        split(odd ? z1 : z0, pb[2], ps[2]);
-        split(odd ? w1 : w0, pb[3], ps[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (PB) {
+            pb[i] = bf16_bits(pf[i]);
+          } else {
+            split(pf[i], pb[i], ps[i]);
+          }
+        }
 #pragma unroll
         for (int dt = 0; dt < DT; ++dt) {
           const float* vp = vs + (kk * 8 + t) * L::VS + dt * 8 + g;
@@ -280,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           split(vp[0], bb0, bs0);
           split(vp[4 * L::VS], bb1, bs1);
           if (kSmall) mma(acc[dt], pb, bs0, bs1);
-          mma(acc[dt], ps, bb0, bb1);
+          if constexpr (!PB) mma(acc[dt], ps, bb0, bb1);
           mma(acc[dt], pb, bb0, bb1);
         }
       }
@@ -291,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r_lo + 8 * i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     T* orow = ob + row * q_step + 2 * t;
 #pragma unroll
@@ -302,51 +327,68 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PB>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int causal, float scale,
+           int Sq, int Sk, int H, int KV, int causal, int q_off, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
-  auto kern = flash_attn_kernel<T, D>;
+  auto kern = flash_attn_kernel<T, D, PB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
+      q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PB>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KV, int D, int causal, float scale,
-             cudaStream_t stream) {
+             int Sq, int Sk, int H, int KV, int D, int causal, int q_off,
+             float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, scale, stream);
+    case 16:
+      return launch<T, 16, PB>(q, k, v, o, B, Sq, Sk, H, KV, causal, q_off,
+                               scale, stream);
+    case 32:
+      return launch<T, 32, PB>(q, k, v, o, B, Sq, Sk, H, KV, causal, q_off,
+                               scale, stream);
+    case 64:
+      return launch<T, 64, PB>(q, k, v, o, B, Sq, Sk, H, KV, causal, q_off,
+                               scale, stream);
+    case 128:
+      return launch<T, 128, PB>(q, k, v, o, B, Sq, Sk, H, KV, causal, q_off,
+                                scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16. q/o [B, S, H, D], k/v [B, S, KV, D], all
-// contiguous and 16-byte aligned; H a multiple of KV.
+// dtype 0: float32, 1: bfloat16. q/o [B, Sq, H, D], k/v [B, Sk, KV, D], all
+// contiguous and 16-byte aligned; H a multiple of KV; query row i at
+// position q_off + i of the causal mask; p_bf16 (bf16 only) rounds P to
+// bf16 before the PV product.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int S, int H, int KV, int D,
-                                 int causal, float scale, int dtype,
+                                 void* o, int B, int Sq, int Sk, int H,
+                                 int KV, int D, int causal, int q_off,
+                                 int p_bf16, float scale, int dtype,
                                  void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (KV <= 0 || H % KV != 0 || Sk <= 0 || q_off < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, S, H, KV, D, causal, scale, st);
+  if (dtype == 0 && !p_bf16)
+    return launch_d<float, false>(q, k, v, o, B, Sq, Sk, H, KV, D, causal,
+                                  q_off, scale, st);
+  if (dtype == 1 && !p_bf16)
+    return launch_d<__nv_bfloat16, false>(q, k, v, o, B, Sq, Sk, H, KV, D,
+                                          causal, q_off, scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, causal, scale,
-                                   st);
+    return launch_d<__nv_bfloat16, true>(q, k, v, o, B, Sq, Sk, H, KV, D,
+                                         causal, q_off, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

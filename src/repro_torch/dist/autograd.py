@@ -8,6 +8,10 @@ its forward on the mesh:
   the ranks' gradients over the group.
 * `sum_over` (Megatron's "sum over model"): the sum of the ranks' partials
   over the group; its backward hands each rank the gradient as it is.
+* `mean_over` (a MoE layer's balance loss under the shard-local
+  dispatch): the mean of the ranks' values over the group; its backward
+  is the mean of the ranks' gradients, since each rank's loss holds its
+  share of the replicated mean.
 * `gather` (FSDP's all-gather, and the rows a MoE layer gathers): the
   ranks' tensors concatenated along a dim; with ``reduce`` its backward
   sums the gradients over the group and scatters each rank its stripe
@@ -47,6 +51,17 @@ class _SumOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, g
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm.all_reduce(x) / comm.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm.all_reduce(g) / ctx.comm.size
 
 
 class _Gather(torch.autograd.Function):
@@ -94,6 +109,14 @@ def sum_over(x: torch.Tensor, comm) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``comm``, in rank order; the
     backward passes the gradient through."""
     return x if comm.size == 1 else _SumOver.apply(comm, x)
+
+
+def mean_over(x: torch.Tensor, comm) -> torch.Tensor:
+    """The mean of every rank's ``x`` over ``comm`` (an ``all_reduce``
+    sum, then divided: a scalar, where the rank-ordered `Comm.sum` would
+    cost an all-gather); the backward takes the mean of the ranks'
+    gradients, one all-reduce each way."""
+    return x if comm.size == 1 else _MeanOver.apply(comm, x)
 
 
 def gather(xs, dims, comm, reduce: bool = True) -> list:

@@ -34,9 +34,11 @@ over "model" where ``constraint`` splits their heads, hidden or vocab dims
 (``models.transformer``); serving keeps the weights whole on every rank
 and acts on the "batch", "kv_seq" and "kv_pages" splits
 (``models.common.CACHE_SPLIT_AXES``). The flags that change the
-computation (``seq_parallel_attn``, ``attn_p_bf16``, ``mla_flash``,
-``moe_local``) are ROADMAP.md Queue A item 14l: ``check_ported`` raises
-for them.
+computation act in the model code, in train and serving alike:
+``attn_seq`` and ``attn_p_bf16`` in attention (``transformer.attn_flags``:
+a rank's own query rows, bf16 probabilities before the PV product),
+``mla_flash`` in MLA (``layers.mla_attention_flash``) and
+``moe_local_dispatch`` in MoE (``layers.moe_apply_local_dispatch``).
 
 ``Plan.abstract`` builds the plan of a mesh that exists only as its shape
 (``launch.mesh.make_production_mesh``: 16 x 16 ``("data", "model")`` or 2
@@ -63,9 +65,6 @@ from repro_torch.models import common
 MESH_DIMS = ("data", "model")
 # the dims of a mesh Plan.abstract takes: the production meshes'
 ABSTRACT_DIMS = (MESH_DIMS, ("pod",) + MESH_DIMS)
-# the rules of computation-changing flags, each waiting for item 14l
-UNPORTED_RULES = ("attn_seq", "attn_p_bf16", "mla_flash",
-                  "moe_local_dispatch")
 
 
 def lm_rules(*, dims: tuple = MESH_DIMS, fsdp: bool = True,
@@ -237,14 +236,6 @@ class Plan:
         for size in self.shape().values():
             n *= size
         return n
-
-    def check_ported(self) -> None:
-        """Raise for a rule whose computation is not ported yet."""
-        set_ = [k for k in UNPORTED_RULES if self.rules.get(k) is not None]
-        if set_:
-            raise NotImplementedError(
-                f"plan rules {set_} are not ported yet: ROADMAP.md Queue A "
-                f"item 14l (the flags that change the computation)")
 
     def transport(self) -> str:
         return self.model.transport

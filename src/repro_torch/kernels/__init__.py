@@ -71,10 +71,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # a partitioner kernel's launches on one stripe of a sharded level count
-# under "<name>_stripe", apart from its whole-level launches
+# under "<name>_stripe", apart from its whole-level launches; flash_attn's
+# launches in its two modes also count under "flash_attn_offset" (query rows
+# at an offset into the keys' positions) and "flash_attn_p_bf16"
 LAUNCHES = {"pair_scores": 0, "pins_count": 0, "gains": 0,
             "flash_attn": 0, "pair_scores_stripe": 0,
-            "pins_count_stripe": 0, "gains_stripe": 0}
+            "pins_count_stripe": 0, "gains_stripe": 0,
+            "flash_attn_offset": 0, "flash_attn_p_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,10 +97,10 @@ _SIGNATURES = {
     # row0, nrows, tail, stream
     "pair_scores_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, batch, seq, heads, kv_heads, head_dim, causal, scale,
-    # dtype (0 f32, 1 bf16), stream
-    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                          _P],
+    # q, k, v, o, batch, q_seq, k_seq, heads, kv_heads, head_dim, causal,
+    # q_offset, p_bf16, scale, dtype (0 f32, 1 bf16), stream
+    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

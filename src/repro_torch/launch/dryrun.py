@@ -40,8 +40,17 @@ The record keeps the JAX package's keys: ``hlo_flops`` and ``hlo_bytes``
 are the counter's ``flops`` and ``bytes``, ``xla_cost_*`` are None (no
 compiler), ``t_lower_s`` is the seconds to build the inputs and count the
 step (the port's lowering) and ``t_compile_s`` None. It adds
-``"counted_on": "meta"`` and the rank's ``coords``. The flags
-``Plan.check_ported`` refuses raise ``NotImplementedError`` (item 14l).
+``"counted_on": "meta"`` and the rank's ``coords``.
+
+The four flags that change the computation count as they run:
+``--sp-attn`` (a rank's own query rows of prefill and train attention
+where "model" does not divide the heads, their outputs gathered over
+"model"), ``--p-bf16`` (bf16 probabilities before the PV product),
+``--mla-flash`` (MLA's chunked absorbed form: no ``[B,H,S,S]`` scores)
+and ``--moe-local`` (each rank dispatches its own rows: the rows'
+all-gather before each MoE layer goes, and the balance loss's mean adds
+an all-reduce). ``kernel_flops`` holds the products counted in each
+kernel's plain version, by name (``flash_attn``: prefill attention).
 """
 from __future__ import annotations
 
@@ -132,7 +141,6 @@ def _count_cell(arch, shape, multi_pod, coords, flags) -> dict:
     t0 = time.time()
     plan = Plan.abstract(make_production_mesh(multi_pod=multi_pod), coords,
                          **flags)
-    plan.check_ported()
     spec = steps.input_specs(arch, shape, plan)
     fn = steps.make_step(arch, shape, plan)
     args = steps.rank_args(spec, plan)
@@ -162,6 +170,7 @@ def _count_cell(arch, shape, multi_pod, coords, flags) -> dict:
         collective_bytes=walked["collective_bytes"],
         collective_counts=walked["collective_counts"],
         collective_bytes_by_op=walked["collective_bytes_by_op"],
+        kernel_flops=walked["kernel_flops"],
         compute_s=compute_s, memory_s=memory_s, collective_s=coll_s,
         dominant=dominant,
         model_flops=mf, model_flops_per_chip=mf / n_chips,
@@ -181,13 +190,13 @@ def main(argv=None):
     ap.add_argument("--no-seq-shard-kv", action="store_true")
     ap.add_argument("--no-donate", action="store_true")
     ap.add_argument("--moe-local", action="store_true",
-                    help="rank-local MoE dispatch (item 14l)")
+                    help="rank-local MoE dispatch")
     ap.add_argument("--sp-attn", action="store_true",
-                    help="sequence-parallel attention (item 14l)")
+                    help="sequence-parallel attention")
     ap.add_argument("--p-bf16", action="store_true",
-                    help="bf16 PV probabilities (item 14l)")
+                    help="bf16 PV probabilities")
     ap.add_argument("--mla-flash", action="store_true",
-                    help="chunked latent MLA attention (item 14l)")
+                    help="chunked latent MLA attention")
     ap.add_argument("--q-chunk", type=int, default=0)
     ap.add_argument("--k-chunk", type=int, default=0)
     args = ap.parse_args(argv)

@@ -23,6 +23,8 @@ it:
                    each, by name: its wrapper runs the plain version
                    under ``cost_hooks.kernel``, whose products count and
                    whose traffic does not; these bytes are in ``bytes``
+  kernel_flops     the products of a kernel's plain version, by name
+                   (in ``flops`` too): the work the kernel does there
   collective_*     what ``dist.comm.MetaComm`` carries, under
                    ``hlo_cost.analyze``'s names: the output bytes a rank
                    times 2.0 for an all-reduce and 1.0 for the others
@@ -138,6 +140,8 @@ class OpCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.kernel_bytes: dict = defaultdict(int)
+        self.kernel_flops: dict = defaultdict(int)
+        self._kernels: list = []        # the names of the open kernels
         self.coll_bytes: dict = defaultdict(float)
         self.coll_counts: dict = defaultdict(float)
         self.collectives: list = []     # (op, output bytes) a call
@@ -169,8 +173,11 @@ class OpCounter(TorchDispatchMode):
                 f"loop: loop scaling counts meta tensors only")
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += self._mult * int(
+            n = self._mult * int(
                 flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            if self._kernels:
+                self.kernel_flops[self._kernels[-1]] += n
         if func.is_view:
             return out
         if not self._in_kernel:
@@ -255,9 +262,11 @@ class OpCounter(TorchDispatchMode):
         traffic is the kernel's ``reads + writes``, and of its storages
         only those that outlive it stay alive."""
         self._in_kernel += 1
+        self._kernels.append(name)
         try:
             yield
         finally:
+            self._kernels.pop()
             self._in_kernel -= 1
             self.bytes += self._mult * (reads + writes)
             self.kernel_bytes[name] += self._mult * (reads + writes)
@@ -280,12 +289,13 @@ class OpCounter(TorchDispatchMode):
     # ---- the result ------------------------------------------------------
     def record(self) -> dict:
         """The counts under ``hlo_cost.analyze``'s names, plus
-        ``kernel_bytes`` and ``peak_bytes``."""
+        ``kernel_bytes``, ``kernel_flops`` and ``peak_bytes``."""
         return dict(flops=self.flops, bytes=self.bytes,
                     collective_bytes=float(sum(self.coll_bytes.values())),
                     collective_bytes_by_op=dict(self.coll_bytes),
                     collective_counts=dict(self.coll_counts),
                     kernel_bytes=dict(self.kernel_bytes),
+                    kernel_flops=dict(self.kernel_flops),
                     peak_bytes=self.peak_bytes)
 
 

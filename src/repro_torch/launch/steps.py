@@ -48,8 +48,6 @@ def make_train_step(cfg: ArchConfig, plan=None,
     gradient: complete where the leaf splits over the batch's mesh dims
     (FSDP's gathers sum-scatter in the backward), a partial sum elsewhere,
     which `_sync_grads` sums over those dims in one collective."""
-    if plan is not None:
-        plan.check_ported()
 
     def train_step(state: opt.TrainState, batch: dict):
         loss, metrics, grads = loss_and_grads(state.params, batch, cfg,

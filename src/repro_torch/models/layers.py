@@ -19,16 +19,19 @@ absorbed form, ``mla_attention``: the scores ``(W_uk^T q_nope) . c_kv +
 q_rope . k_rope`` over the compressed cache, the values combined in
 latent space and then up-projected, in plain tensor ops in every mode (the
 JAX package computes it outside any Pallas kernel). Its chunked form
-``mla_attention_flash`` (the JAX mesh plan's ``mla_flash`` rule) waits for
-ROADMAP.md Queue A item 14l; ``chunked_attention`` already takes values
-narrower than the queries, as it needs (fault C2 mended on the port's
-side).
+``mla_attention_flash`` (the JAX mesh plan's ``mla_flash`` rule, train
+and prefill) runs the concatenated queries and keys through
+``chunked_attention``, which takes values narrower than the queries (the
+JAX function does not: fault C2, mended on the port's side), so no
+``[B,H,S,S]`` score tensor exists.
 
 The MoE layer is the JAX package's sort-based capacity dispatch: its
 routing integers are the JAX ones, and its scatter and combine give every
 lane a row of its own, so the card adds no float atomically.
-``moe_apply_local_dispatch`` (the shard-local dispatch on a mesh) waits
-for ROADMAP.md Queue A item 14l.
+``moe_apply_local_dispatch`` is the JAX mesh plan's shard-local dispatch
+(``moe_local_dispatch``): each data-parallel shard routes its own rows
+into a capacity of its own, and the balance loss is the mean of the
+shards'.
 
 On a mesh, decode attention over a cache whose keys are split over the
 "model" ranks is flash-decoding (``flash_decode``): each rank scores its
@@ -47,6 +50,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import autograd as DA
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models.common import Spec, SpecModule, apply_rope, rms_norm
 from repro_torch.utils import cost_hooks
@@ -88,25 +92,34 @@ def qkv_project(p, x, xkv, cfg: ArchConfig):
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None):
-    """Attention with online softmax over q ``[B,S,H,Dh]``, k/v
-    ``[B,S,KV,Dh]`` (query head h reads KV head ``h // (H/KV)``). CUDA
-    tensors run the Hopper kernel, CPU tensors its plain version; the
-    JAX package's query/key chunking is the kernel's tiling here."""
-    return flash_ops.flash_attention(q, k, v, causal=causal, scale=scale)
+                    scale: float | None = None, q_offset: int = 0,
+                    p_bf16: bool = False):
+    """Attention with online softmax over q ``[B,Sq,H,Dh]``, k/v
+    ``[B,Sk,KV,Dh]`` (query head h reads KV head ``h // (H/KV)``; query
+    row i at position ``q_offset + i`` of the causal mask; ``p_bf16``
+    rounds bf16 probabilities before the PV product). CUDA tensors run the
+    Hopper kernel, CPU tensors its plain version; the JAX package's
+    query/key chunking is the kernel's tiling here."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, p_bf16=p_bf16)
 
 
-def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
-                      k_chunk: int = 1024):
+def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                      q_chunk: int = 1024, k_chunk: int = 1024,
+                      p_bf16: bool = False, scale: float | None = None):
     """Chunked attention with online softmax, the JAX package's
     ``layers.flash_attention`` in plain tensor ops (the training path).
 
     q [B,Sq,H,Dh], k [B,Sk,KV,Dh], v [B,Sk,KV,Dv] (Dv may differ from
-    Dh), query head h reads KV head ``h // (H/KV)``. Query chunks of ``q_chunk`` are one batched dim; key
-    chunks of ``k_chunk`` stream through a loop carrying the running max,
-    sum and f32 accumulator. Scores and both products take f32 operands
-    (the JAX einsums' ``preferred_element_type=F32``: a product of two bf16
-    values is exact in f32), and the result has q's dtype.
+    Dh), query head h reads KV head ``h // (H/KV)``, query row i sits at
+    position ``q_offset + i`` of the causal mask. Query chunks of
+    ``q_chunk`` are one batched dim; key chunks of ``k_chunk`` stream
+    through a loop carrying the running max, sum and f32 accumulator.
+    Scores and both products take f32 operands (the JAX einsums'
+    ``preferred_element_type=F32``: a product of two bf16 values is exact
+    in f32), and the result has q's dtype. ``p_bf16`` rounds each chunk's
+    probabilities to q's dtype before the PV product (the sum ``l`` keeps
+    them unrounded), ``scale`` replaces ``1/sqrt(Dh)``.
     """
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
@@ -115,14 +128,14 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     qc = math.gcd(min(q_chunk, Sq), Sq)
     kc = math.gcd(min(k_chunk, Sk), Sk)
     nq, nk = Sq // qc, Sk // kc
-    scale = 1.0 / math.sqrt(Dh)
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     dev = q.device
 
     qr = q.reshape(B, nq, qc, KV, g, Dh).float()
     kr = k.reshape(B, nk, kc, KV, Dh)
     vr = v.reshape(B, nk, kc, KV, Dv)
     ik = torch.arange(kc, device=dev)
-    qpos = ((torch.arange(nq, device=dev) * qc)[:, None]
+    qpos = (q_offset + (torch.arange(nq, device=dev) * qc)[:, None]
             + torch.arange(qc, device=dev)[None, :])          # [nq,qc]
 
     m = torch.full((B, nq, KV, g, qc), float("-inf"), dtype=F32, device=dev)
@@ -139,8 +152,9 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1)
+        pv = p.to(q.dtype).float() if p_bf16 else p
         acc = acc * corr[..., None] + torch.einsum(
-            "bnkgqc,bckd->bnkgqd", p, vr[:, ki].float())
+            "bnkgqc,bckd->bnkgqd", pv, vr[:, ki].float())
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     # [B,nq,KV,g,qc,Dv] -> [B,nq,qc,KV,g,Dv] -> [B,Sq,H,Dv]
@@ -305,6 +319,28 @@ def mla_attention(p, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig,
     return mla_up_v(p, lat, cfg)
 
 
+def mla_attention_flash(p, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig,
+                        causal: bool, q_offset: int = 0):
+    """MLA's absorbed form through the chunked online softmax
+    (``chunked_attention``), the JAX ``mla_attention_flash``: the queries
+    ``[W_uk^T q_nope || q_rope]`` a head (``kv_lora + d_rope`` wide), the
+    keys ``[c_kv || k_rope]`` as one KV head every query head reads, the
+    values ``c_kv`` (``kv_lora`` wide), the scale ``1/sqrt(d_nope +
+    d_rope)``; the latent combine is then up-projected by ``W_uv``.
+    Returns [B,Sq,H,d_v] and holds one ``q_chunk x k_chunk`` score block
+    a head, never ``[B,H,Sq,Sk]``. The flash kernel does not take it: its
+    values are narrower than its 576-wide queries at deepseek's
+    widths."""
+    m = cfg.mla
+    qq = torch.cat([mla_absorb_q(p, q_nope, cfg), q_rope], dim=-1)
+    kk = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
+    lat = chunked_attention(qq, kk, c_kv[:, :, None, :], causal=causal,
+                            q_offset=q_offset, q_chunk=cfg.q_chunk,
+                            k_chunk=cfg.k_chunk,
+                            scale=1.0 / math.sqrt(m.d_nope + m.d_rope))
+    return mla_up_v(p, lat, cfg)
+
+
 def mla_output(p, o, cfg: ArchConfig):
     B, S, H, Dv = o.shape
     return o.reshape(B, S, H * Dv) @ p["wo"]
@@ -383,11 +419,14 @@ class Routing:
     cap: int
 
 
-def moe_route(p, xf, cfg: ArchConfig, expert_perm=None) -> Routing:
+def moe_route(p, xf, cfg: ArchConfig, expert_perm=None,
+              cap: int | None = None) -> Routing:
     """Route the tokens xf [G, D]: f32 router logits, softmax, top-k (a
     stable descending sort, so ties go to the lower expert as in
     ``jax.lax.top_k``), weights renormalised, ids through
-    ``expert_perm``, then the capacity slots of the sort-based dispatch."""
+    ``expert_perm``, then the capacity slots of the sort-based dispatch,
+    ``cap`` an expert (by default the batch-global ``max(8, ceil(G * K /
+    E * capacity_factor))``)."""
     mo = cfg.moe
     E, K = mo.n_experts, mo.top_k
     G = xf.shape[0]
@@ -400,7 +439,8 @@ def moe_route(p, xf, cfg: ArchConfig, expert_perm=None) -> Routing:
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     if expert_perm is not None:
         topi = torch.as_tensor(expert_perm, device=topi.device).long()[topi]
-    cap = max(8, int(math.ceil(G * K / E * mo.capacity_factor)))
+    if cap is None:
+        cap = max(8, int(math.ceil(G * K / E * mo.capacity_factor)))
     se, order = torch.sort(topi.reshape(G * K), stable=True)
     # a sorted lane's place in its group: its index less the group's
     # first, which JAX finds by a max-scan of the group starts
@@ -417,35 +457,16 @@ def group_bounds(se, E: int):
     return torch.searchsorted(se, torch.arange(E + 1, device=se.device))
 
 
-def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
-    """Sort-based capacity dispatch (no [G, E, C] one-hot), port of the
-    JAX ``moe_apply``: tokens sort by chosen expert into ``cap`` slots an
-    expert (lanes past it are dropped), the batched expert products, then
-    each lane's output weighted and summed over its token's K lanes in k
-    order, plus the shared expert. ``expert_perm`` (the placement
-    planner's) maps each chosen expert to its slot on the expert axis.
-    Returns (out [B, S, D], aux), aux the Switch balance loss computed as
-    JAX computes it: the density of ``topi[:, 0]`` after the perm against
-    the mean gates before it.
-
-    Every kept lane writes its own (expert, slot) row and every dropped
-    lane a dump row of its own, and the combine reads the same rows (zero
-    for a dropped lane): no two lanes share a row, so no scatter or
-    gather gradient walks a run of equal indices.
-
-    ``plan`` (a mesh plan with whole weights) changes nothing computed, as
-    in the JAX function, whose plan only constrains layouts; its
-    ``moe_local_dispatch`` rule raises (item 14l). On a mesh whose ranks
-    hold parts of the batch, the caller gathers the rows first: the
-    capacity is batch-global."""
-    if plan is not None:
-        plan.check_ported()
+def _dispatch(p, x, cfg: ArchConfig, expert_perm, cap: int | None):
+    """The routed experts of `moe_apply` over the rows ``x`` [B, S, D] at
+    ``cap`` slots an expert: (out [B, S, D] without the shared expert,
+    aux, the rows' Switch balance loss)."""
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.n_experts, mo.top_k
     G = B * S
     xf = x.reshape(G, D)
-    r = moe_route(p, xf, cfg, expert_perm)
+    r = moe_route(p, xf, cfg, expert_perm, cap)
 
     # each expert's count of first choices: lanes g * K (k = 0) counted
     # through the sorted order, group by group
@@ -470,7 +491,73 @@ def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
     ye = torch.bmm(h, p["we_down"])                        # [E, cap, D]
     contrib = nn.functional.pad(ye.reshape(n_rows, D), (0, 0, 0, G * K))[row]
     w = r.topv.reshape(G * K).to(x.dtype)
-    out = (contrib * w[:, None]).view(G, K, D).sum(dim=1).view(B, S, D)
+    return (contrib * w[:, None]).view(G, K, D).sum(dim=1).view(B, S, D), aux
+
+
+def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
+    """Sort-based capacity dispatch (no [G, E, C] one-hot), port of the
+    JAX ``moe_apply``: tokens sort by chosen expert into ``cap`` slots an
+    expert (lanes past it are dropped), the batched expert products, then
+    each lane's output weighted and summed over its token's K lanes in k
+    order, plus the shared expert. ``expert_perm`` (the placement
+    planner's) maps each chosen expert to its slot on the expert axis.
+    Returns (out [B, S, D], aux), aux the Switch balance loss computed as
+    JAX computes it: the density of ``topi[:, 0]`` after the perm against
+    the mean gates before it.
+
+    Every kept lane writes its own (expert, slot) row and every dropped
+    lane a dump row of its own, and the combine reads the same rows (zero
+    for a dropped lane): no two lanes share a row, so no scatter or
+    gather gradient walks a run of equal indices.
+
+    ``plan`` (a mesh plan with whole weights) changes nothing computed, as
+    in the JAX function, whose plan only constrains layouts; the plan's
+    ``moe_local_dispatch`` is `moe_apply_local_dispatch`, which the
+    caller picks (`local_dispatch`). On a mesh whose ranks hold parts of
+    the batch, the caller gathers the rows first: the capacity is
+    batch-global."""
+    out, aux = _dispatch(p, x, cfg, expert_perm, None)
+    if cfg.moe.n_shared:
+        out = out + mlp_apply(p["shared"], x)
+    return out, aux
+
+
+def local_dispatch(plan, batch: int) -> bool:
+    """Whether a MoE layer over a global batch of ``batch`` rows takes
+    `moe_apply_local_dispatch` under ``plan``: the JAX condition, the
+    plan's ``moe_local_dispatch`` rule with the batch a multiple of the
+    data-parallel size and more than one row."""
+    return (plan is not None and bool(plan.rules.get("moe_local_dispatch"))
+            and batch % plan.dp_size() == 0 and batch > 1)
+
+
+def moe_apply_local_dispatch(p, x, cfg: ArchConfig, expert_perm, plan,
+                             rows_whole: bool = False):
+    """The JAX ``moe_apply_local_dispatch``: each data-parallel shard of
+    the batch routes its own rows (top-k, sort, capacity slots, scatter,
+    the expert products and the combine) into ``cap_local = max(8,
+    ceil(G * K / E * capacity_factor / ndp))`` slots an expert, G the
+    global batch's tokens and ndp the data-parallel size, so lanes drop
+    shard by shard rather than batch-wide. ``x`` is this rank's shard of
+    the rows; with ``rows_whole`` it is the whole batch (a rank that holds
+    every row), dispatched shard by shard as the ranks would. Returns
+    (out, aux), aux the mean of the shards' Switch balance losses (the JAX
+    ``pmean`` over every mesh axis, whose "model" ranks hold their data
+    shard's value), over "data" by ``dist.autograd.mean_over``, which
+    the train step differentiates; plus the shared expert."""
+    mo = cfg.moe
+    ndp = plan.dp_size()
+    B, S, _ = x.shape
+    G = (B if rows_whole else B * ndp) * S
+    cap = max(8, int(math.ceil(G * mo.top_k / mo.n_experts
+                               * mo.capacity_factor / ndp)))
+    if rows_whole:
+        outs, auxs = zip(*(_dispatch(p, xs, cfg, expert_perm, cap)
+                           for xs in x.chunk(ndp)))
+        out, aux = torch.cat(outs), torch.stack(auxs).mean()
+    else:
+        out, aux = _dispatch(p, x, cfg, expert_perm, cap)
+        aux = DA.mean_over(aux, plan.data)
     if mo.n_shared:
         out = out + mlp_apply(p["shared"], x)
     return out, aux

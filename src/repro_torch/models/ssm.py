@@ -93,11 +93,9 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
     contracted with C at once, so no ``[B,S,di,d_state]`` tensor is held
     outside training. ``plan`` (a mesh plan with whole weights) changes
     nothing computed, as in the JAX function, whose plan only constrains
-    layouts; its rules of item 14l raise. A mesh's train step gathers its
-    weights whole on every rank (tensor-parallel compute for the recurrent
-    mixers is item 14m)."""
-    if plan is not None:
-        plan.check_ported()
+    layouts (none of its flags reaches Mamba). A mesh's train step gathers
+    its weights whole on every rank (tensor-parallel compute for the
+    recurrent mixers is item 14m)."""
     mb = cfg.mamba
     B, S, D = x.shape
     di = mb.expand * D

@@ -85,6 +85,21 @@ is ROADMAP.md Queue A item 14m). A MoE layer gathers the rows over "data"
 first (its capacity is batch-global), and its balance loss, whole on
 every "data" rank, enters each rank's loss divided by the data-parallel
 size; the CE is normalised by the global label count.
+
+The plan's flags that change the computation act in train and serving
+alike, as the JAX package's do. ``attn_seq`` (`attn_flags`): where
+"model" does not divide the heads and splits the query chunks, each
+"model" rank attends from its contiguous block of query rows to every key
+(the flash kernel's ``q_offset`` in prefill, ``chunked_attention``'s in
+train) and the rows' outputs are gathered over "model"; in train the
+input's gradient and the q, k and v weights' gradients are summed over
+"model". ``attn_p_bf16``: bf16 probabilities before the PV product in
+train and prefill attention (not MLA, the encoder or cross-attention).
+``mla_flash``: MLA's chunked absorbed form (``layers.mla_attention_flash``)
+in train and prefill. ``moe_local_dispatch`` with JAX's batch condition
+(``layers.local_dispatch``): each rank dispatches its own rows into a
+capacity of its own (``layers.moe_apply_local_dispatch``), with no
+gather, and the balance loss is the mean over "data".
 """
 from __future__ import annotations
 
@@ -534,24 +549,63 @@ def _decode_attn_update(sh, q, k_new, v_new, kcache, vcache, pos):
     return o, kcache, vcache
 
 
+def attn_flags(cfg: ArchConfig, plan, B: int, S: int):
+    """The JAX ``_apply_attn``'s two plan flags for a train or prefill
+    attention over ``[B, S]`` rows: (``seq``, ``p_bf16``). ``seq`` is this
+    rank's (first row, count) of the query rows under sequence-parallel
+    attention (``attn_seq``), where "model" does not divide the heads and
+    ``(S // gcd(q_chunk, S)) % model == 0``, as JAX tests it, and where
+    the JAX constraint of ``flash_attention``'s query chunks (``gcd(min(
+    q_chunk, S), S)`` long) splits them over "model": a rank takes its
+    contiguous block of query chunks against every key. Else None: every
+    rank computes every row. ``p_bf16`` is the ``attn_p_bf16`` rule."""
+    if plan is None:
+        return None, False
+    m = plan.shape()["model"]
+    pbf16 = bool(plan.rules.get("attn_p_bf16"))
+    if not (plan.rules.get("attn_seq") is not None and cfg.n_heads % m
+            and (S // math.gcd(cfg.q_chunk, S)) % m == 0):
+        return None, pbf16
+    qc = math.gcd(min(cfg.q_chunk, S), S)
+    qr = (B, S // qc, qc, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.d_head)
+    if not plan.splits(plan.constraint(qr, "batch", "attn_seq", None, None,
+                                       None, None), 1, "model"):
+        return None, pbf16
+    n = S // m
+    return (plan.model.rank * n, n), pbf16
+
+
 def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None,
-                sh=None, kv=None):
+                sh=None, kv=None, seq=None, p_bf16: bool = False):
     """One attention mixer. ``cache`` is this layer's ``{"k", "v"}``
     (views into the stacked cache), updated in place. ``kv`` (training on
     a mesh, `_TP.kv`) indexes the kv heads this rank's query heads read
-    out of the whole k and v."""
+    out of the whole k and v. ``seq`` and ``p_bf16`` are `attn_flags`'s:
+    with ``seq`` train and prefill attend from this rank's query rows
+    (``q_offset`` their first) to every key, and the rows' outputs are
+    gathered over "model" (the backward keeps the rank's stripe)."""
     q, k, v = L.qkv_project(p, x, x, cfg)
     if kv is not None:
         k, v = k[:, :, kv], v[:, :, kv]
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    lo = 0
+    if seq is not None:
+        lo, n = seq
+        q = q[:, lo:lo + n]
     if mode == "train":
-        o = L.chunked_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                                k_chunk=cfg.k_chunk)
+        o = L.chunked_attention(q, k, v, causal=True, q_offset=lo,
+                                q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+                                p_bf16=p_bf16)
+        if seq is not None:
+            o = DA.gather([o], [1], sh.plan.model, reduce=False)[0]
         return _attn_out(p, o), None
     if mode == "prefill":
-        o = L.flash_attention(q, k, v, causal=True)
+        o = L.flash_attention(q.contiguous(), k, v, causal=True,
+                              q_offset=lo, p_bf16=p_bf16)
+        if seq is not None:
+            o = DA.gather([o], [1], sh.plan.model)[0]
         for name, new in (("k", k), ("v", v)):
             _write_prefill(cache[name], new, sh)
         return _attn_out(p, o), cache
@@ -586,13 +640,14 @@ def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None,
     (views into the stacked cache), updated in place."""
     q_nope, q_rope = L.mla_project_q(p, x, cfg, positions)
     c_new, kr_new = L.mla_compress_kv(p, x, cfg, positions)
+    # the plan's mla_flash: the chunked absorbed form in train and prefill
+    mla = (L.mla_attention_flash if sh is not None
+           and sh.plan.rules.get("mla_flash") else L.mla_attention)
     if mode == "train":
-        o = L.mla_attention(p, q_nope, q_rope, c_new, kr_new, cfg,
-                            causal=True)
+        o = mla(p, q_nope, q_rope, c_new, kr_new, cfg, causal=True)
         return L.mla_output(p, o, cfg), None
     if mode == "prefill":
-        o = L.mla_attention(p, q_nope, q_rope, c_new, kr_new, cfg,
-                            causal=True)
+        o = mla(p, q_nope, q_rope, c_new, kr_new, cfg, causal=True)
         for name, new in (("c_kv", c_new), ("k_rope", kr_new)):
             _write_prefill(cache[name], new, sh)
         return L.mla_output(p, o, cfg), cache
@@ -687,18 +742,25 @@ def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None):
 
 def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  pages=None, sh=None, tp=None):
+    plan = sh.plan if sh is not None else None
+    if spec.mixer in _RECURRENT:
+        return _apply_recurrent(spec, p, x, cfg, mode, cache, plan)
+    if spec.mixer == "mla":
+        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh)
+    seq, pbf16 = (None, False) if mode == "decode" else \
+        attn_flags(cfg, plan, *x.shape[:2])
     if tp is not None and tp.attn:
         # Megatron: the column-parallel q, k, v on this rank's heads, the
         # row-parallel output projection summed over "model"
-        o, _ = _apply_attn(p, DA.copy_to(x, sh.plan.model), cfg, "train",
-                           positions, None, None, kv=tp.kv)
-        return DA.sum_over(o, sh.plan.model), None
-    if spec.mixer in _RECURRENT:
-        return _apply_recurrent(spec, p, x, cfg, mode, cache,
-                                sh.plan if sh is not None else None)
-    if spec.mixer == "mla":
-        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh)
-    return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages, sh)
+        o, _ = _apply_attn(p, DA.copy_to(x, plan.model), cfg, "train",
+                           positions, None, None, kv=tp.kv, p_bf16=pbf16)
+        return DA.sum_over(o, plan.model), None
+    if seq is not None and mode == "train":
+        # each rank's query rows reach x through their own paths: the
+        # backward sums x's gradient over "model"
+        x = DA.copy_to(x, plan.model)
+    return _apply_attn(p, x, cfg, mode, positions, cache, pos, pages, sh,
+                       seq=seq, p_bf16=pbf16)
 
 
 def _cross_attention(p, x, enc_out, cfg):
@@ -721,10 +783,12 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  tp=None):
     """One layer; returns (x, cache, aux), aux the MoE balance loss (an f32
     zero for other layers). With ``enc_out`` the cross block runs after
-    the mixer. Where the rows split over "data" (``sh.rows``), a MoE layer
-    gathers them first: its capacity is batch-global. ``tp`` (a `_TP`,
-    training on a mesh) runs the attention or the MLP tensor-parallel
-    on ``p``'s shards."""
+    the mixer. Under the plan's ``moe_local_dispatch`` (and JAX's batch
+    condition, `layers.local_dispatch`) a MoE layer dispatches this
+    rank's rows alone; otherwise, where the rows split over "data"
+    (``sh.rows``), it gathers them first: its capacity is batch-global.
+    ``tp`` (a `_TP`, training on a mesh) runs the attention or the MLP
+    tensor-parallel on ``p``'s shards."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
@@ -737,7 +801,12 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     h = _norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":
         plan = sh.plan if sh is not None else None
-        if sh is not None and sh.rows is not None:
+        rows = sh.rows if sh is not None else None
+        if L.local_dispatch(plan, h.shape[0] * (rows[1] if rows else 1)):
+            out, a = L.moe_apply_local_dispatch(p["ffn"], h, cfg,
+                                                expert_perm, plan,
+                                                rows_whole=rows is None)
+        elif rows is not None:
             # the backward sums the rows' gradients over "data"
             hs = DA.gather([h], [0], sh.plan.data)[0]
             out, a = L.moe_apply(p["ffn"], hs, cfg, expert_perm, plan)
@@ -860,7 +929,6 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if plan is not None:
-        plan.check_ported()
         if mode == "train":
             return _forward_train_mesh(model, tokens, cfg, plan, remat,
                                        expert_perm, vision, enc_frames)
@@ -921,11 +989,14 @@ class _TP:
     heads over "model"), ``kv`` (where "model" does not split the kv heads
     with the heads: the index, into the kv heads gathered whole, of those
     this rank's query heads read; a slice where they fall in equal
-    groups, else one kv head a query head) and ``mlp`` (its SwiGLU hidden
-    dim over "model")."""
+    groups, else one kv head a query head), ``mlp`` (its SwiGLU hidden
+    dim over "model") and ``seq`` (its attention sequence-parallel,
+    `attn_flags`: every rank's q, k and v projections whole, their
+    gradients summed over "model")."""
     attn: bool = False
     kv: slice | list | None = None
     mlp: bool = False
+    seq: bool = False
 
     def how(self, name: str) -> str:
         """``common.mesh_weights``'s mode of the block's leaf ``name``."""
@@ -933,6 +1004,8 @@ class _TP:
         if self.attn and head == "mixer":
             return ("diff" if self.kv is not None and leaf_ in
                     ("wk", "wv", "bk", "bv") else "shard")
+        if self.seq and head == "mixer" and leaf_ != "wo":
+            return "diff"
         if self.mlp and head == "ffn":
             return "shard"
         return "same"
@@ -949,6 +1022,8 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int) -> _TP:
     ps = C.param_pspecs(block, plan)
     attn = mlp = False
     kv = None
+    seq = (block.spec.mixer == "attn"
+           and attn_flags(cfg, plan, B, S)[0] is not None)
     if block.spec.mixer == "attn":
         H, KV, DH = cfg.n_heads, cfg.n_kv, cfg.d_head
         attn = (plan.splits(plan.constraint((B, S, H, DH), "batch", None,
@@ -969,7 +1044,7 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int) -> _TP:
                                            "mlp"), 2, "model")
                and plan.splits(ps["ffn.w_gate"], 1, "model")
                and plan.splits(ps["ffn.w_down"], 0, "model"))
-    return _TP(attn=attn, kv=kv, mlp=mlp)
+    return _TP(attn=attn, kv=kv, mlp=mlp, seq=seq)
 
 
 def _train_rows(plan, B: int) -> Shards:
@@ -1172,7 +1247,6 @@ def loss_fn(model: LM, batch, cfg: ArchConfig, plan=None, expert_perm=None,
     model holds this rank's shards and every rank returns the global
     batch's loss (`_loss_mesh`)."""
     if plan is not None:
-        plan.check_ported()
         return _loss_mesh(model, batch, cfg, plan, expert_perm, remat)
     vision = batch.get("vision")
     x, _, aux = forward(model, batch["tokens"], cfg, mode="train",

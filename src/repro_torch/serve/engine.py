@@ -99,7 +99,6 @@ class ServeEngine:
         if self.registry is None:
             self.registry = obs_metrics.REGISTRY
         if self.plan is not None:
-            self.plan.check_ported()
             if self.device is None:
                 self.device = self.plan.device
         self.device = resolve_device(self.device)

@@ -18,9 +18,11 @@
   real ``Comm`` carries on gloo ranks for the same decode step, and a
   rank's cache argument bytes what ``shard_zeros`` allocates there.
 - ``run_cell``: the JAX keys, a ``train_4k`` cell counted on the mesh
-  train step, the flags' refusals naming item 14l, and one cell
-  against the JAX ``run_cell`` run in a subprocess on a
-  ``jax.sharding.Mesh`` of 256 forced host devices.
+  train step, the four flags that change the computation counted as
+  they run, and two cells against the JAX ``run_cell`` run in a
+  subprocess on a ``jax.sharding.Mesh`` of 256 forced host devices
+  (``decode_32k``, and ``prefill_32k`` with sequence-parallel
+  attention, whose attention FLOPs are held to ``hlo_cost``'s).
 """
 import json
 import os
@@ -533,31 +535,40 @@ _JAX_CELL = textwrap.dedent("""
         return jax.sharding.Mesh(devs.reshape(shape), axes)
 
     M.make_production_mesh = mesh
-    print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2],
-                                     multi_pod=False)))
+    print(json.dumps([dryrun.run_cell(arch, shape, multi_pod=False, **flags)
+                      for arch, shape, flags in eval(sys.argv[1])]))
 """)
 JAX_CELL = ("qwen2-1.5b", "decode_32k")
+SP_CELL = ("qwen2-1.5b", "prefill_32k")
 
 
 @pytest.fixture(scope="module")
-def jax_cell():
-    """JAX's run_cell of ``JAX_CELL`` on the single mesh, with
+def jax_cells():
+    """JAX's run_cell of ``JAX_CELL``, and of ``SP_CELL`` with
+    sequence-parallel attention, on the single mesh, with
     ``make_production_mesh`` replaced by a ``jax.sharding.Mesh`` of 256
     of 512 forced host devices (fault C5), in a subprocess."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
     env.pop("XLA_FLAGS", None)
-    res = subprocess.run([sys.executable, "-c", _JAX_CELL, *JAX_CELL],
+    cells = [JAX_CELL + ({},), SP_CELL + ({"seq_parallel_attn": True},)]
+    res = subprocess.run([sys.executable, "-c", _JAX_CELL, repr(cells)],
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+@pytest.fixture(scope="module")
+def jax_cell(jax_cells):
+    return jax_cells[0]
+
+
 def test_run_cell_against_jax(jax_cell):
     got = dryrun.run_cell(*JAX_CELL, multi_pod=False)
-    assert set(got) == set(jax_cell) | {"counted_on", "coords"}
+    assert set(got) == set(jax_cell) | {"counted_on", "coords",
+                                        "kernel_flops"}
     assert got["status"] == jax_cell["status"] == "ok"
     for k in ("arch", "shape", "mesh", "n_chips", "model_flops",
               "model_flops_per_chip"):
@@ -605,18 +616,65 @@ def test_run_cell_full_size(arch, shape):
     assert r["hlo_flops"] > r["model_flops_per_chip"]
 
 
+_CELLS: dict = {}
+
+
+def _cell(arch: str, shape: str, **flags) -> dict:
+    """``run_cell`` on the single mesh, each cell counted once a module."""
+    key = (arch, shape, tuple(sorted(flags)))
+    if key not in _CELLS:
+        _CELLS[key] = dryrun.run_cell(arch, shape, multi_pod=False, **flags)
+    return _CELLS[key]
+
+
+def _flag_cell(flag: str):
+    """The cell a flag acts on, with it and without it."""
+    arch, shape = {"moe_local": ("deepseek-v2-236b", "decode_32k"),
+                   "seq_parallel_attn": SP_CELL, "attn_p_bf16": SP_CELL,
+                   "mla_flash": ("deepseek-v2-236b", "prefill_32k")}[flag]
+    on, off = _cell(arch, shape, **{flag: True}), _cell(arch, shape)
+    assert on["status"] == off["status"] == "ok"
+    return arch, on, off
+
+
 @pytest.mark.parametrize("flag", ["train_4k", "moe_local",
                                   "seq_parallel_attn", "attn_p_bf16",
                                   "mla_flash"])
 def test_run_cell_refusals_name_14i(flag):
-    """The flags that change the computation raise, naming item 14l; a
-    ``train_4k`` cell counts the mesh train step: the state at a rank's
-    shards, FSDP's gathers and their sum-scatters, the vocab-parallel
-    CE's max, a useful ratio above the whole-weight decode cell's."""
+    """The flags that change the computation count as they run: with
+    ``moe_local`` a deepseek-v2 decode drops the rows' all-gather before
+    each MoE layer and adds the balance loss's all-reduce; with
+    ``seq_parallel_attn`` qwen2's prefill (12 heads, "model" 16) counts a
+    sixteenth of the attention FLOPs (2 of 32 query chunks a rank, each
+    against every key) and one all-gather of the outputs a layer;
+    ``attn_p_bf16`` changes no product (the cell runs in f32, where it is
+    a no-op); ``mla_flash`` drops deepseek-v2's prefill peak (no
+    ``[B,128,S,S]`` f32 scores). A ``train_4k`` cell counts the mesh train
+    step: the state at a rank's shards, FSDP's gathers and their
+    sum-scatters, the vocab-parallel CE's max, a useful ratio above the
+    whole-weight decode cell's."""
     if flag != "train_4k":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-            dryrun.run_cell("deepseek-v2-236b", "decode_32k",
-                            multi_pod=False, **{flag: True})
+        arch, on, off = _flag_cell(flag)
+        cfg = treg.get_config(arch)
+        moe = sum(s.ffn == "moe" for s in cfg.pattern) * cfg.n_superblocks
+        if flag == "moe_local":
+            assert off["collective_counts"]["all-gather"] == moe
+            assert on["collective_counts"] == {
+                "all-reduce": off["collective_counts"]["all-reduce"] + moe}
+            assert on["hlo_flops"] < off["hlo_flops"]
+        elif flag == "seq_parallel_attn":
+            assert 16 * on["kernel_flops"]["flash_attn"] == \
+                off["kernel_flops"]["flash_attn"]
+            assert off["hlo_flops"] - on["hlo_flops"] == \
+                15 * on["kernel_flops"]["flash_attn"]
+            assert on["collective_counts"] == {"all-gather": cfg.n_layers}
+        elif flag == "attn_p_bf16":
+            assert on["hlo_flops"] == off["hlo_flops"]
+            assert on["kernel_flops"] == off["kernel_flops"]
+        else:
+            assert on["hlo_flops"] == off["hlo_flops"]
+            assert on["memory"]["peak_bytes"] < \
+                off["memory"]["peak_bytes"] / 3
         return
     arch = "phi4-mini-3.8b"
     r = dryrun.run_cell(arch, "train_4k", multi_pod=False)
@@ -631,6 +689,28 @@ def test_run_cell_refusals_name_14i(flag):
     # a rank's state: 14 B a parameter, split over the 256 ranks but for
     # the leaves a dim of which the mesh does not divide
     assert r["memory"]["argument_size_in_bytes"] < 14 * n_params / 64
+
+
+def test_seq_parallel_attention_flops_against_hlo_cost(jax_cells):
+    """qwen2-1.5b ``prefill_32k`` with ``seq_parallel_attn``: the port's
+    attention FLOPs a rank (the flash kernel's, a sixteenth of the
+    whole) equal the JAX step's ``hlo_cost`` FLOPs less its other
+    products, within 0.1%. JAX splits every projection's heads or hidden
+    dim over "model" 16 ways (12 x 128 columns divide by 16, 12 heads do
+    not), and the port's serving keeps the weights whole, so only the
+    attention is compared: the other products are the rank's 2 rows of
+    32,768 tokens through each layer's q, k, v, o and MLP weights over
+    16, and the head on the last token."""
+    jcell = jax_cells[1]
+    assert jcell["status"] == "ok"
+    cfg = treg.get_config(SP_CELL[0])
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    tokens = 32 * 32768 // 16
+    layer = 2 * D * H * Dh + 2 * D * KV * Dh + 3 * D * cfg.d_ff
+    rest = (2 * tokens * cfg.n_layers * layer + 2 * 2 * D * cfg.vocab) / 16
+    got = _cell(*SP_CELL, seq_parallel_attn=True)["kernel_flops"][
+        "flash_attn"]
+    assert abs(got - (jcell["hlo_flops"] - rest)) <= 1e-3 * got
 
 
 def test_main_prints_and_writes_json(tmp_path, capsys):

@@ -22,13 +22,13 @@ from repro.models import transformer as JT
 from repro.serve import paging as jpaging
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import list_configs
-from repro_torch.dist.sharding import Plan, lm_rules
 from repro_torch.models import common as TC
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import cache_to_arrays, params_from_jax
 from repro_torch.serve import paging as tpaging
 from _jax_caches import fresh_jax_caches  # noqa: F401
+from _one_rank import one_rank_plan
 
 ARCHS = ["qwen2-1.5b", "phi4-mini-3.8b", "llama4-scout-17b-16e"]
 B, S, CL, PS = 2, 13, 24, 8
@@ -147,20 +147,21 @@ def test_full_width_llama4_parameter_count():
                for k in ("we_gate", "we_up", "we_down")) == 2_013_265_920
 
 
-def test_train_mode_raises():
-    """A plan flag train mode does not run yet raises and names its
-    ROADMAP item (14l), and an unknown mode raises. An
-    ``expert_perm`` on a config without MoE changes nothing, as in
-    JAX."""
+def test_train_mode_raises(tmp_path):
+    """A plan flag computes in train mode: ``seq_parallel_attn`` on a
+    one-rank mesh ("model" 1 divides the heads, so every query row stays
+    with the rank) gives the loss without a plan within 1e-6. An unknown
+    mode raises. An ``expert_perm`` on a config without MoE changes
+    nothing, as in JAX."""
     cfg = tget("qwen2-1.5b").smoke()
     model = TT.materialize_lm(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     batch = {"tokens": toks, "labels": toks}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        TT.loss_fn(model, batch, cfg, plan=Plan(
-            mesh=None, device=torch.device("cpu"), data=None, model=None,
-            rules=lm_rules(seq_parallel_attn=True)))
+    with one_rank_plan(tmp_path, seq_parallel_attn=True) as plan:
+        assert TT.attn_flags(cfg, plan, 1, 4)[0] is None
+        flagged, _ = TT.loss_fn(model, batch, cfg, plan=plan)
     plain, _ = TT.loss_fn(model, batch, cfg)
+    assert abs(float(flagged) - float(plain)) <= 1e-6 * abs(float(plain))
     permuted, m = TT.loss_fn(model, batch, cfg,
                              expert_perm=torch.arange(4).flip(0))
     assert torch.equal(plain, permuted) and float(m["aux"]) == 0.0

@@ -24,7 +24,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as tget
 from repro_torch.core import planner as tpl
-from repro_torch.dist.sharding import Plan, lm_rules
+from repro_torch.dist.sharding import Plan
 from repro_torch.models import common as TC
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -134,24 +134,45 @@ def test_moe_apply_matches_jax(n_experts, top_k, with_perm):
 
 def test_moe_apply_on_a_mesh_raises():
     """The shard-local dispatch (the plan's ``moe_local_dispatch`` rule)
-    waits for item 14l; a plan without it computes as without a plan."""
+    on a plan of two "data" shards whose rank holds every row: each
+    shard's rows dispatched alone at ``cap_local`` (here each shard's own
+    batch-global capacity) give ``moe_apply`` of that shard's rows, and
+    ``aux`` the mean of theirs; the whole batch's dispatch drops other
+    lanes. ``local_dispatch`` is the JAX condition; ``moe_apply`` itself
+    computes as without a plan under any rules (the caller picks the
+    local dispatch)."""
     _, cfg = _cfgs()
+    gen = torch.Generator().manual_seed(0)
     p = TL.MoE(cfg, device="cpu")
-    p.load_state_dict({k: 0.1 * torch.ones_like(v)
+    p.load_state_dict({k: 0.3 * torch.randn(v.shape, generator=gen)
                        for k, v in p.state_dict().items()})
-    x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        TL.moe_apply(p, x, cfg, plan=_plan(moe_local=True))
-    got, want = (TL.moe_apply(p, x, cfg, plan=_plan()),
-                 TL.moe_apply(p, x, cfg))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # tokens that lean towards a few experts, so some groups overflow
+    x = torch.randn((4, 32, cfg.d_model), generator=gen) \
+        + 1.5 * torch.randn((1, 1, cfg.d_model), generator=gen)
+    plan = _plan(moe_local=True)
+    got, aux = TL.moe_apply_local_dispatch(p, x, cfg, None, plan,
+                                           rows_whole=True)
+    halves = [TL.moe_apply(p, h, cfg) for h in x.chunk(2)]
+    assert torch.equal(got, torch.cat([o for o, _ in halves]))
+    assert torch.equal(aux, torch.stack([a for _, a in halves]).mean())
+    assert not torch.equal(got, TL.moe_apply(p, x, cfg)[0])
+    assert TL.local_dispatch(plan, 4) and TL.local_dispatch(plan, 2)
+    assert not TL.local_dispatch(plan, 3)
+    assert not TL.local_dispatch(_plan(), 4)
+    for rules in (_plan(moe_local=True), _plan()):
+        got, want = (TL.moe_apply(p, x, cfg, plan=rules),
+                     TL.moe_apply(p, x, cfg))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _plan(**flags):
-    """A plan with the rules of ``flags`` and no mesh: ``moe_apply`` reads
-    only its rules."""
-    return Plan(mesh=None, device=torch.device("cpu"), data=None,
-                model=None, rules=lm_rules(**flags))
+    """The plan of rank (0, 0) of a (2, 1) mesh with the rules of
+    ``flags``, its tensors on the CPU: the MoE layer reads its rules and
+    the data-parallel size, and calls no collective on rows it holds
+    whole."""
+    return dataclasses.replace(Plan.abstract({"data": 2, "model": 1},
+                                             **flags),
+                               device=torch.device("cpu"))
 
 
 def _models(jcfg, cfg, seed=0):

@@ -39,6 +39,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import ServeEngine
 from repro_torch.serve.paging import make_insert
 from _jax_caches import fresh_jax_caches  # noqa: F401
+from _one_rank import one_rank_plan
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -484,17 +485,35 @@ def test_pspec_and_cache_pspec():
 
 @pytest.mark.parametrize("rule", ["seq_parallel_attn", "attn_p_bf16",
                                   "mla_flash", "moe_local"])
-def test_unported_flags_raise(rule):
+def test_unported_flags_raise(rule, tmp_path):
+    """Each flag serves on a one-rank mesh (deepseek-v2's smoke config:
+    MLA and MoE): ``ServeEngine(plan=)``'s greedy tokens equal the engine's
+    without a plan, and a two-row prefill's logits the prefill's without
+    a plan within 1e-5 (``mla_flash``: the chunked absorbed form;
+    ``moe_local`` with one "data" shard: the batch-global capacity)."""
     cfg = tget("deepseek-v2-236b").smoke()
-    plan = Plan(mesh=None, device=torch.device("cpu"), data=None,
-                model=None, rules=lm_rules(**{rule: True}))
-    model = TT.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        ServeEngine(cfg, model, cache_len=CL, plan=plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        TT.prefill(model, torch.ones((1, 3), dtype=torch.long),
-                   TC.zeros(TT.cache_shapes(cfg, 1, 8), "cpu"), cfg,
-                   plan=plan)
+    model = TT.materialize_lm(cfg, 0, "cpu")
+    toks = torch.arange(1, 13).reshape(2, 6) % cfg.vocab
+
+    def serve(pl):
+        eng = ServeEngine(cfg, model, cache_len=CL, plan=pl, n_slots=2,
+                          device="cpu")
+        rids = [eng.submit(np.arange(1, n + 1), MAX_NEW) for n in RAGGED]
+        res = eng.drain()
+        return ([np.asarray(res[r]) for r in rids], TT.prefill(
+            model, toks, TC.zeros(TT.cache_shapes(cfg, 2, CL), "cpu"), cfg,
+            plan=pl)[0].numpy())
+    if "one_device" not in _FLAG_REFS:
+        _FLAG_REFS["one_device"] = serve(None)
+    with one_rank_plan(tmp_path, **{rule: True}) as plan:
+        tokens, logits = serve(plan)
+    want_tokens, want_logits = _FLAG_REFS["one_device"]
+    assert all(np.array_equal(a, b) for a, b in zip(tokens, want_tokens))
+    np.testing.assert_allclose(logits, want_logits, atol=1e-5, rtol=0)
+
+
+# the one-device engine's tokens and prefill logits the flag cases share
+_FLAG_REFS: dict = {}
 
 
 # --------------------------------------------------------- the functions

@@ -189,20 +189,19 @@ def test_split_sequence_equals_one_pass(mixer):
 
 
 def test_mamba_plan_raises():
-    """A plan rule of item 14l raises; a plan without one computes as
-    without a plan (whole weights: the JAX plan only constrains
-    layouts)."""
+    """A plan computes as without a plan, with a rule that changes the
+    computation (``attn_p_bf16``, which reaches attention only) or
+    without one: whole weights, as the JAX plan only constrains
+    layouts."""
     _, tfn, _, cfg, _, _, tp = _mixer_params("mamba")
     x = torch.linspace(-1, 1, 2 * cfg.d_model).reshape(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        tfn(tp, x, cfg, plan=Plan(mesh=None, device=torch.device("cpu"),
-                                  data=None, model=None,
-                                  rules=lm_rules(attn_p_bf16=True)))
-    got = tfn(tp, x, cfg, plan=Plan(mesh=None, device=torch.device("cpu"),
-                                    data=None, model=None))
     want = tfn(tp, x, cfg)
-    assert torch.equal(got[0], want[0])
-    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    for rules in (lm_rules(attn_p_bf16=True), lm_rules()):
+        got = tfn(tp, x, cfg, plan=Plan(mesh=None,
+                                        device=torch.device("cpu"),
+                                        data=None, model=None, rules=rules))
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
 # ------------------------------------------------------------- the trees

@@ -40,7 +40,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config as tget
 from repro_torch.data import pipeline as tpipe
 from repro_torch.dist.ft import StepWatchdog, TrainSupervisor
-from repro_torch.dist.sharding import Plan, lm_rules
+from repro_torch.dist.sharding import Plan
 from repro_torch.launch import train as tcli
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import common as TC
@@ -51,6 +51,7 @@ from repro_torch.train import grad_compress as tgc
 from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 from _jax_caches import fresh_jax_caches  # noqa: F401
+from _one_rank import one_rank_plan
 
 ARCH = "qwen2-1.5b"
 MOE_ARCH = "llama4-scout-17b-16e"
@@ -705,23 +706,28 @@ def test_supervisor_restarts_from_checkpoint():
     assert [s for s, _ in sup.failures] == [5, 5]
 
 
-def test_unported_training_arguments_raise():
-    """A plan flag that changes the computation (item 14l) raises in
-    ``train``, ``make_train_step`` and ``loss_fn``; without a device the
-    loop needs the card."""
+def test_unported_training_arguments_raise(tmp_path):
+    """A plan flag that changes the computation runs in ``train``,
+    ``make_train_step`` and ``loss_fn`` on a one-rank mesh:
+    ``attn_p_bf16`` rounds the bf16 steps' probabilities before the PV
+    product (the losses within 2^-8 of the steps without it, and not
+    equal to them) and leaves an f32 loss as it is (within 1e-6); without
+    a device the loop needs the card."""
     _, cfg = _cfgs()
-    plan = Plan(mesh=None, device=torch.device("cpu"), data=None,
-                model=None, rules=lm_rules(attn_p_bf16=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        tloop.train(cfg, steps=1, global_batch=2, seq_len=8, plan=plan,
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        make_train_step(cfg, plan)
-    toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*14l"):
-        TT.loss_fn(TT.LM(cfg, device="meta"), {"tokens": toks,
-                                               "labels": toks}, cfg,
-                   plan=plan)
+    toks = torch.arange(16).reshape(2, 8) % cfg.vocab
+    batch = {"tokens": toks, "labels": toks}
+    model = TT.materialize_lm(cfg, 0, "cpu")
+    kw = dict(steps=2, global_batch=2, seq_len=8, device="cpu")
+    with one_rank_plan(tmp_path, attn_p_bf16=True) as plan:
+        got = tloop.train(cfg, plan=plan, **kw).losses
+        assert callable(make_train_step(cfg, plan))
+        flagged = float(TT.loss_fn(model, batch, cfg, plan=plan)[0])
+    want = tloop.train(cfg, **kw).losses
+    assert got != want
+    for (s, a), (t, b) in zip(got, want):
+        assert s == t and abs(a - b) <= 2 ** -8 * abs(b)
+    plain = float(TT.loss_fn(model, batch, cfg)[0])
+    assert abs(flagged - plain) <= 1e-6 * abs(plain)
     if not torch.cuda.is_available():   # the card unless told otherwise
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tloop.train(cfg, steps=1, global_batch=2, seq_len=8)
