@@ -58,12 +58,14 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      request (counts reset just before, read just after); time to first
      token, prefill and decode tokens/s and peak memory; and the smoke
      config's tokens identical on the card and on the CPU;
-  9. the bucketed solve ``partition(bucket=True)`` (pow2 capacities
-     between levels): parts, levels, connectivity and kernel path equal
-     to phase 3's; its timings, launches, peak memory and each level's
-     capacities beside phase 3's; a second run with ``collect_stats=True``
-     gives identical parts, and its level-0 connectivity, cut and largest
-     block equal the audit's (with the wall time the stats added);
+  9. the bucketed solve ``partition(bucket=True, collect_stats=True)``
+     (pow2 capacities between levels): parts, levels, connectivity and
+     kernel path equal to phase 3's (which collects no quality
+     statistics); its timings and launches, the quality passes' own
+     seconds and launches logged apart and subtracted, its peak memory
+     (the quality passes' included) and each level's capacities beside
+     phase 3's; its level-0 connectivity, cut and largest block equal
+     the audit's;
  10. streaming: ``perturb_delta`` of 1229 edges (about 1%), then a warm
      ``repartition`` from phase 3's parts through a ``WarmCache``: mode
      warm, no coarsening, the audit, launches gains 16, pins_count 16,
@@ -91,8 +93,8 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      same parts through
      ``partition_batch_device`` on the card and the CPU; wall time,
      requests/s, solve and queue times per route, and the device's idle
-     share of one bucket solve cut to ``SERVICE_PROFILE_LEVELS`` (2)
-     levels under the profiler; the metrics dump
+     share of one bucket solve cut to ``SERVICE_PROFILE_LEVELS`` (1)
+     level under the profiler; the metrics dump
      carries the ``service.solve`` span.
  13. the paper's Fig. 7 comparison: the nine graphs of
      ``paper_snn_suite(FIG7_SNN_SCALE)`` (0.25: 96-768 nodes) and
@@ -282,29 +284,47 @@ ranks sharing the card over gloo). Phases, each fatal on failure:
      bf16 steps of phase 16's batches (4 x 1,024 tokens) through
      ``train(plan=)``: attention, the MLP, the embedding and the head
      tensor-parallel over "model", FSDP over "data". The parent holds
-     the two losses within 2^-8 of phase 16's first two, after phase 16.
+     the two losses within 2^-8 of phase 16's first two, after phase 16
+     (the second after the sharded AdamW update, the mesh's global norm
+     and the gradients' sums over the mesh).
      Each rank logs its state bytes (a quarter of the 24.9 GB whole, but
      for the norms and biases, which stay whole over "data"), peak
      memory, step seconds and host-staged copies, bytes and seconds a
      step; no kernel launched. Then the smoke config's 2 + resume 2
      steps on the same ranks (a mesh checkpoint written whole by rank 0,
      restored as each rank's shards) end on the straight run's loss bit
-     for bit. Then the plan flags on the same ranks: llama4-scout at full
-     width cut to 1 of 48 layers, bf16 (8.5 GB of whole weights a rank),
+     for bit. Then MoE, MLA, the encoder and the cross blocks
+     tensor-parallel on the same ranks, each a ``loss_and_grads`` pass
+     against a one-device pass on the same seed-0 weights and batch that
+     this process computes on the card before phase 15's spawn:
+     deepseek-v2-236b at full width cut to 2 of 60 layers, bf16, 4 x 512
+     tokens (each rank's 80 of the 160 experts, ``we_gate`` [80, 2560,
+     1536], on its half of the capacity slots, and 64 of the 128 heads),
+     its loss within 1e-4 relative; whisper-tiny uncut, f32, 2 x 128
+     tokens over 1,500 frames (3 of its 6 heads and half of d_ff 1,536 in
+     the encoder, the decoder and the cross blocks), its loss within
+     1e-5; each rank's every gradient shard against its stripe of the
+     one-device gradient, in norm and in a leading block (``TP_TOL``);
+     each rank logs the pass's seconds, peak memory and host-staged
+     copies, bytes and seconds. Then the plan flags on the same ranks:
+     llama4-scout at full width cut to 1 of 48 layers, bf16 (8.5 GB of
+     whole weights a rank),
      a prefill of 4 rows with ``moe_local`` (each rank's MoE layer
      dispatches its own 2 rows): each rank's logits equal a one-device
      prefill of its rows on the same weights, whose batch-global capacity
      is the local one; and a (1, 4) ``DeviceMesh`` over the same four
      processes: whisper-tiny at full width and depth (6 heads, which
      "model" 4 does not divide) with query chunks of 32, a prefill of 2 x
-     128 tokens over 1,500 frames and one f32 step's loss, each with
-     ``attn_seq`` and without: each rank attends from its 32 query rows
+     128 tokens over 1,500 frames with ``attn_seq`` and without, and one
+     f32 step's loss with it: each rank attends from its 32 query rows
      (B4 in its offset mode once a decoder layer), the prefill's logits
-     equal, the losses within 1e-5 relative.
+     equal, the loss within 1e-5 relative of the one-device loss of the
+     same batch (whisper's tensor-parallel pass's reference).
 
 Phase 2 also runs its small graph through ``partition(bucket=True)``,
 ``repartition`` and ``partition_kway``, on the card and on the CPU, with
-the same parts. Phases 3 to 5 and 9 to 22 run under
+the same parts, and the bucketed solve again with ``collect_stats`` on
+the card: the same parts, its level-0 quality the audit's. Phases 3 to 5 and 9 to 22 run under
 ``torch.use_deterministic_algorithms(True)``, in every rank too (cuBLAS
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here before CUDA starts). Phases
 3, 9 and 11 also check each solve's ``level_stats`` and span-tree
@@ -440,13 +460,13 @@ SERVICE_PER_RUNG = 3
 SERVICE_AGAIN = 2
 # and the levels of the bucket solve it profiles (a level is about 30,000
 # launches, and the trace's export and parse took 20.7 s for the whole
-# solve's 8 levels on an H100 80GB HBM3 at 700 W)
-SERVICE_PROFILE_LEVELS = 2
+# solve's 8 levels on an H100 80GB HBM3 at 700 W, 9.9 s for 2 levels)
+SERVICE_PROFILE_LEVELS = 1
 # phase 16: training at qwen2-1.5b's full width and depth, uncut
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # phase 22: training on phase 15's (2, 2) mesh, the first MESH_TRAIN_STEPS
-# of phase 16's steps
+# of phase 16's steps (the second after an optimizer update)
 MESH_TRAIN_STEPS = 2
 # phase 22's plan flags on the same ranks: llama4-scout's moe_local prefill
 # at full width cut to MOE_LOCAL_LAYERS layer (8.5 GB of bf16 weights a
@@ -455,6 +475,25 @@ MESH_TRAIN_STEPS = 2
 # SP_CHUNK (4 chunks, one a "model" rank)
 MOE_LOCAL_LAYERS, MOE_LOCAL_ROWS = 1, 4
 SP_ROWS, SP_SEQ, SP_CHUNK = 2, 128, 32
+# phase 22's tensor-parallel MoE and MLA on the (2, 2) ranks: deepseek-v2
+# at full width cut to DS_TRAIN_LAYERS of 60 layers (the dense MLA + MLP
+# layer and one MLA + MoE layer: 5,193,528,320 parameters, 10.39 GB in
+# bf16; a rank holds 80 of the 160 experts and 64 of the 128 heads), one
+# loss_and_grads pass of DS_TRAIN_ROWS x DS_TRAIN_SEQ tokens; then
+# whisper-tiny uncut in f32, one pass of SP_ROWS x SP_SEQ tokens over
+# WHISPER_FRAMES frames, its encoder and cross blocks split by heads (6)
+# and d_ff (1,536). Each rank's loss and every gradient shard are held to
+# the one-device pass: TP_TOL[arch] is (the loss's relative gap, each
+# gradient shard's relative norm gap and its leading block's relative
+# error), a block GRAD_BLOCK elements at most. On an H100 80GB HBM3 at
+# 700 W deepseek's largest were 5.5e-7, 7.3e-4 and 0.105 (an expert's
+# first rows: bf16 partial sums over the capacity slots' halves), and
+# 1.0 for the norm and the block with the experts' gradient counted
+# twice over "model"; whisper's 6.7e-8, 2.4e-7 and 3.1e-6
+DS_TRAIN_LAYERS, DS_TRAIN_ROWS, DS_TRAIN_SEQ = 2, 4, 512
+TP_TOL = {DS_ARCH: (1e-4, 2 ** -7, 2 ** -2),
+          WHISPER_ARCH: (1e-5, 1e-5, 1e-4)}
+GRAD_BLOCK = 1 << 18
 # phase 16's checkpoint, resume and supervision checks: TRAIN_CKPT_STEPS
 # straight steps against half of them + a resume, on the smoke config,
 # not the full width: a full-width TrainState is about 24.9 GB of npz (14 B
@@ -1155,14 +1194,37 @@ def small_entry_points(small, rc, partition) -> None:
         res[name] = b
     need((res["partition(bucket=True)"].parts == rc.parts).all(),
          "small graph: bucketed parts == unbucketed parts")
+    # collect_stats reads the solve and never writes into it
+    rs = partition(copy.deepcopy(small), omega=12, delta=40, theta=2,
+                   use_kernels=True, bucket=True, collect_stats=True,
+                   device="cuda")
+    ls = rs.level_stats
+    need((rs.parts == res["partition(bucket=True)"].parts).all()
+         and rs.kernel_path == res["partition(bucket=True)"].kernel_path,
+         "small graph: the bucketed solve with collect_stats equals it "
+         "without")
+    need(all(s.connectivity is not None for s in ls) and all(
+        s.connectivity is None
+        for s in res["partition(bucket=True)"].level_stats),
+        "small graph: quality level_stats only under collect_stats")
+    need((ls[0].connectivity, ls[0].cut_net, ls[0].max_size)
+         == (rs.connectivity, rs.cut_net, rs.audit["max_size"]),
+         f"small graph: level-0 quality {ls[0]} equals the audit {rs.audit}")
+    log(f"[2] small graph, partition(bucket=True, collect_stats=True): the "
+        f"parts and kernel path of the run without it; level 0 "
+        f"connectivity {ls[0].connectivity}, cut {ls[0].cut_net}, max size "
+        f"{ls[0].max_size}, equal to the audit")
     need(res["repartition"].mode == "warm",
          "small graph: repartition stays warm")
 
 
 def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
-    """Phase 9: ``partition(bucket=True)`` at full size against phase 3's
-    unbucketed run, twice (the second with ``collect_stats``), with the
-    capacities of every level."""
+    """Phase 9: ``partition(bucket=True, collect_stats=True)`` at full
+    size against phase 3's unbucketed run (which collects no quality
+    statistics), with the capacities of every level; the quality passes'
+    own seconds and launches are logged apart and subtracted from the
+    solve's beside phase 3's (phase 2's small graph holds the solve with
+    and without ``collect_stats`` equal)."""
     from repro_torch.core import partitioner
     from repro_torch.obs import trace as otrace
     from repro_torch.obs import vcycle as ovcycle
@@ -1175,51 +1237,55 @@ def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
         level_caps.append(caps2)
         return d2, caps2
 
-    # the quality passes of collect_stats, each between two synchronises
+    # the quality passes of collect_stats, each between two synchronises,
+    # and their launches
     quality, quality_s = ovcycle.quality_scalars, []
+    quality_n = collections.Counter()
 
     def timed_quality(*a, **kw):
         torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         out = quality(*a, **kw)
         torch.cuda.synchronize()
         quality_s.append(time.perf_counter() - t0)
+        quality_n.update({k: n - before.get(k, 0)
+                          for k, n in kernels.LAUNCHES.items()})
         return out
 
     partitioner.shrink_device = recording_shrink
+    ovcycle.quality_scalars = timed_quality
     try:
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         rb = partitioner.partition(hg, omega=omega, delta=delta, theta=theta,
-                                   use_kernels=True, bucket=True)
+                                   use_kernels=True, bucket=True,
+                                   collect_stats=True)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         caps_used = list(level_caps)
         root = otrace.last_root("partition")
-        ovcycle.quality_scalars = timed_quality
-        rb2 = partitioner.partition(hg, omega=omega, delta=delta,
-                                    theta=theta, use_kernels=True,
-                                    bucket=True, collect_stats=True)
-        root2 = otrace.last_root("partition")
     finally:
         partitioner.shrink_device = shrink
         ovcycle.quality_scalars = quality
-    log(f"[9] partition(bucket=True): n_parts {rb.n_parts}, n_levels "
-        f"{rb.n_levels}, connectivity {rb.connectivity} (unbucketed: "
-        f"{cold['n_levels']} levels, connectivity {cold['connectivity']})")
-    log(f"[9] timings (s): " + json.dumps(rb.timings) + "; unbucketed "
-        + json.dumps(cold["timings"]))
-    log(f"[9] second bucketed run, collect_stats=True: timings (s) "
-        + json.dumps(rb2.timings) + f"; the stats added "
-        f"{rb2.timings['total'] - rb.timings['total']:.3f} s to the total "
-        f"and {rb2.timings['refine'] - rb.timings['refine']:.3f} s to "
-        f"refinement; its {len(quality_s)} quality passes took "
-        f"{sum(quality_s):.3f} s between synchronises (largest "
-        f"{max(quality_s):.4f} s), on {card}")
-    log(f"[9] launches: " + json.dumps(launches) + "; unbucketed "
-        + json.dumps(cold["launches"]))
+    log(f"[9] partition(bucket=True, collect_stats=True): n_parts "
+        f"{rb.n_parts}, n_levels {rb.n_levels}, connectivity "
+        f"{rb.connectivity} (unbucketed: {cold['n_levels']} levels, "
+        f"connectivity {cold['connectivity']})")
+    q_s = sum(quality_s)
+    solve_launches = {k: n - quality_n[k] for k, n in launches.items()}
+    log(f"[9] timings (s): " + json.dumps(rb.timings) + f", of which the "
+        f"{len(quality_s)} quality passes of collect_stats took {q_s:.3f} s "
+        f"between synchronises (largest {max(quality_s):.4f} s): the solve "
+        f"without them total {rb.timings['total'] - q_s:.3f}, refine "
+        f"{rb.timings['refine'] - q_s:.3f}; unbucketed "
+        + json.dumps(cold["timings"]) + f", on {card}")
+    log(f"[9] launches without the quality passes': "
+        + json.dumps(solve_launches) + f" (theirs "
+        + json.dumps({k: n for k, n in quality_n.items() if n})
+        + "); unbucketed " + json.dumps(cold["launches"]))
     log(f"[9] peak device memory of the solve: {peak / 2**30:.3f} GiB "
         f"({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held); "
         f"unbucketed {cold['peak'] / 2**30:.3f} GiB, on {card}")
@@ -1233,27 +1299,25 @@ def bucket_phase(torch, kernels, hg, cold, card, omega, delta, theta):
          "bucketed levels, connectivity and kernel_path equal the "
          "unbucketed run's")
     need((rb.parts == cold["parts"]).all(),
-         "bucketed parts equal the unbucketed parts")
-    need((rb2.parts == rb.parts).all(),
-         "second bucketed run, with collect_stats, identical")
+         "bucketed parts, with collect_stats, equal the unbucketed parts")
     for name in ("pair_scores", "pins_count", "gains"):
-        need(launches[name] > 0, f"{name} launched on the bucketed path")
-    check_telemetry(rb, root, hg, "[9]")
-    check_telemetry(rb2, root2, hg, "[9] (collect_stats)")
-    ls = rb2.level_stats
+        need(solve_launches[name] > 0,
+             f"{name} launched on the bucketed path")
+    check_telemetry(rb, root, hg, "[9] (collect_stats)")
+    ls = rb.level_stats
     need(all(s.connectivity is not None for s in ls)
-         and all(s.connectivity is None for s in rb.level_stats),
+         and all(s.connectivity is None for s in cold["level_stats"]),
          "quality level_stats only under collect_stats")
     need((ls[0].connectivity, ls[0].cut_net, ls[0].max_size)
-         == (rb2.connectivity, rb2.cut_net, rb2.audit["max_size"]),
-         f"level-0 quality {ls[0]} equals the audit {rb2.audit}")
+         == (rb.connectivity, rb.cut_net, rb.audit["max_size"]),
+         f"level-0 quality {ls[0]} equals the audit {rb.audit}")
     log(f"[9] collect_stats: level 0 connectivity {ls[0].connectivity}, "
         f"cut {ls[0].cut_net}, max size {ls[0].max_size} (slack "
         f"{ls[0].size_slack}), max inbound {ls[0].max_inbound} (slack "
         f"{ls[0].inbound_slack}), equal to the audit; coarsest level "
         f"connectivity {ls[-1].connectivity}")
-    log("[9] bucketed parts equal the unbucketed parts; a second bucketed "
-        "run, with collect_stats, gives identical parts")
+    log("[9] bucketed parts, with collect_stats, equal the unbucketed "
+        "parts")
 
 
 def stream_phase(torch, kernels, hg, cold, card, omega, delta, theta):
@@ -2443,7 +2507,9 @@ def mesh_train_runs(torch, kernels, plan, ckpt: str) -> dict:
     phase 16's batches from the rank's shard of phase 16's seed-0 weights,
     the staging and launch counts reset just before and read just after;
     then the smoke config's 4 straight steps and 2 + resume 2 steps with
-    mesh checkpoints under ``ckpt``. Returns plain numbers."""
+    mesh checkpoints under ``ckpt``; then `mesh_pass` of each `tp_case`
+    (deepseek-v2's MoE and MLA, whisper's encoder and cross blocks, all
+    tensor-parallel over "model"). Returns plain numbers."""
     from repro_torch.configs import get_config
     from repro_torch.dist import comm
     from repro_torch.train import loop
@@ -2475,9 +2541,144 @@ def mesh_train_runs(torch, kernels, plan, ckpt: str) -> dict:
     resumed = loop.train(small, steps=4, ckpt_dir=f"{ckpt}/b", ckpt_every=2,
                          resume=True, **kw)
     out["resume"] = (straight.losses, resumed.losses)
+    out["tp"] = {arch: mesh_pass(torch, plan, *tp_case(torch, arch,
+                                                       plan.device))
+                 for arch in (DS_ARCH, WHISPER_ARCH)}
     out["moe_local"] = moe_local_runs(torch, plan)
     out["attn_seq"] = attn_seq_runs(torch, plan)
     return out
+
+
+def tp_case(torch, arch: str, dev):
+    """Phase 22's tensor-parallel cases: (config, dtype, batch) of
+    deepseek-v2 cut to ``DS_TRAIN_LAYERS`` in bf16 and of whisper-tiny
+    uncut in f32, the tokens (and whisper's frames) drawn from seed 0 on
+    ``dev``, the labels the tokens shifted by one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if arch == DS_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=DS_TRAIN_LAYERS)
+        shape, dtype = (DS_TRAIN_ROWS, DS_TRAIN_SEQ), torch.bfloat16
+    else:
+        shape, dtype = (SP_ROWS, SP_SEQ), torch.float32
+    toks = torch.randint(2, cfg.vocab, shape, generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+    if cfg.encoder_layers:
+        batch["enc_frames"] = torch.randn(
+            (shape[0], WHISPER_FRAMES, cfg.d_model), generator=gen,
+            device=dev)
+    return cfg, dtype, batch
+
+
+def grad_summary(g) -> tuple:
+    """(norm, block) of the gradient shard ``g``: its norm in f32 and its
+    leading block on the host in f32, the first rows along its leading
+    dims up to ``GRAD_BLOCK`` elements (an expert's first rows of its
+    first expert, a matrix's first rows), as a float64 numpy array."""
+    b = g
+    while b.dim() > 1 and b[0].numel() > GRAD_BLOCK:
+        b = b[0]
+    b = b[:max(1, GRAD_BLOCK // max(1, b[0].numel()))] if b.dim() > 1 \
+        else b[:GRAD_BLOCK]
+    return float(g.float().norm()), b.double().cpu().numpy()
+
+
+def tp_refs(torch, card) -> dict:
+    """Phase 22's one-device references, on the card before phase 15's
+    spawn: of each `tp_case` on the seed-0 weights, the loss and, for
+    each rank of the (2, 2) mesh and each parameter, the `grad_summary`
+    of the rank's stripe of the whole gradient (``common.shard_of`` under
+    the plan's rules), the weights and gradients freed after."""
+    from repro_torch.dist.sharding import Plan
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    plan = Plan.abstract({"data": 2, "model": 2})
+    sh = plan.shape()
+    ranks = [dict(data=d, model=m) for d in range(2) for m in range(2)]
+    out = {}
+    for arch in (DS_ARCH, WHISPER_ARCH):
+        cfg, dtype, batch = tp_case(torch, arch, torch.device("cuda"))
+        t0 = time.perf_counter()
+        lm = T.materialize_lm(cfg, 0, "cuda", dtype=dtype)
+        lm.requires_grad_(True)
+        loss, _, grads = steps.loss_and_grads(lm, batch, cfg)
+        ps = C.param_pspecs(lm, plan)
+        out[arch] = dict(loss=float(loss), grads={
+            rank_key(c): {n: grad_summary(C.shard_of(g, ps[n], sh, c))
+                          for n, g in grads.items()} for c in ranks})
+        del lm, batch, grads
+        torch.cuda.empty_cache()
+        log(f"[22] {arch} one-device {dtype} loss {out[arch]['loss']!r} "
+            f"and gradients ({time.perf_counter() - t0:.1f} s), the "
+            f"reference of its (2, 2) pass; on {card}")
+    return out
+
+
+def rank_key(coords: dict) -> tuple:
+    return coords["data"], coords["model"]
+
+
+def mesh_pass(torch, plan, cfg, dtype, batch) -> dict:
+    """One ``loss_and_grads`` pass of ``cfg`` on this rank's ``dtype``
+    shards of the seed-0 weights under ``plan``, the staging and launch
+    counts reset just before it and read just after. Returns plain
+    numbers: the loss, seconds, peak device memory, staged collectives,
+    the rank's shard bytes, its MoE layer's ``we_gate`` shape and the
+    `grad_summary` of each gradient shard."""
+    from repro_torch import kernels
+    from repro_torch.dist import comm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lm = T.materialize_lm(cfg, 0, plan.device, dtype=dtype, plan=plan)
+    lm.requires_grad_(True)
+    params = dict(lm.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    loss, _, grads = steps.loss_and_grads(lm, batch, cfg, plan)
+    torch.cuda.synchronize()
+    we = params.get("layers.0.ffn.we_gate")
+    out = dict(loss=float(loss), wall=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(),
+               staged=dict(comm.STATS), launches=dict(kernels.LAUNCHES),
+               shard_bytes=sum(p.numel() * p.element_size()
+                               for p in params.values()),
+               we_gate=None if we is None else tuple(we.shape),
+               grads={n: grad_summary(g) for n, g in grads.items()},
+               coords=plan.coords())
+    del lm, params, grads, we
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_gaps(got: dict, want: dict) -> tuple:
+    """The largest relative gaps of a rank's gradient summaries ``got``
+    from the one-device stripes' ``want`` (`grad_summary` each, by
+    parameter name): (norm gap, leaf, block error, leaf). A zero
+    reference needs an exact zero; a gradient that is not finite is an
+    infinite gap."""
+    import numpy as np
+
+    def rel(err, ref):
+        if not math.isfinite(err):
+            return math.inf
+        return err / ref if ref > 0 else (0.0 if err == 0 else math.inf)
+
+    norm = max((rel(abs(got[n][0] - r[0]), r[0]), n)
+               for n, r in want.items())
+    block = max((rel(float(np.linalg.norm(got[n][1] - r[1])),
+                     float(np.linalg.norm(r[1]))), n)
+                for n, r in want.items())
+    return norm + block
 
 
 def moe_local_runs(torch, plan) -> dict:
@@ -2536,15 +2737,15 @@ def attn_seq_runs(torch, plan) -> dict:
     """Phase 22's ``attn_seq`` on one rank of a (1, 4) ``DeviceMesh`` over
     the (2, 2) mesh's four processes: whisper-tiny at full width and
     depth (6 heads, which "model" 4 does not divide) with query chunks of
-    ``SP_CHUNK``, a prefill of ``SP_ROWS`` x ``SP_SEQ`` tokens over
-    ``WHISPER_FRAMES`` seeded frames and one f32 step's loss and
-    gradients, each with ``seq_parallel_attn`` and without, the launch
-    counts reset just before each and read just after. Returns plain
-    numbers."""
+    ``SP_CHUNK``, on `tp_case`'s whisper batch (``SP_ROWS`` x ``SP_SEQ``
+    tokens over ``WHISPER_FRAMES`` seeded frames): a prefill with
+    ``seq_parallel_attn`` and without, the launch counts reset just
+    before each and read just after, then one f32 step's loss with it
+    (held to the one-device loss of the same batch, `tp_refs`). Returns
+    plain numbers."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.dist import comm
     from repro_torch.dist.sharding import MESH_DIMS, Plan
     from repro_torch.launch import steps
@@ -2555,53 +2756,48 @@ def attn_seq_runs(torch, plan) -> dict:
     mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=MESH_DIMS)
     on = Plan.make(mesh, dev, seq_parallel_attn=True)
     off = Plan.make(mesh, dev)
-    cfg = get_config(WHISPER_ARCH).scaled(q_chunk=SP_CHUNK)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    toks = torch.randint(2, cfg.vocab, (SP_ROWS, SP_SEQ), generator=gen,
-                         device=dev)
-    frames = torch.randn((SP_ROWS, WHISPER_FRAMES, cfg.d_model),
-                         generator=gen, device=dev)
-    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1),
-             "enc_frames": frames}
+    cfg, _, batch = tp_case(torch, WHISPER_ARCH, dev)
+    cfg = cfg.scaled(q_chunk=SP_CHUNK)
+    toks, frames = batch["tokens"], batch["enc_frames"]
     lm = T.materialize_lm(cfg, seed=0, device=dev)
     out = dict(seq=T.attn_flags(cfg, on, SP_ROWS, SP_SEQ)[0],
                rank=on.model.rank)
     res = {}
     for tag, pl in (("on", on), ("off", off)):
         kernels.reset_launches()
-        comm.reset_stats()
         logits, _ = T.prefill(lm, toks, common.zeros(T.cache_shapes(
             cfg, SP_ROWS, WHISPER_FRAMES), dev), cfg, enc_frames=frames,
             plan=pl)
-        launched = dict(kernels.LAUNCHES)
-        shards = T.materialize_lm(cfg, seed=0, device=dev, plan=pl)
-        shards.requires_grad_(True)
-        loss, _, grads = steps.loss_and_grads(shards, batch, cfg, pl)
-        torch.cuda.synchronize()
-        res[tag] = dict(logits=logits, loss=float(loss), grads=grads,
-                        launches=launched, staged=dict(comm.STATS))
+        res[tag] = dict(logits=logits, launches=dict(kernels.LAUNCHES))
+    shards = T.materialize_lm(cfg, seed=0, device=dev, plan=on)
+    shards.requires_grad_(True)
+    comm.reset_stats()
+    loss, _, _ = steps.loss_and_grads(shards, batch, cfg, on)
+    torch.cuda.synchronize()
     out.update(
         prefill_equal=bool(torch.equal(res["on"]["logits"],
                                        res["off"]["logits"])),
         prefill_diff=float((res["on"]["logits"] - res["off"]["logits"])
                            .abs().max()),
-        losses=(res["on"]["loss"], res["off"]["loss"]),
-        grad_diff=max(float((g - res["off"]["grads"][k]).abs().max())
-                      for k, g in res["on"]["grads"].items()),
-        launches={t: r["launches"] for t, r in res.items()},
-        staged={t: r["staged"] for t, r in res.items()})
-    del lm, res
+        loss=float(loss), launches={t: r["launches"] for t, r in res.items()},
+        staged=dict(comm.STATS))
+    del lm, res, shards
     torch.cuda.empty_cache()
     return out
 
 
-def mesh_train_phase(card, trained: list, ref: list) -> int:
+def mesh_train_phase(card, trained: list, ref: list, tp_ref: dict) -> int:
     """Phase 22's checks and log, in this process: each (2, 2) rank's
-    ``mesh_train_runs`` against phase 16's losses ``ref``; then the plan
-    flags on the same ranks: llama4's ``moe_local`` prefill, each rank's
-    logits equal to the one-device prefill of its rows, and whisper's
-    ``attn_seq`` on (1, 4), the prefill equal and the f32 loss within
-    1e-5 of the same without it, B4 launched in its offset mode. Returns
+    ``mesh_train_runs`` against phase 16's losses ``ref``; the
+    tensor-parallel MoE, MLA, encoder and cross blocks against the
+    one-device pass ``tp_ref`` (`tp_refs`), each rank's loss and gradient
+    shards within ``TP_TOL`` (deepseek-v2 in bf16, its experts split over
+    "model" and ``d_model`` over "data"; whisper in f32); then the plan
+    flags on the
+    same ranks: llama4's ``moe_local`` prefill, each rank's logits equal
+    to the one-device prefill of its rows, and whisper's ``attn_seq`` on
+    (1, 4), the prefill equal to the one without it and the f32 loss
+    within 1e-5 of one device's, B4 launched in its offset mode. Returns
     the ranks' launches of B4 in that mode."""
     from repro_torch.configs import get_config
     wh = get_config(WHISPER_ARCH)
@@ -2641,6 +2837,48 @@ def mesh_train_phase(card, trained: list, ref: list) -> int:
             f"GiB, {st['seconds'] / n:.3f} s; on {card}")
     log(f"[22] smoke config on the mesh: 4 straight steps and 2 + resume 2 "
         f"end on loss {first['resume'][0][-1][1]:.6f} bit for bit")
+    # ---- tensor-parallel MoE and MLA (deepseek), encoder and cross
+    # blocks (whisper): each rank's loss and gradient shards against the
+    # one-device pass's stripes
+    for arch, what in ((DS_ARCH, "bf16"), (WHISPER_ARCH, "f32")):
+        want = tp_ref[arch]
+        lt, nt, bt = TP_TOL[arch]
+        for o in trained:
+            t = o["tp"][arch]
+            st = t["staged"]
+            ref = want["grads"][rank_key(t["coords"])]
+            gap = abs(t["loss"] - want["loss"]) / abs(want["loss"])
+            need(gap <= lt, f"[22] {arch} on (2, 2): rank {t['coords']}'s "
+                 f"{what} loss {t['loss']!r} within {lt:.3g} relative of one "
+                 f"device's {want['loss']!r} ({gap:.3g})")
+            need(set(t["grads"]) == set(ref),
+                 f"[22] {arch}: the rank's gradients are the one-device "
+                 f"pass's leaves")
+            ng, nn_, bg, bn = grad_gaps(t["grads"], ref)
+            need(ng <= nt and bg <= bt,
+                 f"[22] {arch} on (2, 2): rank {t['coords']}'s gradient "
+                 f"shards against one device's stripes: largest norm gap "
+                 f"{ng:.3g} ({nn_}) within {nt:.3g}, largest leading-block "
+                 f"error {bg:.3g} ({bn}) within {bt:.3g}")
+            need(not any(t["launches"].values()),
+                 f"[22] {arch}: training launches no kernel: "
+                 f"{t['launches']}")
+            if arch == DS_ARCH:
+                need(t["we_gate"] == (80, 2560, 1536),
+                     f"[22] {arch}: the rank's we_gate shard is JAX's local "
+                     f"[80, 2560, 1536] (experts over \"model\", d_model "
+                     f"over \"data\"): {t['we_gate']}")
+            log(f"[22] {arch} on (2, 2), rank {t['coords']}: loss "
+                f"{t['loss']!r} against one device's {want['loss']!r} "
+                f"(relative gap {gap:.3g}); {len(ref)} gradient shards "
+                f"against one device's stripes: norm gap {ng:.3g} ({nn_}), "
+                f"leading-block error {bg:.3g} ({bn}); shard "
+                f"{t['shard_bytes'] / 1e9:.3f} GB"
+                + (f", we_gate {list(t['we_gate'])}" if t["we_gate"] else "")
+                + f"; pass {t['wall']:.2f} s, peak device memory "
+                f"{t['peak'] / 2**30:.3f} GiB, host-staged {st['copies']} "
+                f"copies ({st['bytes'] / 2**30:.3f} GiB, "
+                f"{st['seconds']:.2f} s); on {card}")
     # ---- moe_local: llama4's first layer, each rank its own rows
     for o in trained:
         m = o["moe_local"]
@@ -2681,16 +2919,16 @@ def mesh_train_phase(card, trained: list, ref: list) -> int:
         need(a["prefill_equal"],
              f"[22] whisper attn_seq: the prefill's logits equal the prefill "
              f"without it ({a['prefill_diff']:.3g})")
-        on, off = a["losses"]
-        need(abs(on - off) <= 1e-5 * abs(off),
+        want = tp_ref[WHISPER_ARCH]["loss"]
+        need(abs(a["loss"] - want) <= 1e-5 * abs(want),
              f"[22] whisper attn_seq: the f32 loss within 1e-5 relative of "
-             f"the loss without it: {on} against {off}")
+             f"the one-device loss of the same batch: {a['loss']} against "
+             f"{want}")
         offset_launches += la["flash_attn_offset"]
         log(f"[22] whisper attn_seq on (1, 4), rank {r}: query rows "
-            f"{a['seq']}, prefill logits equal; f32 loss {on!r} against "
-            f"{off!r}, gradients within {a['grad_diff']:.3g}; launches "
-            f"{la}; staged {a['staged']['on']['copies']} copies with it, "
-            f"{a['staged']['off']['copies']} without; on {card}")
+            f"{a['seq']}, prefill logits equal; f32 loss {a['loss']!r} "
+            f"against one device's {want!r}; launches {la}; the step staged "
+            f"{a['staged']['copies']} copies; on {card}")
     return offset_launches
 
 
@@ -3764,6 +4002,7 @@ def main(argv=None) -> int:
     for name in ("pair_scores", "pins_count", "gains"):
         need(launches[name] > 0, f"{name} launched on the main path")
     cold = dict(parts=r1.parts, n_levels=r1.n_levels,
+                level_stats=r1.level_stats,
                 connectivity=r1.connectivity, kernel_path=r1.kernel_path,
                 timings=r1.timings, launches=dict(launches), peak=peak,
                 caps=caps)
@@ -3928,6 +4167,7 @@ def main(argv=None) -> int:
     log(f"[14] {time.perf_counter() - t_start:.1f} s from the start")
 
     # ---- 15. the mesh V-cycle; its (1, 2) ranks also serve phase 21 -----
+    tp_ref = tp_refs(torch, card)     # phase 22's one-device references
     rows, served, trained = dist_phase(torch, kernels, card,
                                        min(args.layers, DIST_LAYERS), omega,
                                        delta, DIST_THETA, serve=True,
@@ -3938,7 +4178,7 @@ def main(argv=None) -> int:
     # ---- 16. training; 22. training on phase 15's (2, 2) mesh ----------
     losses16 = train_phase(torch, kernels, card)
     log(f"[16] {time.perf_counter() - t_start:.1f} s from the start")
-    offset_launches = mesh_train_phase(card, trained, losses16)
+    offset_launches = mesh_train_phase(card, trained, losses16, tp_ref)
 
     # ---- 17. MoE serving at full width --------------------------------
     rows_used.append(moe_serve_phase(torch, kernels, card))

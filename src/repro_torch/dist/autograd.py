@@ -12,13 +12,13 @@ its forward on the mesh:
   dispatch): the mean of the ranks' values over the group; its backward
   is the mean of the ranks' gradients, since each rank's loss holds its
   share of the replicated mean.
-* `gather` (FSDP's all-gather, and the rows a MoE layer gathers): the
-  ranks' tensors concatenated along a dim; with ``reduce`` its backward
-  sums the gradients over the group and scatters each rank its stripe
-  (the ranks computed different things with the whole), without it the
-  backward takes the rank's own stripe of its gradient (every rank
-  computed the same thing with the whole: a sum would count that
-  gradient once a rank).
+* `gather` (FSDP's all-gather, the rows a MoE layer gathers and its
+  experts' outputs): the ranks' tensors concatenated along a dim; with
+  ``reduce`` its backward sums the gradients over the group and scatters
+  each rank its stripe (the ranks computed different things with the
+  whole), without it the backward takes the rank's own stripe of its
+  gradient (every rank computed the same thing with the whole: a sum
+  would count that gradient once a rank).
 
 `gather` takes several tensors at once and moves them in one collective
 each way (a block's weights: one all-gather forward, one all-to-all
@@ -83,17 +83,21 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         comm, n = ctx.comm, ctx.comm.size
-        rows = []
-        for g, d, shape in zip(gs, ctx.dims, ctx.shapes):
+        # each gradient's n stripes written once into one [n, ...] buffer
+        sizes = [int(torch.Size(shape).numel()) for shape in ctx.shapes]
+        flat = torch.empty((n, sum(sizes)), **ctx.like)
+        off = 0
+        for g, d, shape, k in zip(gs, ctx.dims, ctx.shapes, sizes):
+            dst = flat[:, off:off + k]
             if g is None:   # an output the loss does not reach
-                g = torch.zeros(shape[:d] + (shape[d] * n,) + shape[d + 1:],
-                                **ctx.like)
-            rows.append(torch.stack(g.chunk(n, dim=d)).reshape(n, -1))
-        flat = torch.cat(rows, dim=1)
+                dst.zero_()
+            else:
+                dst.view((n,) + tuple(shape)).copy_(
+                    g.unflatten(d, (n, shape[d])).movedim(d, 0))
+            off += k
         mine = comm.sum_scatter(flat)[0] if ctx.reduce else flat[comm.rank]
         out, off = [], 0
-        for shape in ctx.shapes:
-            k = int(torch.Size(shape).numel())
+        for shape, k in zip(ctx.shapes, sizes):
             out.append(mine[off:off + k].reshape(shape))
             off += k
         return (None, None, None) + tuple(out)

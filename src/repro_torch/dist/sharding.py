@@ -29,10 +29,11 @@ there which dims the JAX layout splits.
 
 Training on a mesh holds every state leaf as its shard under
 ``param_pspecs`` (``models.transformer.materialize_lm`` with a plan)
-and computes attention, the SwiGLU MLP, the embedding and the head tensor-parallel
-over "model" where ``constraint`` splits their heads, hidden or vocab dims
-(``models.transformer``); serving keeps the weights whole on every rank
-and acts on the "batch", "kv_seq" and "kv_pages" splits
+and computes every layer but the recurrent mixers tensor-parallel over
+"model" where ``constraint`` splits its heads, hidden, vocab or expert
+dims, a MoE layer's capacity over "data" (``models.transformer``,
+``models.layers.ExpertParallel``); serving keeps the weights whole on
+every rank and acts on the "batch", "kv_seq" and "kv_pages" splits
 (``models.common.CACHE_SPLIT_AXES``). The flags that change the
 computation act in the model code, in train and serving alike:
 ``attn_seq`` and ``attn_p_bf16`` in attention (``transformer.attn_flags``:

@@ -22,14 +22,18 @@ of the KV cache over "model". A ``train_4k`` cell runs the mesh train
 step (``make_train_step(plan)``: the state at the rank's shard shapes,
 autograd on meta tensors with every loop step run, the remat recompute
 and the FSDP gathers counted as they run, the collectives of
-``dist.autograd`` over ``MetaComm``s): attention, the MLP, the embedding
-and the head tensor-parallel over "model" where their dims split, every
-other layer whole on each "model" rank. ``hlo_flops`` is the rank's work
-and ``useful_flop_ratio`` (the model's FLOPs over the chips, against the
-rank's) shows the redundancy that remains; nothing is scaled to look like
-the JAX package's figures. A MoE layer gathers every "data" rank's rows
-before its dispatch (the capacity is batch-global), so its expert FLOPs
-are the whole batch's on every rank. ``memory`` holds a rank's argument
+``dist.autograd`` over ``MetaComm``s): attention, MLA, the MLP, the
+encoder, the cross blocks, the embedding and the head tensor-parallel
+over "model" where their dims split, a MoE layer's experts over "model"
+on its capacity slots over "data"; only the recurrent mixers whole on
+each "model" rank (``vis_proj`` has no "model" dim). ``hlo_flops`` is
+the rank's work and ``useful_flop_ratio`` (the model's FLOPs over the
+chips, against the rank's) shows the redundancy that remains; nothing is
+scaled to look like the JAX package's figures. A MoE layer gathers every
+"data" rank's rows before its dispatch (the capacity is batch-global)
+and its experts' outputs after it; ``region_flops["moe_experts"]`` holds
+the rank's expert products (forward and recompute). ``memory`` holds a
+rank's argument
 bytes (the weights or state shards, the whole batch's inputs and the
 rank's cache shard), its output bytes (updated in place: that is
 ``alias_size_in_bytes``, the JAX donation) and ``peak_bytes``, the
@@ -171,6 +175,7 @@ def _count_cell(arch, shape, multi_pod, coords, flags) -> dict:
         collective_counts=walked["collective_counts"],
         collective_bytes_by_op=walked["collective_bytes_by_op"],
         kernel_flops=walked["kernel_flops"],
+        region_flops=walked["region_flops"],
         compute_s=compute_s, memory_s=memory_s, collective_s=coll_s,
         dominant=dominant,
         model_flops=mf, model_flops_per_chip=mf / n_chips,

@@ -25,6 +25,11 @@ it:
                    whose traffic does not; these bytes are in ``bytes``
   kernel_flops     the products of a kernel's plain version, by name
                    (in ``flops`` too): the work the kernel does there
+  region_flops     the products the model code runs inside
+                   ``cost_hooks.region(name)``, by name (in ``flops``
+                   too; the forward and the remat recompute, not the
+                   backward, which autograd runs outside the region):
+                   ``moe_experts``, a MoE layer's expert products
   collective_*     what ``dist.comm.MetaComm`` carries, under
                    ``hlo_cost.analyze``'s names: the output bytes a rank
                    times 2.0 for an all-reduce and 1.0 for the others
@@ -142,6 +147,8 @@ class OpCounter(TorchDispatchMode):
         self.kernel_bytes: dict = defaultdict(int)
         self.kernel_flops: dict = defaultdict(int)
         self._kernels: list = []        # the names of the open kernels
+        self.region_flops: dict = defaultdict(int)
+        self._regions: list = []        # the names of the open regions
         self.coll_bytes: dict = defaultdict(float)
         self.coll_counts: dict = defaultdict(float)
         self.collectives: list = []     # (op, output bytes) a call
@@ -178,6 +185,8 @@ class OpCounter(TorchDispatchMode):
             self.flops += n
             if self._kernels:
                 self.kernel_flops[self._kernels[-1]] += n
+            if self._regions:
+                self.region_flops[self._regions[-1]] += n
         if func.is_view:
             return out
         if not self._in_kernel:
@@ -277,6 +286,15 @@ class OpCounter(TorchDispatchMode):
                         self._add(ref, n)
                 self._kernel_new = []
 
+    @contextlib.contextmanager
+    def region(self, name: str):
+        """Products made inside count in ``region_flops[name]`` too."""
+        self._regions.append(name)
+        try:
+            yield
+        finally:
+            self._regions.pop()
+
     def collective(self, op: str, out_bytes: int, in_bytes: int) -> None:
         """One collective of ``op`` (an ``hlo_cost`` name) carrying
         ``out_bytes`` out of ``in_bytes`` a rank: its ring-weighted bytes
@@ -289,13 +307,15 @@ class OpCounter(TorchDispatchMode):
     # ---- the result ------------------------------------------------------
     def record(self) -> dict:
         """The counts under ``hlo_cost.analyze``'s names, plus
-        ``kernel_bytes``, ``kernel_flops`` and ``peak_bytes``."""
+        ``kernel_bytes``, ``kernel_flops``, ``region_flops`` and
+        ``peak_bytes``."""
         return dict(flops=self.flops, bytes=self.bytes,
                     collective_bytes=float(sum(self.coll_bytes.values())),
                     collective_bytes_by_op=dict(self.coll_bytes),
                     collective_counts=dict(self.coll_counts),
                     kernel_bytes=dict(self.kernel_bytes),
                     kernel_flops=dict(self.kernel_flops),
+                    region_flops=dict(self.region_flops),
                     peak_bytes=self.peak_bytes)
 
 

@@ -31,7 +31,11 @@ lane a row of its own, so the card adds no float atomically.
 ``moe_apply_local_dispatch`` is the JAX mesh plan's shard-local dispatch
 (``moe_local_dispatch``): each data-parallel shard routes its own rows
 into a capacity of its own, and the balance loss is the mean of the
-shards'.
+shards'. In the mesh train step (``ExpertParallel``) a rank computes the
+expert products of its experts (over "model") on its capacity slots
+(over "data") alone, and the experts' outputs are gathered whole for its
+combine; MLA's functions take the head count from the weights they are
+given (a rank's heads).
 
 On a mesh, decode attention over a cache whose keys are split over the
 "model" ranks is flash-decoding (``flash_decode``): each rank scores its
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
@@ -259,13 +264,19 @@ class MLA(SpecModule):
         super().__init__(mla_shapes(cfg), device, dtype)
 
 
-def mla_project_q(p, x, cfg: ArchConfig, positions):
+def mla_project_q(p, x, cfg: ArchConfig, positions, comm=None):
     """Queries through the low-rank ``q_lora`` bottleneck: (q_nope
-    [B,S,H,d_nope], q_rope [B,S,H,d_rope]), RoPE on the second."""
+    [B,S,H,d_nope], q_rope [B,S,H,d_rope]), RoPE on the second; H is the
+    weights' head count (a rank's heads on a mesh). ``comm`` (MLA's heads
+    over "model") copies the bottleneck to the ranks of ``comm``
+    (``dist.autograd.copy_to``: each rank's heads reach it by their own
+    path, so its gradient is summed there)."""
     m = cfg.mla
     B, S, _ = x.shape
     cq = rms_norm(x @ p["w_dq"], p["q_norm"])
-    q = (cq @ p["w_uq"]).reshape(B, S, cfg.n_heads, m.d_nope + m.d_rope)
+    if comm is not None:
+        cq = DA.copy_to(cq, comm)
+    q = (cq @ p["w_uq"]).reshape(B, S, -1, m.d_nope + m.d_rope)
     q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -279,17 +290,18 @@ def mla_compress_kv(p, x, cfg: ArchConfig, positions):
 
 
 def mla_absorb_q(p, q_nope, cfg: ArchConfig):
-    """``W_uk^T q_nope`` a head: [B,S,H,kv_lora] in q_nope's dtype."""
+    """``W_uk^T q_nope`` a head: [B,S,H,kv_lora] in q_nope's dtype, H the
+    weights' head count."""
     m = cfg.mla
-    w_uk = p["w_uk"].reshape(m.kv_lora, cfg.n_heads, m.d_nope)
+    w_uk = p["w_uk"].reshape(m.kv_lora, -1, m.d_nope)
     return torch.einsum("bshn,qhn->bshq", q_nope, w_uk)
 
 
 def mla_up_v(p, lat, cfg: ArchConfig):
     """The latent combine ``lat`` [..., H, kv_lora] up-projected by
-    ``W_uv`` a head: [..., H, d_v]."""
+    ``W_uv`` a head: [..., H, d_v], H the weights' head count."""
     m = cfg.mla
-    w_uv = p["w_uv"].reshape(m.kv_lora, cfg.n_heads, m.d_v)
+    w_uv = p["w_uv"].reshape(m.kv_lora, -1, m.d_v)
     return torch.einsum("...hq,qhv->...hv", lat, w_uv)
 
 
@@ -359,7 +371,14 @@ def mlp_shapes(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, comm=None):
+    """The SwiGLU MLP. ``comm`` (its hidden dim over "model" on a mesh,
+    ``p`` the rank's slices): Megatron's, ``x`` copied to the ranks
+    (``dist.autograd.copy_to``), the column-parallel gate and up on the
+    rank's hidden slice, the row-parallel down projection summed over
+    ``comm`` in rank order (``sum_over``)."""
+    if comm is not None:
+        return DA.sum_over(mlp_apply(p, DA.copy_to(x, comm)), comm)
     h = nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 
@@ -457,10 +476,80 @@ def group_bounds(se, E: int):
     return torch.searchsorted(se, torch.arange(E + 1, device=se.device))
 
 
-def _dispatch(p, x, cfg: ArchConfig, expert_perm, cap: int | None):
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """A MoE layer's split over a mesh in the train step, the JAX layout of
+    the dispatch buffer ``xe`` [E, cap, D] (``("experts", "batch",
+    None)``): ``experts``, the weights ``we_*`` hold this rank's E/m
+    experts (where "model" divides E); ``shared``, the shared expert's
+    hidden dim over "model" (Megatron, `mlp_apply`'s ``comm``). The
+    capacity slots split over the batch's mesh dims where they divide the
+    capacity (`_expert_slots`)."""
+    plan: Any = dataclasses.field(repr=False)
+    experts: bool = False
+    shared: bool = False
+
+    def shared_comm(self):
+        return self.plan.model if self.shared else None
+
+
+def _expert_slots(ep: ExpertParallel | None, E: int, cap: int, D: int,
+                  given: int | None):
+    """The (experts, capacity) comms the rank's part of ``xe`` [E, cap,
+    D] splits over under ``ep`` (None: that dim whole here): experts over
+    "model" where the weights hold a slice of them, the capacity over the
+    batch's dims where JAX's constraint splits it (the resolver's
+    divisibility fallback keeps it whole). A capacity ``given`` by the
+    caller is the shard-local dispatch's, the rank's own already."""
+    if ep is None:
+        return None, None
+    plan = ep.plan
+    ps = plan.constraint((E, cap, D), "experts", "batch", None)
+    cap_split = (given is None and plan.dp_size() > 1 and len(ps) > 1
+                 and ps[1] is not None)
+    return (plan.model if ep.experts else None,
+            plan.data if cap_split else None)
+
+
+def _experts(p, xe):
+    """The batched expert products of ``xe`` [E, cap, D] against the
+    weights ``we_*`` [E, ...]: [E, cap, D]."""
+    with cost_hooks.region("moe_experts"):
+        h = nn.functional.silu(torch.bmm(xe, p["we_gate"])) * \
+            torch.bmm(xe, p["we_up"])
+        return torch.bmm(h, p["we_down"])
+
+
+def _scatter(lanes, row, n_rows: int):
+    """``lanes`` [L, D] written to their rows ``row`` [L] of an [n_rows +
+    L, D] zero buffer (each lane a row of its own; the dump rows past
+    ``n_rows`` dropped): [n_rows, D]."""
+    xe = lanes.new_zeros((n_rows + lanes.shape[0], lanes.shape[1]))
+    xe[row] = lanes
+    return xe[:n_rows]
+
+
+def _dispatch(p, x, cfg: ArchConfig, expert_perm, cap: int | None,
+              ep: ExpertParallel | None = None, xl=None):
     """The routed experts of `moe_apply` over the rows ``x`` [B, S, D] at
     ``cap`` slots an expert: (out [B, S, D] without the shared expert,
-    aux, the rows' Switch balance loss)."""
+    aux, the rows' Switch balance loss).
+
+    Under ``ep`` (the train step on a mesh, ``p`` the rank's shards) the
+    routing and the slots are every rank's alike, and the rank computes
+    only its block of ``xe``: its experts (over "model") on its capacity
+    slots (over "data"; `_expert_slots`), built from the lanes that land
+    there. ``ye`` is then gathered whole, over "data" with a reducing
+    backward (the ranks computed different slots for rows that every
+    rank combines) and over "model" with the stripe's (every "model"
+    rank combines the same rows alike), and the combine is the rank's
+    own, in k order as on one device. The adjoint: a rank's gradient
+    into the lanes comes through its own experts only, so where the
+    experts split the lanes read ``x`` copied to the "model" ranks
+    (``copy_to``, whose backward sums over "model"), or ``xl``, the same
+    rows that the caller copied so before gathering them (`moe_apply`);
+    the router reads ``x`` itself, whose gradient every "model" rank
+    computes whole."""
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.n_experts, mo.top_k
@@ -478,23 +567,41 @@ def _dispatch(p, x, cfg: ArchConfig, expert_perm, cap: int | None):
 
     # each lane's row: (expert, slot) when kept, else a dump row of its own
     n_rows = E * r.cap
-    srow = torch.where(r.keep, r.se * r.cap + r.pos,
-                       n_rows + torch.arange(G * K, device=x.device))
+    dump = torch.arange(G * K, device=x.device)
+    srow = torch.where(r.keep, r.se * r.cap + r.pos, n_rows + dump)
     row = torch.empty_like(srow)
     row[r.order] = srow                                    # lane order
+    ecomm, ccomm = _expert_slots(ep, E, r.cap, D, cap)
+    if xl is not None:
+        xf = xl.reshape(G, D)
+    elif ecomm is not None:
+        xf = DA.copy_to(xf, ecomm)
     lanes = xf[:, None].expand(G, K, D).reshape(G * K, D)
-    xe = x.new_zeros((n_rows + G * K, D))
-    xe[row] = lanes
-    xe = xe[:n_rows].view(E, r.cap, D)
-    h = nn.functional.silu(torch.bmm(xe, p["we_gate"])) * \
-        torch.bmm(xe, p["we_up"])
-    ye = torch.bmm(h, p["we_down"])                        # [E, cap, D]
+    # the rank's block [e0, e0 + El) x [c0, c0 + cl) of xe (all of it
+    # but on a mesh)
+    El, e0 = (E, 0) if ecomm is None else (E // ecomm.size, ecomm.rank)
+    cl, c0 = (r.cap, 0) if ccomm is None else (r.cap // ccomm.size,
+                                               ccomm.rank)
+    e0, c0 = e0 * El, c0 * cl
+    brow = row
+    if (El, cl) != (E, r.cap):
+        mine = (r.keep & (r.se >= e0) & (r.se < e0 + El) & (r.pos >= c0)
+                & (r.pos < c0 + cl))
+        brow = torch.empty_like(row)
+        brow[r.order] = torch.where(mine, (r.se - e0) * cl + r.pos - c0,
+                                    El * cl + dump)
+    ye = _experts(p, _scatter(lanes, brow, El * cl).view(El, cl, D))
+    if ccomm is not None:
+        ye = DA.gather([ye], [1], ccomm)[0]
+    if ecomm is not None:
+        ye = DA.gather([ye], [0], ecomm, reduce=False)[0]
     contrib = nn.functional.pad(ye.reshape(n_rows, D), (0, 0, 0, G * K))[row]
     w = r.topv.reshape(G * K).to(x.dtype)
     return (contrib * w[:, None]).view(G, K, D).sum(dim=1).view(B, S, D), aux
 
 
-def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
+def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None,
+              ep: ExpertParallel | None = None, gather_rows: bool = False):
     """Sort-based capacity dispatch (no [G, E, C] one-hot), port of the
     JAX ``moe_apply``: tokens sort by chosen expert into ``cap`` slots an
     expert (lanes past it are dropped), the batched expert products, then
@@ -513,12 +620,30 @@ def moe_apply(p, x, cfg: ArchConfig, expert_perm=None, plan=None):
     ``plan`` (a mesh plan with whole weights) changes nothing computed, as
     in the JAX function, whose plan only constrains layouts; the plan's
     ``moe_local_dispatch`` is `moe_apply_local_dispatch`, which the
-    caller picks (`local_dispatch`). On a mesh whose ranks hold parts of
-    the batch, the caller gathers the rows first: the capacity is
-    batch-global."""
-    out, aux = _dispatch(p, x, cfg, expert_perm, None)
+    caller picks (`local_dispatch`). ``gather_rows``: ``x`` is this
+    rank's rows of a batch whose rows split over ``plan``'s "data"; the
+    routed experts take every rank's rows, gathered (the capacity is
+    batch-global; the backward sums the rows' gradients over "data"),
+    and the result is the rank's rows, the shared expert computed on
+    those alone. ``ep`` (the train step's weight shards) splits the
+    expert products (`_dispatch`; where the experts split, the lanes'
+    rows are copied to the "model" ranks before the gather, so the
+    backward sums the rank's rows alone over "model") and the shared
+    expert (`ExpertParallel`)."""
+    xs, xl = x, None
+    if gather_rows:
+        if ep is not None and ep.experts:
+            xs, xl = DA.gather([x, DA.copy_to(x, plan.model)], [0, 0],
+                               plan.data)
+        else:
+            xs = DA.gather([x], [0], plan.data)[0]
+    out, aux = _dispatch(p, xs, cfg, expert_perm, None, ep, xl=xl)
+    if gather_rows:
+        b = x.shape[0]
+        out = out[plan.data.rank * b:(plan.data.rank + 1) * b]
     if cfg.moe.n_shared:
-        out = out + mlp_apply(p["shared"], x)
+        out = out + mlp_apply(p["shared"], x,
+                              ep.shared_comm() if ep is not None else None)
     return out, aux
 
 
@@ -532,7 +657,8 @@ def local_dispatch(plan, batch: int) -> bool:
 
 
 def moe_apply_local_dispatch(p, x, cfg: ArchConfig, expert_perm, plan,
-                             rows_whole: bool = False):
+                             rows_whole: bool = False,
+                             ep: ExpertParallel | None = None):
     """The JAX ``moe_apply_local_dispatch``: each data-parallel shard of
     the batch routes its own rows (top-k, sort, capacity slots, scatter,
     the expert products and the combine) into ``cap_local = max(8,
@@ -544,7 +670,10 @@ def moe_apply_local_dispatch(p, x, cfg: ArchConfig, expert_perm, plan,
     (out, aux), aux the mean of the shards' Switch balance losses (the JAX
     ``pmean`` over every mesh axis, whose "model" ranks hold their data
     shard's value), over "data" by ``dist.autograd.mean_over``, which
-    the train step differentiates; plus the shared expert."""
+    the train step differentiates; plus the shared expert. Under ``ep``
+    the rank's capacity is its own shard's, which JAX re-shards to
+    capacity over "data" as it stands, so a rank computes its experts of
+    its own ``xe`` and gathers ``ye`` over "model" only."""
     mo = cfg.moe
     ndp = plan.dp_size()
     B, S, _ = x.shape
@@ -552,14 +681,15 @@ def moe_apply_local_dispatch(p, x, cfg: ArchConfig, expert_perm, plan,
     cap = max(8, int(math.ceil(G * mo.top_k / mo.n_experts
                                * mo.capacity_factor / ndp)))
     if rows_whole:
-        outs, auxs = zip(*(_dispatch(p, xs, cfg, expert_perm, cap)
+        outs, auxs = zip(*(_dispatch(p, xs, cfg, expert_perm, cap, ep)
                            for xs in x.chunk(ndp)))
         out, aux = torch.cat(outs), torch.stack(auxs).mean()
     else:
-        out, aux = _dispatch(p, x, cfg, expert_perm, cap)
+        out, aux = _dispatch(p, x, cfg, expert_perm, cap, ep)
         aux = DA.mean_over(aux, plan.data)
     if mo.n_shared:
-        out = out + mlp_apply(p["shared"], x)
+        out = out + mlp_apply(p["shared"], x,
+                              ep.shared_comm() if ep is not None else None)
     return out, aux
 
 

@@ -94,8 +94,9 @@ def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
     outside training. ``plan`` (a mesh plan with whole weights) changes
     nothing computed, as in the JAX function, whose plan only constrains
     layouts (none of its flags reaches Mamba). A mesh's train step gathers
-    its weights whole on every rank (tensor-parallel compute for the
-    recurrent mixers is item 14m)."""
+    its weights whole on every rank: the recurrent mixers are the only
+    layers it computes whole over "model" (tensor-parallel compute for
+    them is item 14m's second part)."""
     mb = cfg.mamba
     B, S, D = x.shape
     di = mb.expand * D

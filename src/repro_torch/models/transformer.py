@@ -67,24 +67,32 @@ batch divides the data-parallel size) and holds each weight as its shard
 (`materialize_lm` with ``plan``). Each block's
 weights come from ``common.mesh_weights`` inside the block's remat
 checkpoint, so an FSDP gather over "data" is made again in the recompute
-and no gathered weight outlives its block. Attention and the SwiGLU MLP
-are Megatron tensor-parallel over "model" where ``Plan.constraint``
-splits their heads or hidden dim (`_tp_of`): the input copied to the
-"model" ranks (``dist.autograd.copy_to``), the column-parallel
-projections on the rank's heads or hidden slice, the row-parallel output
-summed over "model" in rank order (``sum_over``). Where "model" divides
-the heads but not the kv heads, the kv projections are gathered whole and
-each rank takes the kv heads its query heads read (``h // g``). The
-embedding and the head are vocab-parallel where the vocab splits: a
-rank's rows of the table, the lookups summed over "model"; the CE's max,
-sum of exponentials and label logit combined over "model"
-(`_ce_chunk_mesh`). Every other layer (MLA, MoE, the recurrent mixers,
-the encoder, the cross blocks, ``vis_proj``) gathers its weights whole and
-computes the same on every "model" rank (tensor-parallel compute for them
-is ROADMAP.md Queue A item 14m). A MoE layer gathers the rows over "data"
-first (its capacity is batch-global), and its balance loss, whole on
-every "data" rank, enters each rank's loss divided by the data-parallel
-size; the CE is normalised by the global label count.
+and no gathered weight outlives its block. Every layer that JAX's layout
+splits over "model" computes tensor-parallel there, where
+``Plan.constraint`` splits its activation and the resolver its weights
+the same way (`_tp_of`). Attention, the cross blocks and the encoder's
+attention, and the SwiGLU MLPs (the encoder's and the shared expert's
+too) are Megatron's: the input copied to the "model" ranks
+(``dist.autograd.copy_to``), the column-parallel projections on the
+rank's heads or hidden slice, the row-parallel output summed over
+"model" in rank order (``sum_over``). Where "model" divides the heads
+but not the kv heads, the kv projections are gathered whole and each
+rank takes the kv heads its query heads read (``h // g``). MLA runs the
+rank's heads of ``w_uq``, ``w_uk``, ``w_uv`` and ``wo``; its query
+bottleneck and compressed keys, which every rank computes whole, are
+copied to the ranks' heads. A MoE layer computes its experts over
+"model" on its capacity slots over "data" (``layers.ExpertParallel``,
+the JAX layout of the dispatch buffer) and gathers the experts' outputs
+whole for its own combine. The embedding and the head are vocab-parallel
+where the vocab splits: a rank's rows of the table, the lookups summed
+over "model"; the CE's max, sum of exponentials and label logit combined
+over "model" (`_ce_chunk_mesh`). Only the recurrent mixers gather their
+weights whole and compute the same on every "model" rank (ROADMAP.md
+Queue A item 14m, its second part); ``vis_proj`` has no "model" dim. A
+MoE layer gathers the rows over "data" first (its capacity is
+batch-global), and its balance loss, whole on every "data" rank, enters
+each rank's loss divided by the data-parallel size; the CE is
+normalised by the global label count.
 
 The plan's flags that change the computation act in train and serving
 alike, as the JAX package's do. ``attn_seq`` (`attn_flags`): where
@@ -635,17 +643,25 @@ def _apply_attn(p, x, cfg, mode, positions, cache, pos, pages=None,
 # MLA
 # ---------------------------------------------------------------------------
 def _apply_mla(p, x, cfg, mode, positions, cache, pos, pages=None,
-               sh=None):
+               sh=None, comm=None):
     """One MLA mixer. ``cache`` is this layer's ``{"c_kv", "k_rope"}``
-    (views into the stacked cache), updated in place."""
-    q_nope, q_rope = L.mla_project_q(p, x, cfg, positions)
+    (views into the stacked cache), updated in place. ``comm`` (training
+    on a mesh, MLA's heads over "model"): ``p`` holds the rank's heads of
+    ``w_uq``, ``w_uk``, ``w_uv`` and ``wo``; the query bottleneck and the
+    compressed keys, which every rank computes whole, are copied to the
+    ranks of ``comm`` where its heads take them, and the row-parallel
+    output is summed over ``comm``."""
+    q_nope, q_rope = L.mla_project_q(p, x, cfg, positions, comm)
     c_new, kr_new = L.mla_compress_kv(p, x, cfg, positions)
     # the plan's mla_flash: the chunked absorbed form in train and prefill
     mla = (L.mla_attention_flash if sh is not None
            and sh.plan.rules.get("mla_flash") else L.mla_attention)
     if mode == "train":
-        o = mla(p, q_nope, q_rope, c_new, kr_new, cfg, causal=True)
-        return L.mla_output(p, o, cfg), None
+        if comm is not None:
+            c_new, kr_new = DA.copy_to(c_new, comm), DA.copy_to(kr_new, comm)
+        o = L.mla_output(p, mla(p, q_nope, q_rope, c_new, kr_new, cfg,
+                                causal=True), cfg)
+        return (o if comm is None else DA.sum_over(o, comm)), None
     if mode == "prefill":
         o = mla(p, q_nope, q_rope, c_new, kr_new, cfg, causal=True)
         for name, new in (("c_kv", c_new), ("k_rope", kr_new)):
@@ -746,7 +762,8 @@ def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     if spec.mixer in _RECURRENT:
         return _apply_recurrent(spec, p, x, cfg, mode, cache, plan)
     if spec.mixer == "mla":
-        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh)
+        return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh,
+                          plan.model if tp is not None and tp.mla else None)
     seq, pbf16 = (None, False) if mode == "decode" else \
         attn_flags(cfg, plan, *x.shape[:2])
     if tp is not None and tp.attn:
@@ -763,19 +780,39 @@ def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                        seq=seq, p_bf16=pbf16)
 
 
-def _cross_attention(p, x, enc_out, cfg):
+def _cross_attention(p, x, enc_out, cfg, comm=None, kv=None):
     """The cross block: ``normx``, then non-causal attention from ``x`` to
     the encoder's output ``enc_out`` [B, T, d_model] in plain tensor ops
     (queries and keys of different lengths, which the flash kernel does
     not take), the keys in one chunk of T. The JAX package chunks them by
     ``gcd(k_chunk, T)``: 4 at whisper's 1,500 frames, 375 steps of the
     online softmax's loop, which only reorder its float sums and took
-    0.95 of a decode step on an H100."""
-    hx = _norm(p["normx"], x, cfg)
-    q, k, v = L.qkv_project(p["cross"], hx, enc_out, cfg)
-    o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
-                            k_chunk=enc_out.shape[1])
-    return _attn_out(p["cross"], o)
+    0.95 of a decode step on an H100. ``comm`` and ``kv`` (training on a
+    mesh, `_TP`'s ``cross`` and ``cross_kv``): Megatron over the ranks of
+    ``comm``, as `_tp_attention`."""
+    def attend(q, k, v):
+        return L.chunked_attention(q, k, v, causal=False,
+                                   q_chunk=cfg.q_chunk,
+                                   k_chunk=enc_out.shape[1])
+    return _tp_attention(p["cross"], _norm(p["normx"], x, cfg), enc_out,
+                         cfg, comm, kv, attend)
+
+
+def _tp_attention(p, x, xkv, cfg, comm, kv, attend):
+    """``attend(q, k, v)``'s output through ``wo``, q from ``x`` and k, v
+    from ``xkv``. With ``comm`` (Megatron over "model", ``p`` the rank's
+    heads): ``x`` and ``xkv`` copied to the ranks (``copy_to``), the
+    column-parallel projections on the rank's heads (``kv``, where the kv
+    projections are whole, the index of the kv heads those heads read),
+    the row-parallel ``wo`` summed over ``comm``."""
+    if comm is not None:
+        x = DA.copy_to(x, comm)
+        xkv = x if xkv is None else DA.copy_to(xkv, comm)
+    q, k, v = L.qkv_project(p, x, x if xkv is None else xkv, cfg)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
+    o = _attn_out(p, attend(q, k, v))
+    return o if comm is None else DA.sum_over(o, comm)
 
 
 def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
@@ -787,38 +824,39 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     condition, `layers.local_dispatch`) a MoE layer dispatches this
     rank's rows alone; otherwise, where the rows split over "data"
     (``sh.rows``), it gathers them first: its capacity is batch-global.
-    ``tp`` (a `_TP`, training on a mesh) runs the attention or the MLP
-    tensor-parallel on ``p``'s shards."""
+    ``tp`` (a `_TP`, training on a mesh) runs the attention, MLA, the
+    cross block, the MLP or the MoE layer tensor-parallel on ``p``'s
+    shards."""
     aux = torch.zeros((), dtype=F32, device=x.device)
+    model = sh.plan.model if sh is not None else None
     h = _norm(p["norm1"], x, cfg)
     mix, new_cache = _apply_mixer(spec, p["mixer"], h, cfg, mode, positions,
                                   cache, pos, pages, sh, tp)
     x = x + mix
     if enc_out is not None:
-        x = x + _cross_attention(p, x, enc_out, cfg)
+        cross = tp is not None and tp.cross
+        x = x + _cross_attention(p, x, enc_out, cfg,
+                                 model if cross else None,
+                                 tp.cross_kv if cross else None)
     if spec.ffn == "none":
         return x, new_cache, aux
     h = _norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":
         plan = sh.plan if sh is not None else None
         rows = sh.rows if sh is not None else None
+        ep = tp.ep if tp is not None else None
         if L.local_dispatch(plan, h.shape[0] * (rows[1] if rows else 1)):
             out, a = L.moe_apply_local_dispatch(p["ffn"], h, cfg,
                                                 expert_perm, plan,
-                                                rows_whole=rows is None)
-        elif rows is not None:
-            # the backward sums the rows' gradients over "data"
-            hs = DA.gather([h], [0], sh.plan.data)[0]
-            out, a = L.moe_apply(p["ffn"], hs, cfg, expert_perm, plan)
-            out = _rows(out, sh)
+                                                rows_whole=rows is None,
+                                                ep=ep)
         else:
-            out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm, plan)
+            out, a = L.moe_apply(p["ffn"], h, cfg, expert_perm, plan, ep,
+                                 gather_rows=rows is not None)
         aux = aux + a
-    elif tp is not None and tp.mlp:
-        out = DA.sum_over(L.mlp_apply(p["ffn"], DA.copy_to(
-            h, sh.plan.model)), sh.plan.model)
     else:
-        out = L.mlp_apply(p["ffn"], h)
+        out = L.mlp_apply(p["ffn"], h,
+                          model if tp is not None and tp.mlp else None)
     return x + out, new_cache, aux
 
 
@@ -862,17 +900,23 @@ def _encoder_forward(model: LM, frames, cfg: ArchConfig,
     return _norm(enc.final_norm, x, cfg)
 
 
-def _enc_layer(blk, x, cfg: ArchConfig, train: bool):
-    """One encoder layer of ``_encoder_forward``."""
-    h = _norm(blk.norm1, x, cfg)
-    q, k, v = L.qkv_project(blk.mixer, h, h, cfg)
-    if train:
-        o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
-                                k_chunk=cfg.k_chunk)
-    else:
-        o = L.flash_attention(q, k, v, causal=False)
-    x = x + _attn_out(blk.mixer, o)
-    return x + L.mlp_apply(blk.ffn, _norm(blk.norm2, x, cfg))
+def _enc_layer(blk, x, cfg: ArchConfig, train: bool, comm=None, tp=None):
+    """One encoder layer of ``_encoder_forward``. ``comm`` and ``tp``
+    (training on a mesh, the "model" comm and the layer's `_TP`): its
+    attention and MLP Megatron tensor-parallel where ``tp`` splits
+    them."""
+    def attend(q, k, v):
+        if train:
+            return L.chunked_attention(q, k, v, causal=False,
+                                       q_chunk=cfg.q_chunk,
+                                       k_chunk=cfg.k_chunk)
+        return L.flash_attention(q, k, v, causal=False)
+    attn = tp is not None and tp.attn
+    x = x + _tp_attention(blk.mixer, _norm(blk.norm1, x, cfg), None, cfg,
+                          comm if attn else None, tp.kv if attn else None,
+                          attend)
+    return x + L.mlp_apply(blk.ffn, _norm(blk.norm2, x, cfg),
+                           comm if tp is not None and tp.mlp else None)
 
 
 def _store_enc_out(cache, enc_out) -> None:
@@ -983,6 +1027,11 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
 # ---------------------------------------------------------------------------
 # training on a mesh
 # ---------------------------------------------------------------------------
+# MLA's leaves that hold its heads (the rest every "model" rank holds whole)
+_MLA_HEADS = ("w_uq", "w_uk", "w_uv", "wo")
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
 @dataclasses.dataclass(frozen=True)
 class _TP:
     """A block's tensor-parallel parts on a mesh: ``attn`` (its attention's
@@ -990,61 +1039,122 @@ class _TP:
     with the heads: the index, into the kv heads gathered whole, of those
     this rank's query heads read; a slice where they fall in equal
     groups, else one kv head a query head), ``mlp`` (its SwiGLU hidden
-    dim over "model") and ``seq`` (its attention sequence-parallel,
+    dim over "model"), ``seq`` (its attention sequence-parallel,
     `attn_flags`: every rank's q, k and v projections whole, their
-    gradients summed over "model")."""
+    gradients summed over "model"), ``mla`` (MLA's heads over "model"),
+    ``cross`` and ``cross_kv`` (the cross block's heads, as ``attn`` and
+    ``kv``) and ``ep`` (a MoE layer's `layers.ExpertParallel`)."""
     attn: bool = False
     kv: slice | list | None = None
     mlp: bool = False
     seq: bool = False
+    mla: bool = False
+    cross: bool = False
+    cross_kv: slice | list | None = None
+    ep: L.ExpertParallel | None = None
 
     def how(self, name: str) -> str:
         """``common.mesh_weights``'s mode of the block's leaf ``name``."""
         head, _, leaf_ = name.partition(".")
-        if self.attn and head == "mixer":
-            return ("diff" if self.kv is not None and leaf_ in
-                    ("wk", "wv", "bk", "bv") else "shard")
-        if self.seq and head == "mixer" and leaf_ != "wo":
-            return "diff"
-        if self.mlp and head == "ffn":
-            return "shard"
+        if head == "mixer":
+            if self.attn:
+                return ("diff" if self.kv is not None
+                        and leaf_ in _KV_LEAVES else "shard")
+            if self.mla and leaf_ in _MLA_HEADS:
+                return "shard"
+            if self.seq and leaf_ != "wo":
+                return "diff"
+        if head == "cross" and self.cross:
+            return ("diff" if self.cross_kv is not None
+                    and leaf_ in _KV_LEAVES else "shard")
+        if head == "ffn":
+            if self.mlp:
+                return "shard"
+            if self.ep is not None and (
+                    (self.ep.experts and leaf_.startswith("we_"))
+                    or (self.ep.shared and leaf_.startswith("shared."))):
+                return "shard"
         return "same"
 
 
-def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int) -> _TP:
-    """Which of ``block``'s layers run tensor-parallel: attention where the
-    JAX layout splits q's heads over "model" (``plan.constraint(q,
-    "batch", None, "heads", None)``) and the weights' heads dims with
-    them, the MLP where it splits the hidden dim."""
+def _attn_tp(ps: dict, prefix: str, cfg: ArchConfig, plan, B: int, S: int):
+    """(heads over "model", kv index) of the attention leaves ``prefix``.*
+    (see `_TP`): the heads split where the JAX layout splits q's heads
+    (``plan.constraint(q, "batch", None, "heads", None)``) and the
+    weights' heads dims with them."""
     m = plan.shape()["model"]
+    H, KV, DH = cfg.n_heads, cfg.n_kv, cfg.d_head
+    if not (plan.splits(plan.constraint((B, S, H, DH), "batch", None,
+                                        "heads", None), 2, "model")
+            and plan.splits(ps[f"{prefix}.wq"], 1, "model")
+            and plan.splits(ps[f"{prefix}.wo"], 0, "model")):
+        return False, None
+    if plan.splits(plan.constraint((B, S, KV, DH), "batch", None,
+                                   "kv_heads", None), 2, "model") \
+            and plan.splits(ps[f"{prefix}.wk"], 1, "model"):
+        return True, None
+    hl, g, r = H // m, H // KV, plan.model.rank
+    idx = [(r * hl + j) // g for j in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    equal = hl % n == 0 and all(i - lo == j // (hl // n)
+                                for j, i in enumerate(idx))
+    return True, (slice(lo, lo + n) if equal else idx)
+
+
+def _mlp_tp(ps: dict, prefix: str, F: int, plan, B: int, S: int) -> bool:
+    """Whether the SwiGLU leaves ``prefix``.* of hidden dim ``F`` run
+    Megatron over "model": where JAX's ``mlp_apply`` constraint splits the
+    hidden dim and the weights' with it."""
+    return (plan.splits(plan.constraint((B, S, F), "batch", None, "mlp"), 2,
+                        "model")
+            and plan.splits(ps[f"{prefix}.w_gate"], 1, "model")
+            and plan.splits(ps[f"{prefix}.w_down"], 0, "model"))
+
+
+def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int,
+           encoder: bool = False) -> _TP:
+    """Which of ``block``'s layers run tensor-parallel, each where the JAX
+    layout splits it and the weights' dims with it: attention and the
+    cross block where it splits q's heads, MLA where it splits
+    ``q_nope``'s heads (``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` split by
+    heads), the MLP and the shared expert where it splits the hidden dim,
+    a MoE layer's experts where ``xe``'s constraint splits them (its
+    capacity over "data" is decided at its shape, `layers._dispatch`).
+    An ``encoder`` layer takes none of the decoder's plan flags."""
+    m = plan.shape()["model"]
+    spec = block.spec
+    moe = spec.ffn == "moe"
     if m == 1:
-        return _TP()
+        return _TP(ep=L.ExpertParallel(plan) if moe else None)
     ps = C.param_pspecs(block, plan)
-    attn = mlp = False
-    kv = None
-    seq = (block.spec.mixer == "attn"
+    attn, kv, mla, cross, cross_kv = False, None, False, False, None
+    seq = (not encoder and spec.mixer == "attn"
            and attn_flags(cfg, plan, B, S)[0] is not None)
-    if block.spec.mixer == "attn":
-        H, KV, DH = cfg.n_heads, cfg.n_kv, cfg.d_head
-        attn = (plan.splits(plan.constraint((B, S, H, DH), "batch", None,
-                                            "heads", None), 2, "model")
-                and plan.splits(ps["mixer.wq"], 1, "model")
-                and plan.splits(ps["mixer.wo"], 0, "model"))
-        if attn and not (plan.splits(plan.constraint(
-                (B, S, KV, DH), "batch", None, "kv_heads", None), 2,
-                "model") and plan.splits(ps["mixer.wk"], 1, "model")):
-            hl, g, r = H // m, H // KV, plan.model.rank
-            idx = [(r * hl + j) // g for j in range(hl)]
-            lo, n = idx[0], idx[-1] + 1 - idx[0]
-            equal = hl % n == 0 and all(i - lo == j // (hl // n)
-                                        for j, i in enumerate(idx))
-            kv = slice(lo, lo + n) if equal else idx
-    if block.spec.ffn == "mlp":
-        mlp = (plan.splits(plan.constraint((B, S, cfg.d_ff), "batch", None,
-                                           "mlp"), 2, "model")
-               and plan.splits(ps["ffn.w_gate"], 1, "model")
-               and plan.splits(ps["ffn.w_down"], 0, "model"))
-    return _TP(attn=attn, kv=kv, mlp=mlp, seq=seq)
+    if spec.mixer == "attn":
+        attn, kv = _attn_tp(ps, "mixer", cfg, plan, B, S)
+    elif spec.mixer == "mla":
+        mc = cfg.mla
+        mla = (plan.splits(plan.constraint(
+            (B, S, cfg.n_heads, mc.d_nope), "batch", None, "heads", None),
+            2, "model")
+            and all(plan.splits(ps[f"mixer.{n}"], 1, "model")
+                    for n in ("w_uq", "w_uk", "w_uv"))
+            and plan.splits(ps["mixer.wo"], 0, "model"))
+    if block.has_cross:
+        cross, cross_kv = _attn_tp(ps, "cross", cfg, plan, B, S)
+    mlp = spec.ffn == "mlp" and _mlp_tp(ps, "ffn", cfg.d_ff, plan, B, S)
+    ep = None
+    if moe:
+        mo = cfg.moe
+        ep = L.ExpertParallel(
+            plan,
+            experts=(plan.splits(plan.constraint(
+                (mo.n_experts, 1, cfg.d_model), "experts", "batch", None),
+                0, "model") and plan.splits(ps["ffn.we_gate"], 0, "model")),
+            shared=bool(mo.n_shared) and _mlp_tp(
+                ps, "ffn.shared", mo.n_shared * mo.d_ff_expert, plan, B, S))
+    return _TP(attn=attn, kv=kv, mlp=mlp, seq=seq, mla=mla, cross=cross,
+               cross_kv=cross_kv, ep=ep)
 
 
 def _train_rows(plan, B: int) -> Shards:
@@ -1098,8 +1208,9 @@ def _mesh_block(block, x, cfg, positions, expert_perm, enc_out, sh, tp):
     return x, aux
 
 
-def _mesh_enc_layer(blk, x, cfg, plan):
-    return _enc_layer(C.mesh_weights(blk, plan), x, cfg, True)
+def _mesh_enc_layer(blk, x, cfg, plan, tp):
+    return _enc_layer(C.mesh_weights(blk, plan, tp.how), x, cfg, True,
+                      plan.model, tp)
 
 
 def _forward_train_mesh(model: "LM", tokens, cfg: ArchConfig, plan, remat,
@@ -1135,7 +1246,8 @@ def _forward_train_mesh(model: "LM", tokens, cfg: ArchConfig, plan, remat,
         enc_out = enc_frames.to(top.pos.dtype) + \
             top.pos[:enc_frames.shape[1]]
         for blk in enc.layers:
-            enc_out = run(_mesh_enc_layer, blk, enc_out, cfg, plan)
+            enc_out = run(_mesh_enc_layer, blk, enc_out, cfg, plan, _tp_of(
+                blk, cfg, plan, *enc_out.shape[:2], encoder=True))
         enc_out = _norm(top.final_norm, enc_out, cfg)
     aux = torch.zeros((), dtype=F32, device=dev)
     for _, block in model.blocks():

@@ -3,7 +3,7 @@ counter (``launch.op_cost.OpCounter``).
 
 With no counter active, which is every run that computes, these are plain
 Python: ``chunks`` is ``range(0, total, size)``, ``outputs`` returns its
-list and ``kernel`` does nothing. Under a counter (on meta tensors, where
+list and ``kernel`` and ``region`` do nothing. Under a counter (on meta tensors, where
 only shapes exist), outside autograd (prefill and decode; a training
 step's loops run whole) a run of equal chunks runs its first chunk once
 and the counter multiplies that chunk's counts by the run's length, the
@@ -65,3 +65,10 @@ def kernel(name: str, reads: int, writes: int):
     c = active()
     return contextlib.nullcontext() if c is None else \
         c.kernel(name, reads, writes)
+
+
+def region(name: str):
+    """Around a part of the model code whose products the counter also
+    counts by ``name`` (``region_flops``)."""
+    c = active()
+    return contextlib.nullcontext() if c is None else c.region(name)

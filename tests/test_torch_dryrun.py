@@ -568,7 +568,7 @@ def jax_cell(jax_cells):
 def test_run_cell_against_jax(jax_cell):
     got = dryrun.run_cell(*JAX_CELL, multi_pod=False)
     assert set(got) == set(jax_cell) | {"counted_on", "coords",
-                                        "kernel_flops"}
+                                        "kernel_flops", "region_flops"}
     assert got["status"] == jax_cell["status"] == "ok"
     for k in ("arch", "shape", "mesh", "n_chips", "model_flops",
               "model_flops_per_chip"):
@@ -640,7 +640,7 @@ def _flag_cell(flag: str):
 @pytest.mark.parametrize("flag", ["train_4k", "moe_local",
                                   "seq_parallel_attn", "attn_p_bf16",
                                   "mla_flash"])
-def test_run_cell_refusals_name_14i(flag):
+def test_flags_and_train_cells_count_as_they_run(flag):
     """The flags that change the computation count as they run: with
     ``moe_local`` a deepseek-v2 decode drops the rows' all-gather before
     each MoE layer and adds the balance loss's all-reduce; with
@@ -689,6 +689,42 @@ def test_run_cell_refusals_name_14i(flag):
     # a rank's state: 14 B a parameter, split over the 256 ranks but for
     # the leaves a dim of which the mesh does not divide
     assert r["memory"]["argument_size_in_bytes"] < 14 * n_params / 64
+
+
+def _smoke_train_count(arch: str, mesh: dict) -> dict:
+    """The counts of the mesh train step of ``arch``'s smoke config, 4
+    rows of 16 tokens, on the rank at the origin of an abstract mesh of
+    ``mesh``."""
+    cfg = treg.get_config(arch).smoke()
+    plan = Plan.abstract(mesh)
+    spec = TS.abstract_inputs(cfg, "train", 4, 16, plan)
+    _, rec = op_cost.count(TS.make_train_step(cfg, plan),
+                           *TS.rank_args(spec, plan))
+    return rec
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "deepseek-v2-236b",
+                                  "jamba-v0.1-52b"])
+def test_train_step_splits_expert_products_over_model_and_data(arch):
+    """The smoke configs' mesh train step on small abstract meshes: a
+    rank's expert products (``region_flops["moe_experts"]``, the forward
+    and the remat recompute) are 1/(model x data) of the whole-expert
+    count of a (1, 1) mesh, whose dispatch is the same batch-global one
+    (4 experts and 20 or 40 slots divide by 2 and 4), that count the
+    products of E x cap slots at d_model x d_ff_expert three times over,
+    twice a MoE layer; the rank's products in all fall with them."""
+    cfg = treg.get_config(arch).smoke()
+    mo = cfg.moe
+    whole = _smoke_train_count(arch, {"data": 1, "model": 1})
+    cap = max(8, -(-64 * mo.top_k * 5 // (4 * mo.n_experts)))
+    n_moe = sum(s.ffn == "moe" for s in cfg.pattern) * cfg.n_superblocks
+    assert whole["region_flops"]["moe_experts"] == \
+        2 * n_moe * 3 * 2 * mo.n_experts * cap * cfg.d_model * mo.d_ff_expert
+    for data, model in ((2, 2), (2, 4)):
+        got = _smoke_train_count(arch, {"data": data, "model": model})
+        assert data * model * got["region_flops"]["moe_experts"] == \
+            whole["region_flops"]["moe_experts"], (data, model)
+        assert got["flops"] < whole["flops"]
 
 
 def test_seq_parallel_attention_flops_against_hlo_cost(jax_cells):

@@ -24,7 +24,9 @@ run to run (bit for bit). bf16 steps: the loss within 2^-8 relative of
 the JAX sharded step's (bf16 carries 8 significant bits; JAX's own
 sharded step departs from its one-device step by 1.7e-4).
 """
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +40,7 @@ from repro.models import common as JC
 from repro.models import transformer as JT
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config as tget
+from repro_torch.configs.base import LayerSpec
 from repro_torch.configs.registry import list_configs
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.dist.spawn import run_ranks
@@ -60,6 +63,18 @@ TIMEOUT = 300.0
 # projections split mid-head by the resolver and gathered) nor the 2 kv
 # heads, while the MLP and the vocab still split
 SIX_HEADS = "qwen2-1.5b/6-heads"
+# llama4-scout's smoke config three ways on (2, 2), each against one
+# device: a capacity of 8 slots (capacity factor 0.25) that drops half of
+# the 64 lanes; 6 experts at top-2, whose 27 slots "data" does not divide
+# (the resolver keeps the capacity whole, the experts split 3 a rank); 5
+# experts, which "model" does not divide (every expert whole, the
+# capacity split)
+MOE = "llama4-scout-17b-16e"
+MOE_VARIANTS = {f"{MOE}/drops": dict(capacity_factor=0.25),
+                f"{MOE}/6-experts": dict(n_experts=6, top_k=2),
+                f"{MOE}/5-experts": dict(n_experts=5, top_k=2)}
+# the configs whose tensor-parallel parts the (2, 2) ranks report
+TP_ARCHS = (MOE, "deepseek-v2-236b", "jamba-v0.1-52b", "whisper-tiny")
 # one LR schedule for every run of a comparison
 OCFG = dict(total_steps=4, warmup=1)
 
@@ -74,9 +89,13 @@ def _one_torch_thread():
 
 def _cfg(name: str):
     """The smoke config of ``name`` (``SIX_HEADS``: qwen2's with 6
-    heads)."""
+    heads; ``MOE_VARIANTS``: llama4-scout's with its MoE changed)."""
     if name == SIX_HEADS:
         return tget(ARCH).smoke().scaled(n_heads=6)
+    if name in MOE_VARIANTS:
+        cfg = tget(MOE).smoke()
+        return cfg.scaled(moe=dataclasses.replace(cfg.moe,
+                                                  **MOE_VARIANTS[name]))
     return tget(name).smoke()
 
 
@@ -103,14 +122,48 @@ def _tensors(batch: dict) -> dict:
 # ------------------------------------------------------------- the ranks
 def _f32_step(plan, name: str):
     """``loss_and_grads`` at f32 seed-0 weights drawn as this rank's
-    shards: (loss, {name: gradient shard}, {name: local shape})."""
+    shards: (loss, {name: gradient shard}, {name: local shape}, the
+    shapes of the expert products' ``xe`` and ``we_gate`` at each call,
+    the remat recompute's included)."""
+    from repro_torch.models import layers as TL
     cfg = _cfg(name)
     model = TT.materialize_lm(cfg, 0, "cpu", plan=plan)
     model.requires_grad_(True)
-    loss, _, grads = tsteps.loss_and_grads(model, _tensors(_batch(name)),
-                                           cfg, plan)
+    real, seen = TL._experts, []
+
+    def recording(p, xe):
+        seen.append((tuple(xe.shape), tuple(p["we_gate"].shape)))
+        return real(p, xe)
+    TL._experts = recording
+    try:
+        loss, _, grads = tsteps.loss_and_grads(
+            model, _tensors(_batch(name)), cfg, plan)
+    finally:
+        TL._experts = real
     return (float(loss), {n: g.numpy() for n, g in grads.items()},
-            {n: tuple(p.shape) for n, p in model.named_parameters()})
+            {n: tuple(p.shape) for n, p in model.named_parameters()}, seen)
+
+
+def _tp_report(plan, name: str) -> dict:
+    """Each block's `_TP` (the encoder's first layer's as ``"enc0"``) as
+    plain flags, with the local shape of every weight ``mesh_weights``
+    hands the block under it."""
+    cfg = _cfg(name)
+    model = TT.materialize_lm(cfg, 0, "cpu", plan=plan)
+    blocks = [(str(k), b) for k, b in model.blocks()]
+    if cfg.encoder_layers:
+        blocks.append(("enc0", model.encoder.layers[0]))
+    out = {}
+    for key, blk in blocks:
+        tp = TT._tp_of(blk, cfg, plan, B // 2, S, encoder=key == "enc0")
+        with torch.no_grad():
+            w = TC.mesh_weights(blk, plan, tp.how)
+        flags = dict(attn=tp.attn, mlp=tp.mlp, mla=tp.mla, cross=tp.cross,
+                     experts=tp.ep is not None and tp.ep.experts,
+                     shared=tp.ep is not None and tp.ep.shared)
+        out[key] = (flags, {n: tuple(TC.leaf(w, n).shape)
+                            for n, _, _ in TC.module_specs(blk)})
+    return out
 
 
 def _steps(plan, cfg, state, n: int) -> list:
@@ -152,6 +205,7 @@ def _rank(rank, data, model, d):
     out = {"coords": plan.coords()}
     out["f32"] = {n: _f32_step(plan, n) for n in d["f32"]}
     if (data, model) == (2, 2):
+        out["tp"] = {n: _tp_report(plan, n) for n in TP_ARCHS}
         # the repeated step: the same state and losses bit for bit
         cfg = tget(ARCH).smoke()
         runs = []
@@ -315,10 +369,10 @@ def jax_losses(jax_proc, dirs):
 
 @pytest.fixture(scope="module")
 def mesh_2x2(jax_losses, dirs):
-    """(2, 2): the ten configs' f32 step and every run above (the JAX
-    checkpoints must exist first)."""
-    return run_ranks(_rank, 4, 2, 2, dict(dirs, f32=ARCHS),
-                     timeout=TIMEOUT)
+    """(2, 2): the ten configs' and ``MOE_VARIANTS``' f32 step and every
+    run above (the JAX checkpoints must exist first)."""
+    return run_ranks(_rank, 4, 2, 2, dict(dirs, f32=ARCHS + tuple(
+        MOE_VARIANTS)), timeout=TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -358,7 +412,7 @@ def _check_f32(out, name: str, sizes: dict):
     loss, grads = _one_device(name)
     pspecs = None
     for r in out:
-        got_loss, got, shapes = r["f32"][name]
+        got_loss, got = r["f32"][name][:2]
         assert abs(got_loss - loss) <= 1e-5 * abs(loss), (name, got_loss,
                                                           loss)
         if pspecs is None:
@@ -403,6 +457,109 @@ def test_f32_mesh_step_with_heads_model_does_not_divide(mesh_1x4):
 @pytest.mark.parametrize("name", ARCHS)
 def test_every_config_f32_step_on_2x2(mesh_2x2, name):
     _check_f32(mesh_2x2, name, {"data": 2, "model": 2})
+
+
+def _moe_slots(cfg) -> tuple[int, int]:
+    """(experts, capacity) of the global batch's dispatch, whole."""
+    mo = cfg.moe
+    return mo.n_experts, max(8, math.ceil(B * S * mo.top_k / mo.n_experts
+                                          * mo.capacity_factor))
+
+
+@pytest.mark.parametrize("name", [MOE, "deepseek-v2-236b",
+                                  "jamba-v0.1-52b"])
+def test_expert_products_are_a_ranks_block(mesh_2x2, name):
+    """On (2, 2) a rank's expert products run on E/2 experts (its
+    ``we_gate`` shard, ``d_model`` gathered over "data") and cap/2
+    capacity slots of the global batch's dispatch, once in the forward
+    and once in the remat recompute of each MoE layer."""
+    cfg = _cfg(name)
+    E, cap = _moe_slots(cfg)
+    n_moe = sum(s.ffn == "moe" for s in cfg.pattern) * cfg.n_superblocks
+    want = ((E // 2, cap // 2, cfg.d_model),
+            (E // 2, cfg.d_model, cfg.moe.d_ff_expert))
+    assert E % 2 == 0 and cap % 2 == 0
+    for r in mesh_2x2:
+        assert r["f32"][name][3] == [want] * (2 * n_moe), r["f32"][name][3]
+
+
+@pytest.mark.parametrize("name", list(MOE_VARIANTS))
+def test_moe_drops_and_resolver_fallbacks_match_one_device(mesh_2x2, name):
+    """llama4's smoke MoE on (2, 2) where lanes drop (8 slots for 64
+    lanes), where "data" does not divide the capacity (6 experts at top-2:
+    27 slots, kept whole on each rank, 3 experts a rank) and where
+    "model" does not divide the experts (5: every expert whole on each
+    rank, 16 of the 32 slots): the f32 step against one device at the
+    stated tolerances, and the shapes of the rank's expert products."""
+    cfg = _cfg(name)
+    E, cap = _moe_slots(cfg)
+    el = E // 2 if E % 2 == 0 else E
+    cl = cap // 2 if cap % 2 == 0 else cap
+    if name.endswith("drops"):
+        assert cap == 8 and cap * E < B * S * cfg.moe.top_k
+    elif name.endswith("6-experts"):
+        assert (el, cl) == (3, 27)
+    else:
+        assert (el, cl) == (5, 16)
+    for r in mesh_2x2:
+        assert set(r["f32"][name][3]) == {
+            ((el, cl, cfg.d_model), (el, cfg.d_model, cfg.moe.d_ff_expert))}
+    _check_f32(mesh_2x2, name, {"data": 2, "model": 2})
+
+
+@pytest.mark.parametrize("name", TP_ARCHS)
+def test_tp_of_splits_experts_mla_heads_encoder_and_cross(mesh_2x2, name):
+    """On (2, 2) `_tp_of` runs each block's split layers tensor-parallel:
+    llama4's attention, experts and shared expert, deepseek's MLA heads
+    (the dense layer's MLP too) and experts, jamba's experts and MLPs
+    (its Mamba mixers whole), whisper's attention, cross block and MLP
+    and its encoder's attention and MLP; ``mesh_weights`` then hands the
+    block the rank's half of each split dim (``d_model`` gathered over
+    "data") and every other weight whole."""
+    cfg = _cfg(name)
+    D, H, DH = cfg.d_model, cfg.n_heads, cfg.d_head
+    for r in mesh_2x2:
+        rep = r["tp"][name]
+        for key, (flags, shapes) in rep.items():
+            spec = (LayerSpec("attn", "mlp") if key == "enc0" else
+                    TT._dense_spec(cfg) if key.startswith("dense") else
+                    cfg.pattern[int(key) % len(cfg.pattern)])
+            want = dict(attn=spec.mixer == "attn", mlp=spec.ffn == "mlp",
+                        mla=spec.mixer == "mla",
+                        cross=bool(cfg.encoder_layers) and key != "enc0",
+                        experts=spec.ffn == "moe",
+                        shared=spec.ffn == "moe" and cfg.moe.n_shared > 0)
+            assert flags == want, (name, key, flags)
+            if spec.mixer == "attn":
+                assert shapes["mixer.wq"] == (D, H * DH // 2)
+                assert shapes["mixer.wo"] == (H * DH // 2, D)
+            if want["cross"]:
+                assert shapes["cross.wq"] == (D, H * DH // 2)
+                assert shapes["cross.wk"] == (D, cfg.n_kv * DH // 2)
+            if spec.mixer == "mla":
+                m = cfg.mla
+                assert shapes["mixer.w_uq"] == (m.q_lora,
+                                                H // 2 * (m.d_nope + m.d_rope))
+                assert shapes["mixer.w_uk"] == (m.kv_lora, H // 2 * m.d_nope)
+                assert shapes["mixer.w_uv"] == (m.kv_lora, H // 2 * m.d_v)
+                assert shapes["mixer.wo"] == (H // 2 * m.d_v, D)
+                assert shapes["mixer.w_dq"] == (D, m.q_lora)
+                assert shapes["mixer.w_dkv"] == (D, m.kv_lora)
+            if spec.mixer == "mamba":
+                assert shapes["mixer.w_in"] == (D, 4 * cfg.mamba.expand
+                                                * D // 2)
+            if spec.ffn == "mlp":
+                assert shapes["ffn.w_gate"] == (D, cfg.d_ff // 2)
+            if spec.ffn == "moe":
+                mo = cfg.moe
+                assert shapes["ffn.we_gate"] == (mo.n_experts // 2, D,
+                                                 mo.d_ff_expert)
+                assert shapes["ffn.we_down"] == (mo.n_experts // 2,
+                                                 mo.d_ff_expert, D)
+                assert shapes["ffn.router"] == (D, mo.n_experts)
+                if mo.n_shared:
+                    assert shapes["ffn.shared.w_gate"] == (
+                        D, mo.n_shared * mo.d_ff_expert // 2)
 
 
 @pytest.mark.parametrize("name", ARCHS)
