@@ -25,19 +25,20 @@ and the FSDP gathers counted as they run, the collectives of
 ``dist.autograd`` over ``MetaComm``s): attention, MLA, the MLP, the
 encoder, the cross blocks, the embedding and the head tensor-parallel
 over "model" where their dims split, a MoE layer's experts over "model"
-on its capacity slots over "data"; only the recurrent mixers whole on
-each "model" rank (``vis_proj`` has no "model" dim). ``hlo_flops`` is
-the rank's work and ``useful_flop_ratio`` (the model's FLOPs over the
-chips, against the rank's) shows the redundancy that remains; nothing is
-scaled to look like the JAX package's figures. A MoE layer gathers every
-"data" rank's rows before its dispatch (the capacity is batch-global)
-and its experts' outputs after it; ``region_flops["moe_experts"]`` holds
-the rank's expert products (forward and recompute). ``memory`` holds a
-rank's argument
-bytes (the weights or state shards, the whole batch's inputs and the
-rank's cache shard), its output bytes (updated in place: that is
-``alias_size_in_bytes``, the JAX donation) and ``peak_bytes``, the
-arguments plus the most bytes the step held at once. ``--no-donate``
+on its capacity slots over "data", Mamba on its ``d_inner`` channels and
+the mLSTM on its heads; only the sLSTM whole on each "model" rank
+(``vis_proj`` has no "model" dim). ``hlo_flops`` is the rank's work and
+``useful_flop_ratio`` (the model's FLOPs over the chips, against the
+rank's) shows the redundancy that remains; nothing is scaled to look
+like the JAX package's figures. A MoE layer gathers every "data" rank's
+rows before its dispatch (the capacity is batch-global) and its experts'
+outputs after it; ``region_flops["moe_experts"]`` holds the rank's
+expert products (forward and recompute), ``"mamba"``, ``"mlstm"`` and
+``"slstm"`` those of the recurrent mixers' bodies. ``memory`` holds a
+rank's argument bytes (the weights or state shards, the whole batch's
+inputs and the rank's cache shard), its output bytes (updated in place:
+that is ``alias_size_in_bytes``, the JAX donation) and ``peak_bytes``,
+the arguments plus the most bytes the step held at once. ``--no-donate``
 changes nothing: the port's steps always update in place.
 
 The record keeps the JAX package's keys: ``hlo_flops`` and ``hlo_bytes``

@@ -23,6 +23,17 @@ only:
 The sLSTM is one step a token: a ``[B,D] x [D,4D]`` recurrent product and
 the gates, about nineteen device launches a step on the card.
 
+Training on a mesh (``comm=``, `transformer._TP`'s ``mamba`` and
+``mlstm``) runs Mamba over "model" on its ``d_inner`` channels and the
+mLSTM on its heads, each Megatron's: the input copied to the ranks
+(``dist.autograd.copy_to``), the rank's channels or heads computed alone,
+the row-parallel output projection summed over "model" (``sum_over``).
+The sLSTM stays whole on every "model" rank: its recurrent product ``h @
+r_gates`` is dense, ``[D, 4D]`` over all of ``h``, and the resolver's
+"mlp" split of ``4D`` hands rank 0 of 2 the ``zi | zf`` gates and rank 1
+``zz | zo``, so any split of it pays an all-gather of ``h`` every token
+(4,096 a layer at ``train_4k``); it is not block-diagonal by heads.
+
 The chunk loops and the sLSTM's token loop go through
 ``utils.cost_hooks.chunks``: ``range`` in every run that computes; under
 the dry run's cost counter on meta tensors one step of a run of equal
@@ -36,6 +47,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import autograd as DA
 from repro_torch.models.common import Spec, SpecModule
 from repro_torch.utils import cost_hooks
 from repro_torch.utils.segops import cumsum_f32
@@ -85,55 +97,91 @@ class Mamba(SpecModule):
         super().__init__(mamba_shapes(cfg), device, dtype)
 
 
+def mamba_w_in_shard(w_in, comm):
+    """The rank's columns of the whole ``w_in`` [D, 2 di] under ``comm``:
+    its ``xin`` channels ``c_r = [r di/m, (r+1) di/m)`` and its ``z``
+    channels ``di + c_r``, side by side, [D, 2 di/m]. The resolver splits
+    ``2 di`` contiguously (rank 0 of 2 would hold all of ``xin``), so the
+    mesh gathers ``w_in`` whole with a backward that sums over the ranks
+    (`common.mesh_weights`' "diff") and each rank cuts its blocks here:
+    the same bytes as a gather for a computation every rank does alike,
+    whose backward (the rank's contiguous stripe) would keep the wrong
+    columns of a gradient that is non-zero only in the rank's blocks."""
+    di = w_in.shape[1] // 2
+    n = di // comm.size
+    lo = comm.rank * n
+    return torch.cat([w_in[:, lo:lo + n], w_in[:, di + lo:di + lo + n]],
+                     dim=1)
+
+
 def mamba_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MAMBA_CHUNK,
-                plan=None):
+                plan=None, comm=None):
     """x [B,S,D]. state (decode): (conv_tail [B,d_conv-1,di], h
     [B,di,d_state]). Returns (out, (new_tail, h_last f32)). The scan's
     ``[B,chunk,di,d_state]`` f32 terms are made a chunk at a time and
     contracted with C at once, so no ``[B,S,di,d_state]`` tensor is held
-    outside training. ``plan`` (a mesh plan with whole weights) changes
-    nothing computed, as in the JAX function, whose plan only constrains
-    layouts (none of its flags reaches Mamba). A mesh's train step gathers
-    its weights whole on every rank: the recurrent mixers are the only
-    layers it computes whole over "model" (tensor-parallel compute for
-    them is item 14m's second part)."""
+    outside training; the carried ``h`` is a copy of the chunk's last
+    row, which frees the chunk's terms. ``plan`` (a mesh plan with whole
+    weights) changes nothing computed, as in the JAX function, whose plan
+    only constrains layouts (none of its flags reaches Mamba).
+
+    ``comm`` (training on a mesh, where JAX's ``xz`` constraint splits
+    ``2 di`` over "model" and the weights' ``d_inner`` dims split with it):
+    rank r of m computes the channels ``c_r = [r di/m, (r+1) di/m)``, ``p``
+    holding its slices (``w_in`` its ``xin`` and ``z`` columns,
+    `mamba_w_in_shard`). ``x`` is copied to the ranks; the conv, ``dt``,
+    ``A``, the scan on ``[B, chunk, di/m, d_state]`` and the skip run on
+    the rank's channels; ``w_x`` is row-parallel, its ``[B, S, dt_rank + 2
+    d_state]`` partial products summed over ``comm`` before the scan and
+    copied back to the ranks (each rank's channels read all of ``dt_raw``,
+    B and C, so the backward sums their gradients); ``w_out`` is
+    row-parallel, summed over ``comm``."""
     mb = cfg.mamba
     B, S, D = x.shape
     di = mb.expand * D
     dt_rank = mb.dt_rank or max(1, math.ceil(D / 16))
+    if comm is not None:
+        x = DA.copy_to(x, comm)
+        di //= comm.size
 
-    xin, z = (x @ p["w_in"]).split(di, dim=-1)
-    # causal depthwise conv over S
-    tail = torch.zeros((B, mb.d_conv - 1, di), dtype=x.dtype,
-                       device=x.device) if state is None else state[0]
-    xpad = torch.cat([tail, xin], dim=1)
-    conv = sum(xpad[:, j:j + S] * p["conv_w"][j]
-               for j in range(mb.d_conv)) + p["conv_b"]
-    new_tail = xpad[:, S:]
-    xc = F.silu(conv)
+    with cost_hooks.region("mamba"):
+        xin, z = (x @ p["w_in"]).split(di, dim=-1)
+        # causal depthwise conv over S
+        tail = torch.zeros((B, mb.d_conv - 1, di), dtype=x.dtype,
+                           device=x.device) if state is None else state[0]
+        xpad = torch.cat([tail, xin], dim=1)
+        conv = sum(xpad[:, j:j + S] * p["conv_w"][j]
+                   for j in range(mb.d_conv)) + p["conv_b"]
+        new_tail = xpad[:, S:]
+        xc = F.silu(conv)
 
-    dt_raw, Bmat, Cmat = (xc @ p["w_x"]).split(
-        [dt_rank, mb.d_state, mb.d_state], dim=-1)
-    dt = F.softplus(dt_raw @ p["w_dt"] + p["b_dt"])              # [B,S,di]
-    A = -torch.exp(p["a_log"].float())                          # [di,ds]
-    dtx = dt * xc
-    h = torch.zeros((B, di, mb.d_state), dtype=F32, device=x.device) \
-        if state is None else state[1].float()
-    ys = []
-    for s0 in cost_hooks.chunks(S, chunk):
-        sl = slice(s0, s0 + chunk)
-        dA = torch.exp(dt[:, sl, :, None].float() * A)          # [B,c,di,ds]
-        dBx = dtx[:, sl, :, None].float() * Bmat[:, sl, None, :].float()
-        acum, bcum = _affine_scan(dA, dBx)
-        del dA, dBx
-        hs = bcum + acum * h[:, None]
-        del acum, bcum
-        h = hs[:, -1]
-        ys.append(torch.einsum("bsen,bsn->bse", hs, Cmat[:, sl].float()))
-        del hs
-    y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).to(x.dtype)
-    y = y + xc * p["d_skip"]
-    out = (y * F.silu(z)) @ p["w_out"]
+        dbc = xc @ p["w_x"]
+        if comm is not None:
+            dbc = DA.copy_to(DA.sum_over(dbc, comm), comm)
+        dt_raw, Bmat, Cmat = dbc.split([dt_rank, mb.d_state, mb.d_state],
+                                       dim=-1)
+        dt = F.softplus(dt_raw @ p["w_dt"] + p["b_dt"])          # [B,S,di]
+        A = -torch.exp(p["a_log"].float())                      # [di,ds]
+        dtx = dt * xc
+        h = torch.zeros((B, di, mb.d_state), dtype=F32, device=x.device) \
+            if state is None else state[1].float()
+        ys = []
+        for s0 in cost_hooks.chunks(S, chunk):
+            sl = slice(s0, s0 + chunk)
+            dA = torch.exp(dt[:, sl, :, None].float() * A)      # [B,c,di,ds]
+            dBx = dtx[:, sl, :, None].float() * Bmat[:, sl, None, :].float()
+            acum, bcum = _affine_scan(dA, dBx)
+            del dA, dBx
+            hs = bcum + acum * h[:, None]
+            del acum, bcum
+            h = hs[:, -1].clone()
+            ys.append(torch.einsum("bsen,bsn->bse", hs, Cmat[:, sl].float()))
+            del hs
+        y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).to(x.dtype)
+        y = y + xc * p["d_skip"]
+        out = (y * F.silu(z)) @ p["w_out"]
+    if comm is not None:
+        out = DA.sum_over(out, comm)
     return out, (new_tail, h)
 
 
@@ -163,19 +211,45 @@ class MLSTM(SpecModule):
         super().__init__(mlstm_shapes(cfg), device, dtype)
 
 
-def mlstm_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MLSTM_CHUNK):
+def mlstm_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MLSTM_CHUNK,
+                comm=None):
     """Chunkwise mLSTM: C_t = f_t C_{t-1} + i_t v_t k_t^T, y_t = C_t q_t /
     max(|n_t q_t|, 1). state: (C [B,H,DH,DH], n [B,H,DH]), carried in
     f32. Scores and products take f32 operands (the JAX einsums'
-    ``preferred_element_type=F32``); each chunk's output has x's dtype."""
+    ``preferred_element_type=F32``); each chunk's output has x's dtype.
+
+    ``comm`` (training on a mesh, where the weights' head dims split over
+    "model" and m divides H): rank r of m computes its H/m heads, ``p``
+    holding its column blocks of ``wq``, ``wk``, ``wv`` and ``w_og`` (whole
+    heads) and its rows of ``wo``; ``w_i``, ``w_f`` and ``b_f`` are whole
+    (a column a head) and the rank takes its heads' columns. ``x`` is
+    copied to the ranks, the state ``C [B,H/m,DH,DH]`` and ``n`` are the
+    rank's heads', and ``wo``'s row-parallel output is summed over
+    ``comm``."""
     B, S, D = x.shape
     H = cfg.n_heads
     DH = D // H
+    w_i, w_f, b_f = p["w_i"], p["w_f"], p["b_f"]
+    if comm is not None:
+        x = DA.copy_to(x, comm)
+        H //= comm.size
+        mine = slice(comm.rank * H, (comm.rank + 1) * H)
+        w_i, w_f, b_f = w_i[:, mine], w_f[:, mine], b_f[mine]
+    with cost_hooks.region("mlstm"):
+        out, st = _mlstm(p, x, w_i, w_f, b_f, H, DH, state, chunk)
+    if comm is not None:
+        out = DA.sum_over(out, comm)
+    return out, st
+
+
+def _mlstm(p, x, w_i, w_f, b_f, H: int, DH: int, state, chunk: int):
+    """`mlstm_apply`'s body on ``H`` heads of ``DH``."""
+    B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, H, DH)
     k = (x @ p["wk"]).reshape(B, S, H, DH) / math.sqrt(DH)
     v = (x @ p["wv"]).reshape(B, S, H, DH)
-    logf = F.logsigmoid((x @ p["w_f"]).float() + p["b_f"])       # [B,S,H]
-    logi = (x @ p["w_i"]).float()
+    logf = F.logsigmoid((x @ w_f).float() + b_f)                 # [B,S,H]
+    logi = (x @ w_i).float()
 
     if state is None:
         C = torch.zeros((B, H, DH, DH), dtype=F32, device=x.device)
@@ -209,7 +283,8 @@ def mlstm_apply(p, x, cfg: ArchConfig, state=None, chunk: int = MLSTM_CHUNK):
             "bjhd,bjhe->bhde", kb * dk[..., None], vb)
         n = n * torch.exp(ftot)[..., None] + torch.einsum(
             "bjh,bjhd->bhd", dk, kb)
-    y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).reshape(B, S, D)
+    y = torch.cat(cost_hooks.outputs(ys, S, chunk), dim=1).reshape(
+        B, S, H * DH)
     og = torch.sigmoid(x @ p["w_og"])
     return (y * og) @ p["wo"], (C, n)
 
@@ -237,7 +312,14 @@ class SLSTM(SpecModule):
 def slstm_apply(p, x, cfg: ArchConfig, state=None):
     """Sequential sLSTM with exponential gating and the stabiliser m.
     state: (c, n, h, m) each [B, D]; c, n and m f32, h in x's dtype. The
-    fresh state (``state=None``) is (0, 1, 0, 0)."""
+    fresh state (``state=None``) is (0, 1, 0, 0). Whole on every "model"
+    rank of a mesh (see the module's docstring)."""
+    with cost_hooks.region("slstm"):
+        return _slstm(p, x, state)
+
+
+def _slstm(p, x, state):
+    """`slstm_apply`'s body."""
     B, S, D = x.shape
     zx = x @ p["w_gates"] + p["b_gates"]
     if state is None:

@@ -61,10 +61,10 @@ branch of ``_decode_attn_update`` and ``_mla_decode_update``:
 flash-decoding) and the paged pool's pages over "model" (``kv_pages``:
 each rank scores its own pages, combined the same way).
 
-Training on a mesh (``forward(mode="train", plan=)``, ``loss_fn(plan=)``)
-takes the global batch, computes this rank's rows (over "data", where the
-batch divides the data-parallel size) and holds each weight as its shard
-(`materialize_lm` with ``plan``). Each block's
+Training on a mesh (``forward(mode="train", plan=)``,
+``loss_fn(plan=)``) takes the global batch, computes this rank's rows
+(over "data", where the batch divides the data-parallel size) and holds
+each weight as its shard (`materialize_lm` with ``plan``). Each block's
 weights come from ``common.mesh_weights`` inside the block's remat
 checkpoint, so an FSDP gather over "data" is made again in the recompute
 and no gathered weight outlives its block. Every layer that JAX's layout
@@ -83,16 +83,17 @@ bottleneck and compressed keys, which every rank computes whole, are
 copied to the ranks' heads. A MoE layer computes its experts over
 "model" on its capacity slots over "data" (``layers.ExpertParallel``,
 the JAX layout of the dispatch buffer) and gathers the experts' outputs
-whole for its own combine. The embedding and the head are vocab-parallel
-where the vocab splits: a rank's rows of the table, the lookups summed
-over "model"; the CE's max, sum of exponentials and label logit combined
-over "model" (`_ce_chunk_mesh`). Only the recurrent mixers gather their
-weights whole and compute the same on every "model" rank (ROADMAP.md
-Queue A item 14m, its second part); ``vis_proj`` has no "model" dim. A
-MoE layer gathers the rows over "data" first (its capacity is
-batch-global), and its balance loss, whole on every "data" rank, enters
-each rank's loss divided by the data-parallel size; the CE is
-normalised by the global label count.
+whole for its own combine. Mamba runs on the rank's ``d_inner`` channels
+and the mLSTM on its heads (`ssm.mamba_apply`, `ssm.mlstm_apply` with
+``comm``). The embedding and the head are vocab-parallel where the vocab
+splits: a rank's rows of the table, the lookups summed over "model"; the
+CE's max, sum of exponentials and label logit combined over "model"
+(`_ce_chunk_mesh`). The sLSTM gathers its weights whole and computes the
+same on every "model" rank (its recurrence is dense over ``h``, `_TP`);
+``vis_proj`` has no "model" dim. A MoE layer gathers the rows over
+"data" first (its capacity is batch-global), and its balance loss, whole
+on every "data" rank, enters each rank's loss divided by the
+data-parallel size; the CE is normalised by the global label count.
 
 The plan's flags that change the computation act in train and serving
 alike, as the JAX package's do. ``attn_seq`` (`attn_flags`): where
@@ -739,15 +740,20 @@ _RECURRENT = {"mamba": (ssm.mamba_apply, ("tail", "h")),
               "slstm": (ssm.slstm_apply, ("c", "n", "h", "m"))}
 
 
-def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None):
+def _apply_recurrent(spec: LayerSpec, p, x, cfg, mode, cache, plan=None,
+                     comm=None):
     """One Mamba, mLSTM or sLSTM mixer. ``cache`` is this layer's state
     (views into the stacked cache): train and prefill start from the fresh
     state, decode from the cache's; prefill and decode write the new state
     back in place, in the cache's dtype. Train returns no cache. Mamba
-    takes the plan, as in the JAX package."""
+    takes the plan, as in the JAX package; ``comm`` (training on a mesh,
+    `_TP`'s ``mamba`` or ``mlstm``) runs Mamba or the mLSTM
+    tensor-parallel over its ranks on ``p``'s shards."""
     fn, names = _RECURRENT[spec.mixer]
     state = tuple(cache[k] for k in names) if mode == "decode" else None
     kw = {"plan": plan} if spec.mixer == "mamba" and plan is not None else {}
+    if comm is not None:
+        kw["comm"] = comm
     out, new = fn(p, x, cfg, state=state, **kw)
     if mode == "train":
         return out, None
@@ -760,7 +766,9 @@ def _apply_mixer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
                  pages=None, sh=None, tp=None):
     plan = sh.plan if sh is not None else None
     if spec.mixer in _RECURRENT:
-        return _apply_recurrent(spec, p, x, cfg, mode, cache, plan)
+        split = tp is not None and (tp.mamba or tp.mlstm)
+        return _apply_recurrent(spec, p, x, cfg, mode, cache, plan,
+                                plan.model if split else None)
     if spec.mixer == "mla":
         return _apply_mla(p, x, cfg, mode, positions, cache, pos, pages, sh,
                           plan.model if tp is not None and tp.mla else None)
@@ -824,9 +832,9 @@ def _apply_layer(spec: LayerSpec, p, x, cfg, mode, positions, cache, pos,
     condition, `layers.local_dispatch`) a MoE layer dispatches this
     rank's rows alone; otherwise, where the rows split over "data"
     (``sh.rows``), it gathers them first: its capacity is batch-global.
-    ``tp`` (a `_TP`, training on a mesh) runs the attention, MLA, the
-    cross block, the MLP or the MoE layer tensor-parallel on ``p``'s
-    shards."""
+    ``tp`` (a `_TP`, training on a mesh) runs the attention, MLA, Mamba,
+    the mLSTM, the cross block, the MLP or the MoE layer tensor-parallel
+    on ``p``'s shards."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     model = sh.plan.model if sh is not None else None
     h = _norm(p["norm1"], x, cfg)
@@ -1030,6 +1038,11 @@ def forward(model: LM, tokens, cfg: ArchConfig, *, mode="prefill",
 # MLA's leaves that hold its heads (the rest every "model" rank holds whole)
 _MLA_HEADS = ("w_uq", "w_uk", "w_uv", "wo")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
+# the mLSTM's leaves of a column a head, whole on every rank
+_MLSTM_GATES = ("w_i", "w_f", "b_f")
+# Mamba's leaves and the dim of each that holds d_inner
+_MAMBA_DI = {"w_in": 1, "conv_w": 1, "conv_b": 0, "w_x": 0, "w_dt": 1,
+             "b_dt": 0, "a_log": 0, "d_skip": 0, "w_out": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1043,7 +1056,20 @@ class _TP:
     `attn_flags`: every rank's q, k and v projections whole, their
     gradients summed over "model"), ``mla`` (MLA's heads over "model"),
     ``cross`` and ``cross_kv`` (the cross block's heads, as ``attn`` and
-    ``kv``) and ``ep`` (a MoE layer's `layers.ExpertParallel`)."""
+    ``kv``), ``ep`` (a MoE layer's `layers.ExpertParallel`), ``mamba``
+    (Mamba's ``d_inner`` channels over "model": every ``d_inner`` leaf the
+    rank's slice, ``w_in`` gathered whole with a backward that sums, then
+    cut to the rank's ``xin`` and ``z`` columns by `_block_weights`) and
+    ``mlstm`` (the mLSTM's heads over "model": ``wq``, ``wk``, ``wv``,
+    ``w_og`` and ``wo`` the rank's heads, the whole ``w_i``, ``w_f`` and
+    ``b_f`` copied to the ranks, each taking its heads' columns).
+
+    The sLSTM has no flag: its leaves stay "same", gathered whole, and
+    every "model" rank computes it alike. Its ``h @ r_gates`` recurs every
+    token over all of ``h``, and the resolver's contiguous "mlp" split of
+    ``4 D`` hands rank 0 of 2 the ``zi | zf`` gates and rank 1 ``zz |
+    zo``: a split would all-gather ``h`` once a token (4,096 collectives
+    a layer at ``train_4k``), as the recurrence is not block-diagonal."""
     attn: bool = False
     kv: slice | list | None = None
     mlp: bool = False
@@ -1052,6 +1078,8 @@ class _TP:
     cross: bool = False
     cross_kv: slice | list | None = None
     ep: L.ExpertParallel | None = None
+    mamba: bool = False
+    mlstm: bool = False
 
     def how(self, name: str) -> str:
         """``common.mesh_weights``'s mode of the block's leaf ``name``."""
@@ -1062,6 +1090,10 @@ class _TP:
                         and leaf_ in _KV_LEAVES else "shard")
             if self.mla and leaf_ in _MLA_HEADS:
                 return "shard"
+            if self.mamba:
+                return "diff" if leaf_ == "w_in" else "shard"
+            if self.mlstm:
+                return "diff" if leaf_ in _MLSTM_GATES else "shard"
             if self.seq and leaf_ != "wo":
                 return "diff"
         if head == "cross" and self.cross:
@@ -1111,6 +1143,29 @@ def _mlp_tp(ps: dict, prefix: str, F: int, plan, B: int, S: int) -> bool:
             and plan.splits(ps[f"{prefix}.w_down"], 0, "model"))
 
 
+def _mamba_tp(ps: dict, cfg: ArchConfig, plan, B: int, S: int) -> bool:
+    """Whether the Mamba leaves ``mixer``.* run over "model" on their
+    ``d_inner`` channels: where JAX's ``xz`` constraint splits ``2 di``,
+    every weight's ``d_inner`` dim splits with it and "model" divides
+    ``di``."""
+    di = cfg.mamba.expand * cfg.d_model
+    return (di % plan.shape()["model"] == 0
+            and plan.splits(plan.constraint((B, S, 2 * di), "batch", None,
+                                            "mlp"), 2, "model")
+            and all(plan.splits(ps[f"mixer.{n}"], ax, "model")
+                    for n, ax in _MAMBA_DI.items()))
+
+
+def _mlstm_tp(ps: dict, cfg: ArchConfig, plan) -> bool:
+    """Whether the mLSTM leaves ``mixer``.* run over "model" on their
+    heads: where the weights' head dims split and "model" divides the
+    heads (a column block of ``D = H DH`` is then whole heads)."""
+    return (cfg.n_heads % plan.shape()["model"] == 0
+            and all(plan.splits(ps[f"mixer.{n}"], 1, "model")
+                    for n in ("wq", "wk", "wv", "w_og"))
+            and plan.splits(ps["mixer.wo"], 0, "model"))
+
+
 def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int,
            encoder: bool = False) -> _TP:
     """Which of ``block``'s layers run tensor-parallel, each where the JAX
@@ -1119,8 +1174,10 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int,
     ``q_nope``'s heads (``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` split by
     heads), the MLP and the shared expert where it splits the hidden dim,
     a MoE layer's experts where ``xe``'s constraint splits them (its
-    capacity over "data" is decided at its shape, `layers._dispatch`).
-    An ``encoder`` layer takes none of the decoder's plan flags."""
+    capacity over "data" is decided at its shape, `layers._dispatch`),
+    Mamba on its ``d_inner`` channels (`_mamba_tp`) and the mLSTM on its
+    heads (`_mlstm_tp`); the sLSTM never (see `_TP`). An ``encoder``
+    layer takes none of the decoder's plan flags."""
     m = plan.shape()["model"]
     spec = block.spec
     moe = spec.ffn == "moe"
@@ -1140,6 +1197,8 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int,
             and all(plan.splits(ps[f"mixer.{n}"], 1, "model")
                     for n in ("w_uq", "w_uk", "w_uv"))
             and plan.splits(ps["mixer.wo"], 0, "model"))
+    mamba = spec.mixer == "mamba" and _mamba_tp(ps, cfg, plan, B, S)
+    mlstm = spec.mixer == "mlstm" and _mlstm_tp(ps, cfg, plan)
     if block.has_cross:
         cross, cross_kv = _attn_tp(ps, "cross", cfg, plan, B, S)
     mlp = spec.ffn == "mlp" and _mlp_tp(ps, "ffn", cfg.d_ff, plan, B, S)
@@ -1154,7 +1213,7 @@ def _tp_of(block, cfg: ArchConfig, plan, B: int, S: int,
             shared=bool(mo.n_shared) and _mlp_tp(
                 ps, "ffn.shared", mo.n_shared * mo.d_ff_expert, plan, B, S))
     return _TP(attn=attn, kv=kv, mlp=mlp, seq=seq, mla=mla, cross=cross,
-               cross_kv=cross_kv, ep=ep)
+               cross_kv=cross_kv, ep=ep, mamba=mamba, mlstm=mlstm)
 
 
 def _train_rows(plan, B: int) -> Shards:
@@ -1198,10 +1257,22 @@ def _embed_mesh(model: "LM", tokens, cfg: ArchConfig, plan, positions):
     return x
 
 
+def _block_weights(block, plan, tp: _TP):
+    """The weights of ``block`` on this rank under ``tp``:
+    ``common.mesh_weights`` by ``tp.how``, a split Mamba's whole ``w_in``
+    then cut to the rank's ``xin`` and ``z`` columns
+    (`ssm.mamba_w_in_shard`)."""
+    p = C.mesh_weights(block, plan, tp.how)
+    if tp.mamba:
+        p["mixer"]["w_in"] = ssm.mamba_w_in_shard(p["mixer"]["w_in"],
+                                                  plan.model)
+    return p
+
+
 def _mesh_block(block, x, cfg, positions, expert_perm, enc_out, sh, tp):
     """One block of the mesh's train forward, its weights gathered here
     (inside the caller's remat checkpoint)."""
-    p = C.mesh_weights(block, sh.plan, tp.how)
+    p = _block_weights(block, sh.plan, tp)
     x, _, aux = _apply_layer(block.spec, p, x, cfg, "train", positions,
                              None, None, None, expert_perm,
                              enc_out if block.has_cross else None, sh, tp)

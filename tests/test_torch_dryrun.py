@@ -371,11 +371,10 @@ def _loop_cases():
 def test_scaled_loop_counts_equal_whole_loop(loop):
     """A loop scaled by its trip count (grad disabled) counts what the
     whole loop (grad enabled) counts, its peak too: the kept outputs of
-    the scaled step count once for each step. Mamba's whole loop peaks
-    higher by one chunk's scan ``hs`` [2, 16, di 128, d_state 4] f32 less
-    the fresh state [2, 128, 4] f32: its carried state ``hs[:, -1]`` is a
-    view that keeps the previous chunk's scan alive into the next chunk,
-    where the scaled step starts from the fresh state."""
+    the scaled step count once for each step. Mamba's carried state is a
+    copy of the chunk's last row, which frees the chunk's scan ``hs``, so
+    its whole loop peaks no higher than the scaled step, which starts
+    from a fresh state of the same bytes."""
     fn = _loop_cases()[loop]
     with torch.no_grad():
         out_s, scaled = op_cost.count(fn)
@@ -386,9 +385,7 @@ def test_scaled_loop_counts_equal_whole_loop(loop):
     for key in ("flops", "bytes", "collective_bytes"):
         assert scaled[key] == whole[key], key
     assert scaled["flops"] > 0
-    carried = 4 * (2 * 16 * 128 * 4 - 2 * 128 * 4) \
-        if loop.startswith("mamba") else 0
-    assert whole["peak_bytes"] - scaled["peak_bytes"] == carried
+    assert whole["peak_bytes"] == scaled["peak_bytes"]
 
 
 def test_scaled_loop_refuses_real_tensors_and_autograd_runs_whole():
@@ -725,6 +722,25 @@ def test_train_step_splits_expert_products_over_model_and_data(arch):
         assert data * model * got["region_flops"]["moe_experts"] == \
             whole["region_flops"]["moe_experts"], (data, model)
         assert got["flops"] < whole["flops"]
+
+
+@pytest.mark.parametrize("arch,region", [("jamba-v0.1-52b", "mamba"),
+                                         ("xlstm-350m", "mlstm"),
+                                         ("xlstm-350m", "slstm")])
+def test_train_step_splits_recurrent_mixers_over_model(arch, region):
+    """The smoke configs' mesh train step on abstract (2, 2) and (1, 4)
+    meshes: a rank's Mamba and mLSTM products (``region_flops``: the
+    forward and the remat recompute) are 1/(data x model)
+    of a (1, 1) mesh's, the rank's rows over "data" and its ``d_inner``
+    channels (128 by 2 and 4) or heads (4 by 2 and 4) over "model"; the
+    sLSTM's are 1/data, whole on every "model" rank."""
+    whole = _smoke_train_count(arch, {"data": 1, "model": 1})
+    assert whole["region_flops"][region] > 0
+    for data, model in ((2, 2), (1, 4)):
+        got = _smoke_train_count(arch, {"data": data, "model": model})
+        split = data * (1 if region == "slstm" else model)
+        assert split * got["region_flops"][region] == \
+            whole["region_flops"][region], (data, model)
 
 
 def test_seq_parallel_attention_flops_against_hlo_cost(jax_cells):

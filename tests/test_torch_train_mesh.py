@@ -1,6 +1,7 @@
 """Training on a mesh: the port's mesh train step (weights laid out by the
-JAX resolver, attention, the MLP, the embedding and the head
-tensor-parallel over "model", FSDP over "data"), ``train(plan=)``,
+JAX resolver, attention, MLA, the MLP, MoE experts, Mamba's ``d_inner``
+channels, the mLSTM's heads, the embedding and the head tensor-parallel
+over "model", FSDP over "data"), ``train(plan=)``,
 ``train_supervised(plan=)``, sharded checkpoints, the int8 all-reduce and
 ``--mesh host``, on gloo ranks spawned on the CPU, against the port's
 one-device step and the JAX package's sharded step.
@@ -74,7 +75,13 @@ MOE_VARIANTS = {f"{MOE}/drops": dict(capacity_factor=0.25),
                 f"{MOE}/6-experts": dict(n_experts=6, top_k=2),
                 f"{MOE}/5-experts": dict(n_experts=5, top_k=2)}
 # the configs whose tensor-parallel parts the (2, 2) ranks report
-TP_ARCHS = (MOE, "deepseek-v2-236b", "jamba-v0.1-52b", "whisper-tiny")
+TP_ARCHS = (MOE, "deepseek-v2-236b", "jamba-v0.1-52b", "whisper-tiny",
+            "xlstm-350m")
+# xlstm-350m's smoke config with 2 heads: on (1, 4) "model" does not
+# divide them, so the mLSTM computes whole on every rank from weights the
+# resolver split mid-head
+XLSTM = "xlstm-350m"
+XLSTM_2H = f"{XLSTM}/2-heads"
 # one LR schedule for every run of a comparison
 OCFG = dict(total_steps=4, warmup=1)
 
@@ -92,6 +99,8 @@ def _cfg(name: str):
     heads; ``MOE_VARIANTS``: llama4-scout's with its MoE changed)."""
     if name == SIX_HEADS:
         return tget(ARCH).smoke().scaled(n_heads=6)
+    if name == XLSTM_2H:
+        return tget(XLSTM).smoke().scaled(n_heads=2)
     if name in MOE_VARIANTS:
         cfg = tget(MOE).smoke()
         return cfg.scaled(moe=dataclasses.replace(cfg.moe,
@@ -146,8 +155,9 @@ def _f32_step(plan, name: str):
 
 def _tp_report(plan, name: str) -> dict:
     """Each block's `_TP` (the encoder's first layer's as ``"enc0"``) as
-    plain flags, with the local shape of every weight ``mesh_weights``
-    hands the block under it."""
+    plain flags, with the local shape of every weight the block is handed
+    under it (`transformer._block_weights`) and a split Mamba's handed
+    ``w_in`` itself."""
     cfg = _cfg(name)
     model = TT.materialize_lm(cfg, 0, "cpu", plan=plan)
     blocks = [(str(k), b) for k, b in model.blocks()]
@@ -157,12 +167,14 @@ def _tp_report(plan, name: str) -> dict:
     for key, blk in blocks:
         tp = TT._tp_of(blk, cfg, plan, B // 2, S, encoder=key == "enc0")
         with torch.no_grad():
-            w = TC.mesh_weights(blk, plan, tp.how)
+            w = TT._block_weights(blk, plan, tp)
         flags = dict(attn=tp.attn, mlp=tp.mlp, mla=tp.mla, cross=tp.cross,
                      experts=tp.ep is not None and tp.ep.experts,
-                     shared=tp.ep is not None and tp.ep.shared)
+                     shared=tp.ep is not None and tp.ep.shared,
+                     mamba=tp.mamba, mlstm=tp.mlstm)
         out[key] = (flags, {n: tuple(TC.leaf(w, n).shape)
-                            for n, _, _ in TC.module_specs(blk)})
+                            for n, _, _ in TC.module_specs(blk)},
+                    w["mixer"]["w_in"].numpy() if tp.mamba else None)
     return out
 
 
@@ -383,8 +395,11 @@ def mesh_1x2(mesh_2x2, dirs):
 
 @pytest.fixture(scope="module")
 def mesh_1x4(jax_proc, dirs):
-    return run_ranks(_rank, 4, 1, 4, dict(dirs, f32=(ARCH, SIX_HEADS)),
-                     timeout=TIMEOUT)
+    """(1, 4): the ten configs' f32 step (jamba's Mamba on 32 of its 128
+    channels a rank, xlstm's mLSTM on 1 of its 4 heads), qwen2's with 6
+    heads and xlstm's with 2."""
+    return run_ranks(_rank, 4, 1, 4, dict(dirs, f32=ARCHS + (
+        SIX_HEADS, XLSTM_2H)), timeout=TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -455,8 +470,43 @@ def test_f32_mesh_step_with_heads_model_does_not_divide(mesh_1x4):
 
 
 @pytest.mark.parametrize("name", ARCHS)
-def test_every_config_f32_step_on_2x2(mesh_2x2, name):
-    _check_f32(mesh_2x2, name, {"data": 2, "model": 2})
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_every_config_f32_step_on_2x2(meshes, mesh, name):
+    """Every config's f32 step on (2, 2) and (1, 4) against one device; on
+    (1, 4) jamba's Mamba runs on 32 channels a rank and xlstm's mLSTM on
+    1 head."""
+    _check_f32(meshes[mesh], name, dict(zip(("data", "model"), mesh)))
+
+
+def _abstract_tp(name: str, mesh) -> dict:
+    """`_tp_of` of each block of ``name``'s smoke config on an abstract
+    ``mesh`` (its shape alone), the rank's rows of the global batch."""
+    from repro_torch.dist.sharding import Plan
+    plan = Plan.abstract(dict(zip(("data", "model"), mesh)))
+    cfg = _cfg(name)
+    model = TT.LM(cfg, device="meta")
+    return {k: TT._tp_of(b, cfg, plan, B // mesh[0], S)
+            for k, b in model.blocks()}
+
+
+def test_mlstm_heads_model_does_not_divide_stay_whole(mesh_1x4):
+    """xlstm's smoke config with 2 heads on (1, 4): "model" does not
+    divide the heads, so the mLSTM computes whole on every rank (its wq
+    columns split mid-head by the resolver and gathered), and still
+    matches one device; with its 4 heads each rank takes one."""
+    cfg = _cfg(XLSTM_2H)
+    sizes = {"data": 1, "model": 4}
+    spec = TT.LM(cfg, device="meta").layers[0].mixer.specs["wq"]
+    assert TC._resolve_pspec(spec, _rules(), sizes)[1] == ("model",)
+    assert cfg.n_heads % 4
+    pattern = cfg.pattern
+    for name, split in ((XLSTM_2H, False), (XLSTM, True)):
+        tps = _abstract_tp(name, (1, 4))
+        for k, tp in tps.items():
+            mixer = pattern[k % len(pattern)].mixer
+            assert tp.mlstm == (split and mixer == "mlstm"), (name, k)
+            assert not tp.mamba
+    _check_f32(mesh_1x4, XLSTM_2H, sizes)
 
 
 def _moe_slots(cfg) -> tuple[int, int]:
@@ -511,16 +561,19 @@ def test_moe_drops_and_resolver_fallbacks_match_one_device(mesh_2x2, name):
 def test_tp_of_splits_experts_mla_heads_encoder_and_cross(mesh_2x2, name):
     """On (2, 2) `_tp_of` runs each block's split layers tensor-parallel:
     llama4's attention, experts and shared expert, deepseek's MLA heads
-    (the dense layer's MLP too) and experts, jamba's experts and MLPs
-    (its Mamba mixers whole), whisper's attention, cross block and MLP
-    and its encoder's attention and MLP; ``mesh_weights`` then hands the
-    block the rank's half of each split dim (``d_model`` gathered over
-    "data") and every other weight whole."""
+    (the dense layer's MLP too) and experts, jamba's Mamba channels,
+    experts and MLPs, whisper's attention, cross block and MLP and its
+    encoder's attention and MLP, xlstm's mLSTM heads (its sLSTM whole);
+    the block is then handed the rank's half of each split dim
+    (``d_model`` gathered over "data"; a Mamba's ``w_in`` the rank's
+    ``xin`` and ``z`` columns of the whole) and every other weight
+    whole."""
     cfg = _cfg(name)
     D, H, DH = cfg.d_model, cfg.n_heads, cfg.d_head
+    whole = None
     for r in mesh_2x2:
         rep = r["tp"][name]
-        for key, (flags, shapes) in rep.items():
+        for key, (flags, shapes, w_in) in rep.items():
             spec = (LayerSpec("attn", "mlp") if key == "enc0" else
                     TT._dense_spec(cfg) if key.startswith("dense") else
                     cfg.pattern[int(key) % len(cfg.pattern)])
@@ -528,7 +581,9 @@ def test_tp_of_splits_experts_mla_heads_encoder_and_cross(mesh_2x2, name):
                         mla=spec.mixer == "mla",
                         cross=bool(cfg.encoder_layers) and key != "enc0",
                         experts=spec.ffn == "moe",
-                        shared=spec.ffn == "moe" and cfg.moe.n_shared > 0)
+                        shared=spec.ffn == "moe" and cfg.moe.n_shared > 0,
+                        mamba=spec.mixer == "mamba",
+                        mlstm=spec.mixer == "mlstm")
             assert flags == want, (name, key, flags)
             if spec.mixer == "attn":
                 assert shapes["mixer.wq"] == (D, H * DH // 2)
@@ -546,8 +601,33 @@ def test_tp_of_splits_experts_mla_heads_encoder_and_cross(mesh_2x2, name):
                 assert shapes["mixer.w_dq"] == (D, m.q_lora)
                 assert shapes["mixer.w_dkv"] == (D, m.kv_lora)
             if spec.mixer == "mamba":
-                assert shapes["mixer.w_in"] == (D, 4 * cfg.mamba.expand
-                                                * D // 2)
+                mb = cfg.mamba
+                di, dl = mb.expand * D, mb.expand * D // 2
+                dt_rank = mb.dt_rank or math.ceil(D / 16)
+                assert shapes["mixer.w_in"] == (D, 2 * dl)
+                assert shapes["mixer.conv_w"] == (mb.d_conv, dl)
+                assert shapes["mixer.a_log"] == (dl, mb.d_state)
+                assert shapes["mixer.w_x"] == (dl, dt_rank + 2 * mb.d_state)
+                assert shapes["mixer.w_dt"] == (dt_rank, dl)
+                assert shapes["mixer.w_out"] == (dl, D)
+                if whole is None:
+                    whole = dict(TT.materialize_lm(cfg, 0, "cpu")
+                                 .named_parameters())
+                w = whole[f"layers.{key}.mixer.w_in"].detach().numpy()
+                lo = r["coords"]["model"] * dl
+                np.testing.assert_array_equal(w_in, np.concatenate(
+                    [w[:, lo:lo + dl], w[:, di + lo:di + lo + dl]], 1))
+            if spec.mixer == "mlstm":
+                assert shapes["mixer.wq"] == (D, D // 2)
+                assert shapes["mixer.w_og"] == (D, D // 2)
+                assert shapes["mixer.wo"] == (D // 2, D)
+                assert shapes["mixer.w_i"] == (D, H)
+                assert shapes["mixer.b_f"] == (H,)
+            if spec.mixer == "slstm":
+                assert shapes["mixer.w_gates"] == (D, 4 * D)
+                assert shapes["mixer.r_gates"] == (D, 4 * D)
+                assert shapes["mixer.b_gates"] == (4 * D,)
+                assert shapes["mixer.wo"] == (D, D)
             if spec.ffn == "mlp":
                 assert shapes["ffn.w_gate"] == (D, cfg.d_ff // 2)
             if spec.ffn == "moe":
